@@ -1,0 +1,203 @@
+"""Client scheduling policies of the engine, port of the jnp half of
+``repro/core/scheduling.py``.
+
+A policy maps a static :class:`PolicyConfig` and the round's
+:class:`RoundState` to an (N,) bool mask of scheduled devices. Rankings are
+stable sorts, so ties break by device index as in the reference; the two
+greedy policies (``deadline``, ``age``) are the reference's fixed-trip loops,
+which stop early here once they are done (later trips change nothing).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, NamedTuple, Tuple
+
+import torch
+
+from repro_torch import random as trandom
+
+
+class RoundState(NamedTuple):
+    """Per-round inputs every policy sees."""
+    t: int                       # round index
+    key: torch.Tensor            # key for stochastic policies
+    snr_lin: torch.Tensor        # (N,) instantaneous linear SNR
+    avg_snr: torch.Tensor        # (N,) time-averaged SNR (EMA)
+    rates: torch.Tensor          # (N,) Shannon rate, bits/s
+    comm_lat: torch.Tensor       # (N,) upload latency, s
+    comp_lat: torch.Tensor       # (N,) compute latency, s
+    ages: torch.Tensor           # (N,) rounds since last scheduled
+    update_norms: torch.Tensor   # (N,) observed update-norm proxies
+
+
+@dataclasses.dataclass(frozen=True)
+class PolicyConfig:
+    """Static policy parameters."""
+    n_devices: int
+    n_scheduled: int
+    model_bits: float = 1e6
+    deadline_s: float = 5.0
+    age_alpha: float = 1.0
+    sub_bw: float = 1e6          # bandwidth_hz / n_subchannels
+    n_subchannels: int = 20
+
+
+PolicyFn = Callable[[PolicyConfig, RoundState], torch.Tensor]
+
+
+def _mask_of(idx: torch.Tensor, n: int) -> torch.Tensor:
+    mask = torch.zeros(n, dtype=torch.bool, device=idx.device)
+    mask[idx] = True
+    return mask
+
+
+def topk_mask_jax(score: torch.Tensor, k: int) -> torch.Tensor:
+    """Mask of the k highest scores (ties broken by index)."""
+    return _mask_of(torch.argsort(-score, stable=True)[:k], score.shape[0])
+
+
+def _random(pcfg: PolicyConfig, st: RoundState) -> torch.Tensor:
+    perm = trandom.permutation(st.key, pcfg.n_devices)
+    return _mask_of(perm[:pcfg.n_scheduled], pcfg.n_devices)
+
+
+def _round_robin(pcfg: PolicyConfig, st: RoundState) -> torch.Tensor:
+    n, k = pcfg.n_devices, pcfg.n_scheduled
+    g = st.t % max(1, n // k)
+    i = torch.arange(n, device=st.snr_lin.device)
+    return (i >= g * k) & (i < (g + 1) * k)
+
+
+def _best_channel(pcfg: PolicyConfig, st: RoundState) -> torch.Tensor:
+    return topk_mask_jax(st.snr_lin, pcfg.n_scheduled)
+
+
+def _latency(pcfg: PolicyConfig, st: RoundState) -> torch.Tensor:
+    return topk_mask_jax(-(st.comm_lat + st.comp_lat), pcfg.n_scheduled)
+
+
+def _pf(pcfg: PolicyConfig, st: RoundState) -> torch.Tensor:
+    """Proportional fair (§III.2): instantaneous over time-averaged SNR."""
+    ratio = st.snr_lin / torch.clamp_min(st.avg_snr, 1e-12)
+    return topk_mask_jax(ratio, pcfg.n_scheduled)
+
+
+def _bn2(pcfg: PolicyConfig, st: RoundState) -> torch.Tensor:
+    return topk_mask_jax(st.update_norms, pcfg.n_scheduled)
+
+
+def _bc_bn2(pcfg: PolicyConfig, st: RoundState) -> torch.Tensor:
+    pre = topk_mask_jax(st.snr_lin, min(2 * pcfg.n_scheduled,
+                                        pcfg.n_devices))
+    eff = torch.where(pre, st.update_norms,
+                      torch.full_like(st.update_norms, -torch.inf))
+    return topk_mask_jax(eff, pcfg.n_scheduled)
+
+
+def _bn2_c(pcfg: PolicyConfig, st: RoundState) -> torch.Tensor:
+    d_params = max(int(pcfg.model_bits / 32), 1)
+    bits_per_param = torch.clamp_min(st.rates * pcfg.deadline_s / d_params,
+                                     1e-3)
+    fidelity = 1.0 - torch.pow(2.0, -torch.clamp_max(bits_per_param, 32.0))
+    return topk_mask_jax(st.update_norms * fidelity, pcfg.n_scheduled)
+
+
+def _deadline(pcfg: PolicyConfig, st: RoundState) -> torch.Tensor:
+    """Nishio-Yonetani greedy (P4, eqs. 57-58): devices upload one by one;
+    appending candidate i gives round time max(t_upload, L_comp_i) +
+    L_comm_i; take the argmin while it meets the deadline."""
+    n = pcfg.n_devices
+    chosen = torch.zeros(n, dtype=torch.bool, device=st.snr_lin.device)
+    t_cur = torch.zeros((), dtype=torch.float32, device=st.snr_lin.device)
+    for _ in range(n):
+        cand_t = torch.maximum(t_cur, st.comp_lat) + st.comm_lat
+        cand_t = torch.where(chosen, torch.full_like(cand_t, torch.inf),
+                             cand_t)
+        best = torch.argmin(cand_t)
+        if not bool(cand_t[best] <= pcfg.deadline_s):
+            break
+        chosen[best] = True
+        t_cur = cand_t[best]
+    return chosen
+
+
+def _f_alpha(x: torch.Tensor, alpha: float) -> torch.Tensor:
+    if alpha == 1.0:
+        return torch.log1p(x)
+    return (x ** (1.0 - alpha)) / (1.0 - alpha)
+
+
+def age_greedy_jax(ages: torch.Tensor, snr_mat: torch.Tensor, r_min: float,
+                   sub_bw: float, alpha: float = 1.0) -> torch.Tensor:
+    """Two-phase greedy of [58] for P2/P3: each trip schedules the device
+    with the best f_alpha(age+1)/need, where ``need`` is the number of its
+    best available subchannels that clear ``r_min``; it takes them."""
+    n, w = snr_mat.shape
+    dev = snr_mat.device
+    j = torch.arange(1, w + 1, dtype=torch.float32, device=dev)
+    available = torch.ones(w, dtype=torch.bool, device=dev)
+    scheduled = torch.zeros(n, dtype=torch.bool, device=dev)
+    neg_inf = torch.tensor(-torch.inf, device=dev)
+    f_age = _f_alpha(ages + 1.0, alpha)
+    for _ in range(w):
+        n_avail = available.sum()
+        snr_av = torch.where(available[None, :], snr_mat, neg_inf)
+        s_sorted = -torch.sort(-snr_av, dim=1).values
+        s_sorted = torch.where(torch.isfinite(s_sorted), s_sorted,
+                               torch.zeros_like(s_sorted))
+        csum = torch.cumsum(s_sorted, dim=1)
+        rate_j = j * sub_bw * torch.log2(1.0 + csum / (j * j))
+        feasible_j = (rate_j >= r_min) & (j <= n_avail)
+        need = torch.where(feasible_j, j, torch.full_like(j, w + 1.0)
+                           ).amin(dim=1)
+        ratio = f_age / need
+        eligible = (~scheduled) & (need <= n_avail)
+        ratio = torch.where(eligible, ratio, neg_inf)
+        best = torch.argmax(ratio)
+        if not bool(torch.isfinite(ratio[best])):
+            break
+        score = torch.where(available, snr_mat[best], neg_inf)
+        rank = torch.argsort(torch.argsort(-score, stable=True), stable=True)
+        available = available & ~(rank < need[best])
+        scheduled[best] = True
+    return scheduled
+
+
+def _age(pcfg: PolicyConfig, st: RoundState) -> torch.Tensor:
+    n, w = pcfg.n_devices, pcfg.n_subchannels
+    snr_mat = st.snr_lin[:, None] * trandom.exponential(st.key, (n, w))
+    return age_greedy_jax(st.ages, snr_mat, pcfg.model_bits / pcfg.deadline_s,
+                          pcfg.sub_bw, pcfg.age_alpha)
+
+
+_POLICIES: Dict[str, PolicyFn] = {
+    "random": _random,
+    "round_robin": _round_robin,
+    "best_channel": _best_channel,
+    "latency": _latency,
+    "pf": _pf,
+    "bn2": _bn2,
+    "bc_bn2": _bc_bn2,
+    "bn2_c": _bn2_c,
+    "deadline": _deadline,
+    "age": _age,
+}
+
+
+def get_policy(name: str) -> PolicyFn:
+    """Registry lookup: policy name -> mask function."""
+    try:
+        return _POLICIES[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown policy {name!r}; known: {sorted(_POLICIES)}") from None
+
+
+def policy_names() -> Tuple[str, ...]:
+    return tuple(_POLICIES)
+
+
+def update_ages_jax(ages: torch.Tensor, scheduled: torch.Tensor
+                    ) -> torch.Tensor:
+    """Age recursion: 0 if scheduled else age + 1."""
+    return torch.where(scheduled, torch.zeros_like(ages), ages + 1.0)
