@@ -5,24 +5,39 @@
 Phases (any failure exits non-zero):
 
 1. card: require CUDA; print the card's name and power limit (nvidia-smi);
-2. build: compile ``src/repro_torch/kernels/csrc/rows.cu`` with nvcc for
-   sm_90a and print the build time and the compiler's register report;
-3. kernels: each CUDA kernel against its plain PyTorch version on the card
-   at the engine's block (4096, 32), the whole fleet (102400, 32), wide rows
-   (256, 65536) and a ragged (1000, 1000): top-k and QSGD bitwise, scaled
-   sign + EF to rtol 1e-5 / atol 1e-6; with each kernel's time, the plain
-   version's time and the least time the card could take (bytes or
+2. build: compile every ``src/repro_torch/kernels/csrc/*.cu`` with nvcc for
+   sm_90a (one nvcc per source, in parallel) and print the build time and
+   the compiler's register report;
+3. row kernels: each row kernel against its plain PyTorch version on the
+   card at the engine's block (4096, 32), the whole fleet (102400, 32), wide
+   rows (256, 65536) and a ragged (1000, 1000): top-k and QSGD bitwise,
+   scaled sign + EF to rtol 1e-5 / atol 1e-6; with each kernel's time, the
+   plain version's time and the least time the card could take (bytes or
    operations over the card's peak rate);
-4. reference: the engine on the card against the same engine on the CPU
+4. tile kernels: the whole-tensor kernels the same way at (100,), (3, 777),
+   (5, 7, 11), 2^18, 2^22 and 10^8 elements in float32, and 2^22 and 10^8
+   in bf16: top-k (k = 10 of 1024) and QSGD (256 levels) bitwise, scaled
+   sign + EF to rtol 1e-5 / atol 1e-6;
+5. API: ``block_topk``, ``qsgd_quantize`` and ``sign_ef_compress`` on one
+   10^8-element gradient (the ~100M-parameter model of
+   ``examples/train_fl_100m.py --full-100m``), each launch counter set to 0
+   before and required to read 1 after; each call's wall time, and the
+   share of ``qsgd_quantize`` that is the threefry draw of its dither;
+6. reference: the engine on the card against the same engine on the CPU
    (whose plain versions the test suite holds against the JAX reference) at
-   N = 4096, d = 256, the kernel-dispatch threshold: participation and
-   uplink bits equal, loss within rtol 1e-4;
-5. engine: the headline fleet configuration (N = 100000 clients, linear
+   N = 4096, d = 256, the kernel-dispatch threshold, for each kernel-backed
+   compressor under fedavg and for scaffold, fedadam and fedbuff under
+   top-k: participation and uplink bits equal, loss within rtol 1e-4;
+7. engine: the headline fleet configuration (N = 100000 clients, linear
    model d = 32, H = 2 local steps of batch 8, 4096-client blocks, on-device
    data, random scheduling of 256, 6 rounds) once per kernel-backed
    compressor with dense EF; every launch counter is set to 0 just before a
    run and read just after, and each run must launch its kernel; the loss
-   must stay finite and fall.
+   must stay finite and fall;
+8. algorithms: all eight algorithms at the same fleet configuration with
+   top-k and dense EF, 3 rounds after a 1-round warm-up: rounds/s each, the
+   loss finite and falling, and ``topk_rows`` launched 25 times per round
+   (50 under SCAFFOLD, whose ctrl delta is a second uplink message).
 
 The last two lines of output are the kernel table as JSON and the result.
 """
@@ -45,32 +60,50 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 SHAPES = [(4096, 32), (102400, 32), (256, 65536), (1000, 1000)]
 ENGINE_BLOCK = (4096, 32)
+GRAD_ELEMS = 10 ** 8       # the ~100M-parameter model's gradient
+TILE_CASES = ([((100,), torch.float32), ((3, 777), torch.float32),
+               ((5, 7, 11), torch.float32), ((1 << 18,), torch.float32)]
+              + [((n,), dt) for n in (1 << 22, GRAD_ELEMS)
+                 for dt in (torch.float32, torch.bfloat16)])
+TILE_K, TILE_LEVELS = 10, 256  # block_topk's default k_frac, qsgd's levels
 FLEET = dict(n_devices=100_000, n_scheduled=256, local_steps=2,
              policy="random", chunk_size=4096, seed=0)
-D_FLEET, ROUNDS, BATCH = 32, 6, 8
+D_FLEET, ROUNDS, ALGO_ROUNDS, BATCH = 32, 6, 3, 8
+ALGOS = ("fedavg", "fedavg_m", "fedprox", "scaffold", "slowmo", "fedadam",
+         "fedyogi", "fedbuff")
+ROWS_SRC = "src/repro_torch/kernels/csrc/rows.cu"
+TILES_SRC = "src/repro_torch/kernels/csrc/tiles.cu"
 
-# per kernel: the TPU kernel it replaces, bytes per element it must move
-# (each input read once, each output written once) plus bytes per row, and
-# float32 operations per element (top-k: |x|, max, 24 x (compare, count),
-# final compare + select; QSGD: 11 elementwise ops; scaled sign + EF: add,
-# |.|, sum, sign, scale, subtract)
+# per kernel: the TPU kernel it replaces, its source, and what it must move
+# and compute: bytes per element as a function of x's element size (each
+# input read once, each output written once), bytes per row and per call,
+# and float32 operations per element (top-k: |x|, max, 24 x (compare,
+# count), final compare + select; QSGD: 11 elementwise ops; scaled sign + EF:
+# add, |.|, sum, sign, scale, subtract)
 KERNELS = {
-    "sign_ef_rows": ("src/repro/kernels/sign_ef.py:55", 16, 0, 6),
-    "topk_rows": ("src/repro/kernels/topk_mask.py:83", 8, 0, 52),
-    "qsgd_rows": ("src/repro/kernels/qsgd.py:64", 12, 4, 11),
+    "sign_ef_rows": ("src/repro/kernels/sign_ef.py:55", ROWS_SRC,
+                     lambda sx: 16, 0, 0, 6),
+    "topk_rows": ("src/repro/kernels/topk_mask.py:83", ROWS_SRC,
+                  lambda sx: 8, 0, 0, 52),
+    "qsgd_rows": ("src/repro/kernels/qsgd.py:64", ROWS_SRC,
+                  lambda sx: 12, 4, 0, 11),
+    "block_topk_tiles": ("src/repro/kernels/topk_mask.py:42", TILES_SRC,
+                         lambda sx: 2 * sx, 0, 0, 52),
+    "qsgd_tiles": ("src/repro/kernels/qsgd.py:28", TILES_SRC,
+                   lambda sx: 2 * sx + 4, 0, 4, 11),
+    "sign_ef_tiles": ("src/repro/kernels/sign_ef.py:23", TILES_SRC,
+                      lambda sx: sx + 12, 0, 0, 6),
 }
-SOURCE = "src/repro_torch/kernels/csrc/rows.cu"
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def bound_ms(name: str, shape) -> tuple:
-    _, b_elem, b_row, ops = KERNELS[name]
-    rows, d = shape
-    t_bytes = (rows * d * b_elem + rows * b_row) / HBM_BYTES_PER_S * 1e3
-    t_ops = rows * d * ops / FP32_OPS_PER_S * 1e3
+def bound_ms(name: str, n: int, rows: int = 0, sx: int = 4) -> tuple:
+    _, _, b_elem, b_row, b_call, ops = KERNELS[name]
+    t_bytes = (n * b_elem(sx) + rows * b_row + b_call) / HBM_BYTES_PER_S * 1e3
+    t_ops = n * ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -85,6 +118,15 @@ def time_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def wall_s(fn):
+    """One call on the host clock, the device drained before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
 
 
 def card() -> str:
@@ -105,22 +147,47 @@ def build() -> None:
     t0 = time.perf_counter()
     so = kbuild.build()
     kbuild.lib()
-    log(f"build: {so.name} in {time.perf_counter() - t0:.2f} s")
+    log(f"build: {so.name} from {len(kbuild.sources())} sources in "
+        f"{time.perf_counter() - t0:.2f} s")
     name = None
     for line in so.with_suffix(".log").read_text().splitlines():
         m = re.search(r"(topk_rows_warp|topk_rows_block|qsgd_rows_kernel|"
-                      r"sign_ef_rows_warp|sign_ef_rows_block)(?:ILi(\d+)E)?",
+                      r"sign_ef_rows_warp|sign_ef_rows_block|topk_tiles_warp|"
+                      r"sign_ef_tiles_warp|qsgd_tiles_kernel)"
+                      r"(?:I(?:Li(\d+)E)?(f|13__nv_bfloat16)?(Lb[01]E)?E)?",
                       line)
         if m and "Compiling" in line:
-            name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+            args = [a for a in (m.group(2), {"f": "float", None: None}.get(
+                m.group(3), "bf16"), {"Lb1E": "vec", "Lb0E": "scalar"}.get(
+                m.group(4))) if a]
+            name = m.group(1) + (f"<{','.join(args)}>" if args else "")
         elif "registers" in line or "spill" in line:
             log(f"  ptxas {name}: {line.split(':', 1)[-1].strip()}")
 
 
-def check_kernels(dev) -> dict:
+def _record(table, name, err, ms, plain_ms, b_ms, b_by, headline):
+    row = table.setdefault(name, {"max_abs_err": 0.0})
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+    if headline:
+        row.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+def _compare(name, what, got, want, tolerant):
+    torch.cuda.synchronize()
+    pairs = list(zip(got, want)) if tolerant else [(got, want)]
+    for g, w in pairs:
+        if tolerant:
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+        elif not torch.equal(g, w):
+            raise AssertionError(f"{name} {what}: kernel differs from its "
+                                 "plain version")
+    return max(float((g.float() - w.float()).abs().max()) if g.numel()
+               else 0.0 for g, w in pairs)
+
+
+def check_kernels(dev, table: dict) -> None:
     from repro_torch.kernels import qsgd, sign_ef, topk_mask
     gen = torch.Generator(device=dev).manual_seed(0)
-    table = {}
     for shape in SHAPES:
         rows, d = shape
         x = torch.randn(shape, device=dev, generator=gen)
@@ -139,32 +206,105 @@ def check_kernels(dev) -> dict:
                              lambda: sign_ef.sign_ef_rows_plain(x, e)),
         }
         for name, (kern, plain) in runs.items():
-            got, want = kern(), plain()
-            torch.cuda.synchronize()
-            if name == "sign_ef_rows":
-                for g, w in zip(got, want):
-                    torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
-                err = max(float((g - w).abs().max())
-                          for g, w in zip(got, want))
-            else:
-                if not torch.equal(got, want):
-                    raise AssertionError(f"{name} {shape}: kernel differs "
-                                         "from its plain version")
-                err = float((got - want).abs().max())
+            err = _compare(name, shape, kern(), plain(),
+                           name == "sign_ef_rows")
             ms, plain_ms = time_ms(kern, iters), time_ms(plain, iters)
-            b_ms, b_by = bound_ms(name, shape)
+            b_ms, b_by = bound_ms(name, rows * d, rows)
             log(f"kernel {name} {shape}: max_abs_err {err:.3g} "
                 f"ms {ms:.5f} plain_ms {plain_ms:.5f} "
                 f"bound_ms {b_ms:.5f} ({b_by})")
-            row = table.setdefault(name, {"max_abs_err": 0.0})
-            row["max_abs_err"] = max(row["max_abs_err"], err)
-            if shape == ENGINE_BLOCK:
-                row.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                           bound_by=b_by)
+            _record(table, name, err, ms, plain_ms, b_ms, b_by,
+                    shape == ENGINE_BLOCK)
         del x, e, u, norms
-    log("kernels: no single PyTorch call computes any of the three "
-        "functions, so library_ms is null")
-    return table
+
+
+def check_tile_kernels(dev, table: dict) -> None:
+    from repro_torch.kernels import qsgd, sign_ef, topk_mask
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for shape, dt in TILE_CASES:
+        x = torch.randn(shape, device=dev, generator=gen).to(dt)
+        e = 0.1 * torch.randn(shape, device=dev, generator=gen)
+        n = x.numel()
+        u = torch.rand(-(-n // 8192) * 8, 1024, device=dev, generator=gen)
+        norm = torch.linalg.vector_norm(x.to(torch.float32).reshape(-1))
+        runs = {
+            "block_topk_tiles": (
+                lambda: topk_mask.block_topk_tiles(x, TILE_K),
+                lambda: topk_mask.block_topk_tiles_plain(x, TILE_K)),
+            "qsgd_tiles": (
+                lambda: qsgd.qsgd_tiles(x, u, norm, TILE_LEVELS),
+                lambda: qsgd.qsgd_tiles_plain(x, u, norm, TILE_LEVELS)),
+            "sign_ef_tiles": (lambda: sign_ef.sign_ef_tiles(x, e),
+                              lambda: sign_ef.sign_ef_tiles_plain(x, e)),
+        }
+        what = f"{shape} {str(dt).split('.')[-1]}"
+        iters = 200 if n <= 1 << 22 else 12
+        for name, (kern, plain) in runs.items():
+            err = _compare(name, what, kern(), plain(),
+                           name == "sign_ef_tiles")
+            ms, plain_ms = time_ms(kern, iters), time_ms(plain, iters // 4)
+            b_ms, b_by = bound_ms(name, n, sx=x.element_size())
+            log(f"kernel {name} {what}: max_abs_err {err:.3g} "
+                f"ms {ms:.5f} plain_ms {plain_ms:.5f} "
+                f"bound_ms {b_ms:.5f} ({b_by})")
+            _record(table, name, err, ms, plain_ms, b_ms, b_by,
+                    n == GRAD_ELEMS and dt == torch.float32)
+        del x, e, u, norm
+    torch.cuda.empty_cache()
+
+
+def run_api(dev) -> dict:
+    """The whole-tensor APIs once each on a 10^8-element gradient."""
+    from repro_torch import random as trandom
+    from repro_torch.kernels import ops, qsgd, sign_ef, topk_mask
+    counters = {"block_topk_tiles": topk_mask.block_topk_tiles,
+                "qsgd_tiles": qsgd.qsgd_tiles,
+                "sign_ef_tiles": sign_ef.sign_ef_tiles}
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn(GRAD_ELEMS, device=dev, generator=gen)
+    e = 0.1 * torch.randn(GRAD_ELEMS, device=dev, generator=gen)
+    key = trandom.PRNGKey(7, dev)
+    calls = {"block_topk_tiles": lambda: ops.block_topk(x),
+             "qsgd_tiles": lambda: ops.qsgd_quantize(key, x),
+             "sign_ef_tiles": lambda: ops.sign_ef_compress(x, e)}
+    for call in calls.values():  # warm-up: allocator and first launches
+        call()
+    rows = -(-GRAD_ELEMS // 8192) * 8
+    u, draw_s = wall_s(lambda: trandom.uniform(key, (rows, 1024)))
+    for fn in counters.values():
+        fn.launches = 0
+    outs, secs = {}, {}
+    for name, call in calls.items():
+        outs[name], secs[name] = wall_s(call)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    log(f"api at {GRAD_ELEMS} elements: block_topk {secs['block_topk_tiles']:.6f} s, "
+        f"qsgd_quantize {secs['qsgd_tiles']:.6f} s (threefry draw of u "
+        f"{draw_s:.6f} s = {draw_s / secs['qsgd_tiles']:.3f} of it), "
+        f"sign_ef_compress {secs['sign_ef_tiles']:.6f} s; "
+        f"launches {launches}")
+    if any(v != 1 for v in launches.values()):
+        raise AssertionError(f"api: each kernel must launch once: {launches}")
+    # the outputs, by the repo's own means: the plain versions on the same
+    # inputs (and the same dither), finite, shaped like the gradient, and the
+    # EF invariant c + e' = x + e
+    norm = torch.linalg.vector_norm(x.to(torch.float32).reshape(-1))
+    if not (torch.equal(outs["block_topk_tiles"],
+                        topk_mask.block_topk_tiles_plain(x, TILE_K))
+            and torch.equal(outs["qsgd_tiles"], qsgd.qsgd_tiles_plain(
+                x, u, norm, TILE_LEVELS))):
+        raise AssertionError("api: block_topk / qsgd_quantize differ from "
+                             "their plain versions")
+    c, e_new = outs["sign_ef_tiles"]
+    torch.testing.assert_close(c + e_new, x + e, rtol=1e-5, atol=1e-6)
+    kept = int((outs["block_topk_tiles"] != 0).sum())
+    for out in (outs["block_topk_tiles"], outs["qsgd_tiles"], c, e_new):
+        if out.shape != x.shape or not bool(torch.isfinite(out).all()):
+            raise AssertionError("api: output not finite or misshapen")
+    log(f"api: block_topk kept {kept} of {GRAD_ELEMS} "
+        f"({kept / GRAD_ELEMS:.5f}, k = {TILE_K} of 1024 per row)")
+    del x, e, u, outs, c, e_new
+    torch.cuda.empty_cache()
+    return launches
 
 
 def _loss(p, b):
@@ -178,13 +318,15 @@ def check_against_cpu(dev) -> None:
     from repro_torch.fl import runtime as rt
     d = 256
     w_star = np.random.default_rng(42).standard_normal(d).astype(np.float32)
-    for comp in ("topk", "qsgd", "scaled_sign"):
+    cases = ([("fedavg", c) for c in ("topk", "qsgd", "scaled_sign")]
+             + [(a, "topk") for a in ("scaffold", "fedadam", "fedbuff")])
+    for algo, comp in cases:
         logs = []
         for device in (dev, "cpu"):
             cfg = rt.SimConfig(
                 n_devices=4096, n_scheduled=64, rounds=2, local_steps=2,
                 policy="random", compression=comp, chunk_size=1024, seed=20,
-                algo_params=algos.algo_params(lr=0.1),
+                algorithm=algo, algo_params=algos.algo_params(lr=0.1),
                 datagen=make_linear_datagen(w_star))
             _, lg = rt.run_simulation_scan(
                 cfg, _loss, {"w": np.zeros(d, np.float32)}, device=device)
@@ -195,57 +337,84 @@ def check_against_cpu(dev) -> None:
         np.testing.assert_allclose(g.loss, c.loss, rtol=1e-4)
         np.testing.assert_allclose(g.latency_s, c.latency_s, rtol=1e-5)
         rel = float(np.max(np.abs(g.loss - c.loss) / np.abs(c.loss)))
-        log(f"reference {comp}: card == cpu (participation, bits); "
+        log(f"reference {algo} {comp}: card == cpu (participation, bits); "
             f"loss max rel diff {rel:.3g}")
 
 
-def run_engine(dev, smi: str) -> dict:
+def _fleet_run(dev, datagen, rounds, **kw):
+    """One warmed-up engine run at the fleet configuration, every row
+    launch counter set to 0 just before it and read just after."""
     from repro_torch.core.algorithms import registry as algos
-    from repro_torch.data import make_linear_datagen
     from repro_torch.fl import runtime as rt
     from repro_torch.kernels import qsgd, sign_ef, topk_mask
     counters = {"topk_rows": topk_mask.topk_rows,
                 "qsgd_rows": qsgd.qsgd_rows,
                 "sign_ef_rows": sign_ef.sign_ef_rows}
-    by_comp = {"topk": "topk_rows", "qsgd": "qsgd_rows",
-               "scaled_sign": "sign_ef_rows"}
+
+    def cfg(r):
+        return rt.SimConfig(rounds=r, datagen=datagen,
+                            algo_params=algos.algo_params(lr=0.05),
+                            **FLEET, **kw)
+    params0 = {"w": np.zeros(D_FLEET, np.float32)}
+    rt.run_simulation_scan(cfg(1), _loss, params0, device=dev)  # warm-up
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    (params, logs), dt = wall_s(
+        lambda: rt.run_simulation_scan(cfg(rounds), _loss, params0,
+                                       device=dev))
+    counts = {n: fn.launches for n, fn in counters.items()}
+    what = " ".join(str(v) for v in kw.values())
+    if not np.all(np.isfinite(logs.loss)) or not (
+            logs.loss[-1] < logs.loss[0]):
+        raise AssertionError(f"engine {what}: loss not finite or not "
+                             f"falling: {logs.loss}")
+    if params["w"].shape != (D_FLEET,) or not bool(
+            torch.isfinite(params["w"]).all()):
+        raise AssertionError(f"engine {what}: bad final params")
+    if not np.all(logs.n_scheduled == FLEET["n_scheduled"]):
+        raise AssertionError(f"engine {what}: schedule size off")
+    return rounds / dt, counts, logs
+
+
+def _datagen():
+    from repro_torch.data import make_linear_datagen
     w_star = np.random.default_rng(42).standard_normal(D_FLEET).astype(
         np.float32)
-    datagen = make_linear_datagen(w_star, local_steps=2, batch=BATCH)
+    return make_linear_datagen(w_star, local_steps=2, batch=BATCH)
+
+
+def run_engine(dev, smi: str) -> dict:
+    by_comp = {"topk": "topk_rows", "qsgd": "qsgd_rows",
+               "scaled_sign": "sign_ef_rows"}
+    datagen = _datagen()
     launches = {}
     for comp, kname in by_comp.items():
-        def cfg(rounds):
-            return rt.SimConfig(rounds=rounds, compression=comp,
-                                datagen=datagen,
-                                algo_params=algos.algo_params(lr=0.05),
-                                **FLEET)
-        params0 = {"w": np.zeros(D_FLEET, np.float32)}
-        rt.run_simulation_scan(cfg(1), _loss, params0, device=dev)  # warm-up
-        torch.cuda.synchronize()
-        for fn in counters.values():
-            fn.launches = 0
-        t0 = time.perf_counter()
-        params, logs = rt.run_simulation_scan(cfg(ROUNDS), _loss, params0,
-                                              device=dev)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        counts = {n: fn.launches for n, fn in counters.items()}
+        rate, counts, logs = _fleet_run(dev, datagen, ROUNDS,
+                                        compression=comp)
         launches[kname] = counts[kname]
-        log(f"engine {comp}: {ROUNDS / dt:.4f} rounds/s at N="
+        log(f"engine {comp}: {rate:.4f} rounds/s at N="
             f"{FLEET['n_devices']} on {smi}; launches {counts}; "
             f"loss {logs.loss.tolist()}")
         if counts[kname] == 0:
             raise AssertionError(f"engine {comp} never launched {kname}")
-        if not np.all(np.isfinite(logs.loss)) or not (
-                logs.loss[-1] < logs.loss[0]):
-            raise AssertionError(f"engine {comp}: loss not finite or not "
-                                 f"falling: {logs.loss}")
-        if params["w"].shape != (D_FLEET,) or not bool(
-                torch.isfinite(params["w"]).all()):
-            raise AssertionError(f"engine {comp}: bad final params")
-        if not np.all(logs.n_scheduled == FLEET["n_scheduled"]):
-            raise AssertionError(f"engine {comp}: schedule size off")
     return launches
+
+
+def run_algorithms(dev, smi: str) -> None:
+    datagen = _datagen()
+    blocks = -(-FLEET["n_devices"] // FLEET["chunk_size"])
+    for algo in ALGOS:
+        rate, counts, logs = _fleet_run(dev, datagen, ALGO_ROUNDS,
+                                        compression="topk", algorithm=algo)
+        per_round = blocks * (2 if algo == "scaffold" else 1)
+        log(f"algorithm {algo}: {rate:.4f} rounds/s at N="
+            f"{FLEET['n_devices']} (top-k, dense EF) on {smi}; launches "
+            f"{counts}; loss {logs.loss.tolist()}")
+        if counts["topk_rows"] != per_round * ALGO_ROUNDS:
+            raise AssertionError(
+                f"algorithm {algo}: topk_rows launched {counts['topk_rows']}"
+                f" times, expected {per_round} per round")
 
 
 def main() -> int:
@@ -254,13 +423,19 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     build()
-    table = check_kernels(dev)
+    table = {}
+    check_kernels(dev, table)
+    check_tile_kernels(dev, table)
+    log("kernels: no single PyTorch call computes any of the six "
+        "functions, so library_ms is null")
+    launches = run_api(dev)
     check_against_cpu(dev)
-    launches = run_engine(dev, smi)
+    launches.update(run_engine(dev, smi))
+    run_algorithms(dev, smi)
     rows = []
-    for name, (replaces, *_rest) in KERNELS.items():
+    for name, (replaces, source, *_rest) in KERNELS.items():
         r = table[name]
-        rows.append({"name": name, "route": "cuda", "source": SOURCE,
+        rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -1,6 +1,7 @@
-"""Carry JAX-side values into the port, as numpy arrays: parameter dicts
-and PRNG keys. The port never imports JAX; callers hand over what
-``np.asarray`` makes of a JAX array."""
+"""Carry JAX-side values into the port, as numpy arrays: parameter dicts,
+PRNG keys and a whole round state. The port never imports JAX; callers hand
+over JAX objects, which are read through ``np.asarray`` and their field
+names."""
 from __future__ import annotations
 
 from typing import Dict
@@ -8,14 +9,60 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch.core import aggregation as agg
+from repro_torch.core.compression.error_feedback import SparseEF
+from repro_torch.fl.server import FLState
+
+
+def _tensor(v, device=None) -> torch.Tensor:
+    """An array-like -> a tensor of the same dtype and values (bf16, which
+    numpy holds as an extension type, goes through float32 exactly)."""
+    a = np.array(v)
+    if a.dtype.name == "bfloat16":
+        return torch.as_tensor(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.as_tensor(a).to(device)
+
 
 def params_from_jax(tree: Dict, device=None) -> Dict[str, torch.Tensor]:
     """A (flat) dict of arrays -> dict of tensors on ``device``, same
     dtypes and values."""
-    return {k: torch.as_tensor(np.array(v)).to(device) for k, v in tree.items()}
+    return {k: _tensor(v, device) for k, v in tree.items()}
 
 
 def key_from_jax(key, device=None) -> torch.Tensor:
     """A raw ``jax.random.PRNGKey`` (uint32 words, shape (..., 2)) -> the
     port's int64 key tensor."""
     return torch.as_tensor(np.asarray(key).astype(np.int64), device=device)
+
+
+# the reference's NamedTuples of server and EF state, by class name
+_NAMED = {"SlowMoState": agg.SlowMoState,
+          "ServerOptState": agg.ServerOptState,
+          "SparseEF": SparseEF}
+
+
+def _tree(v, device):
+    if v is None:
+        return None
+    if isinstance(v, dict):
+        return {k: _tree(x, device) for k, x in v.items()}
+    if isinstance(v, tuple):
+        leaves = [_tree(x, device) for x in v]
+        if hasattr(v, "_fields"):
+            return _NAMED[type(v).__name__](*leaves)
+        return tuple(leaves)
+    return _tensor(v, device)
+
+
+def fl_state_from_jax(state, device=None):
+    """The reference's ``repro.fl.server.FLState`` -> the port's, on
+    ``device``: params, the uplink EF (dense or sparse), the downlink EF,
+    the algorithm's server state (SCAFFOLD's control variate, SlowMo's
+    momentum, Adam's / Yogi's moments and step, fedbuff's buffer and
+    counter), the (N, D) ctrl matrix and the round counter."""
+    return FLState(params_from_jax(state.params, device),
+                   _tree(state.client_error, device),
+                   _tree(state.server_error, device),
+                   _tree(state.server_opt, device),
+                   _tree(state.ctrl, device), int(state.round))

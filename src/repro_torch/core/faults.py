@@ -1,6 +1,6 @@
-"""Fault-layer draws the fault-free engine still makes, port of
-``repro/core/faults.py``: the downlink's own fading stream. The rest of the
-fault layer (churn, dropout, stragglers, retries) is not ported yet.
+"""The parts of ``repro/core/faults.py`` the fault-free engine uses: the
+downlink's own fading stream and fedbuff's staleness discount. The rest of
+the fault layer (churn, dropout, stragglers, retries) is not ported yet.
 """
 from __future__ import annotations
 
@@ -20,3 +20,13 @@ def downlink_fading(kt: torch.Tensor, n: int) -> torch.Tensor:
     keys = chunking.client_keys(trandom.fold_in(kt, DOWNLINK_FOLD),
                                 torch.arange(n, device=kt.device))
     return trandom.exponential(keys, ())
+
+
+def staleness_weights(aparams, staleness: torch.Tensor) -> torch.Tensor:
+    """FedBuff's polynomial staleness discount ``(1 + tau)^-pow``. With
+    ``staleness_pow == 0`` it is exactly 1.0 (not ``x^-0``): multiplying a
+    message by 1.0 is an IEEE identity, which keeps fedbuff with no
+    discount bitwise equal to fedavg."""
+    pw = aparams.staleness_pow
+    return torch.where(pw > 0, (1.0 + staleness) ** (-pw),
+                       torch.ones_like(staleness))

@@ -13,6 +13,10 @@ reference bit for bit.
 Entry points run on the CUDA device unless ``device=`` says otherwise, and
 raise when CUDA is absent: they never fall back to the CPU.
 
+Every algorithm of the registry runs here: SCAFFOLD's (N, D) control
+variates ride in the round state, and fedbuff's staleness discount reads the
+scheduling age before each round's update.
+
 Not in this slice: faults, privacy, sweeps, the hierarchical engine and
 gossip; ``SimConfig`` raises ``NotImplementedError`` when asked for faults
 or privacy.
@@ -21,6 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import warnings
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -87,6 +92,10 @@ class SimConfig:
     datagen: Optional[Callable] = None
     faults: Any = None                   # not ported yet: must stay None
     privacy: str = "none"                # not ported yet: must stay "none"
+    # deprecated spellings, mapped onto algorithm / algo_params with a
+    # DeprecationWarning as the reference maps them
+    lr: Optional[float] = None
+    server: Optional[str] = None
 
     def __post_init__(self):
         if self.chunk_size is not None and not chunking.is_pow2(
@@ -106,6 +115,28 @@ class SimConfig:
         if self.state_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unknown state_dtype {self.state_dtype!r}; "
                              "use 'float32'/'bfloat16'")
+        if self.server is not None:
+            mapped = algo_registry.from_server_name(self.server)
+            warnings.warn(
+                f"SimConfig.server={self.server!r} is deprecated; use "
+                f"SimConfig.algorithm={mapped!r} (core.algorithms registry)",
+                DeprecationWarning, stacklevel=3)
+            if self.algorithm not in ("fedavg", mapped):
+                raise ValueError(
+                    f"SimConfig sets both algorithm={self.algorithm!r} and "
+                    f"the deprecated server={self.server!r} (-> {mapped!r}); "
+                    "drop SimConfig.server")
+            self.algorithm = mapped
+            self.server = None
+        if self.lr is not None:
+            warnings.warn(
+                "SimConfig.lr is deprecated; pass algo_params="
+                "algo_params(lr=...)", DeprecationWarning, stacklevel=3)
+            ap = (self.algo_params if self.algo_params is not None
+                  else algo_registry.default_algo_params())
+            self.algo_params = ap._replace(
+                lr=torch.tensor(float(self.lr), dtype=torch.float32))
+            self.lr = None
         if self.faults is not None:
             raise NotImplementedError("the fault layer is not ported to "
                                       "PyTorch yet")
@@ -282,15 +313,21 @@ def run_simulation_scan(cfg: SimConfig, loss_fn, init_params: Params,
             comm_lat=comm_lat, comp_lat=comp_lat, ages=ages,
             update_norms=norms)
         mask = policy_fn(pcfg, rstate)
+        # staleness-aware algorithms (fedbuff) discount old updates; with
+        # faults off the staleness is the scheduling age before this round
+        sw = (faults_lib.staleness_weights(aparams, ages)
+              if algo.uses_staleness else None)
         ages = scheduling.update_ages_jax(ages, mask)
         part = mask.to(torch.float32)
         if comp_active:
             state, metrics = round_fn(state, round_batches, participation=part,
-                                      cparams=cparams, key=kz)
+                                      cparams=cparams, key=kz,
+                                      staleness_weights=sw)
             ubits = payload_scale * metrics["uplink_bits"]
         else:
             state, metrics = round_fn(state, round_batches,
-                                      participation=part)
+                                      participation=part,
+                                      staleness_weights=sw)
             ubits = bits_dev * mask.sum()
 
         # downlink: the broadcast opens the round at BS power over the full

@@ -1,11 +1,13 @@
-"""Build and load the hand-written CUDA kernels (``csrc/rows.cu``).
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface and loaded with ``ctypes``: no PyTorch headers, so a
-build takes seconds. The library goes to ``build/repro_torch/`` at the root
-of the checkout, named by a hash of the source and flags, and is built at its
-first use in a process (never at import). The compiler's register and
-shared-memory report (``-Xptxas -v``) is kept beside it as ``<name>.log``.
+Every source is compiled with ``nvcc`` for ``sm_90a``, one ``nvcc`` per
+source, all started together, and the objects are linked into one shared
+library with a plain C interface, loaded with ``ctypes``: no PyTorch headers,
+so a build takes seconds. The library goes to ``build/repro_torch/`` at the
+root of the checkout, named by a hash of every source and header under
+``csrc/`` and the flags, and is built at its first use in a process (never
+at import). The compiler's register and shared-memory report (``-Xptxas
+-v``) is kept beside it as ``<name>.log``.
 """
 from __future__ import annotations
 
@@ -20,21 +22,30 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCE = CSRC / "rows.cu"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # -fmad=false keeps multiply and add separately rounded, as PyTorch's plain
 # versions compute them: QSGD is then bitwise equal to its plain version
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
+                 "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     "topk_rows_launch": (_P, _P, _I, _I, _P, _P),
     "qsgd_rows_launch": (_P, _P, _P, _P, _I, _I, _P, _P),
     "sign_ef_rows_launch": (_P, _P, _P, _P, _I, _I, _P),
+    "topk_tiles_launch": (_P, _P, _L, _I, _I, _I, _P),
+    "qsgd_tiles_launch": (_P, _P, _P, _P, _L, _F, _I, _P),
+    "sign_ef_tiles_launch": (_P, _P, _P, _P, _L, _I, _I, _P),
 }
+
+
+def sources() -> list:
+    """The kernel sources, one object each."""
+    return sorted(CSRC.glob("*.cu"))
 
 
 def _nvcc() -> str:
@@ -46,26 +57,40 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    """Where the library for the current source and flags lives."""
-    h = hashlib.sha256(SOURCE.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"rows-{h.hexdigest()[:16]}.so"
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256()
+    for path in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    h.update(" ".join(COMPILE_FLAGS).encode())
+    return BUILD_DIR / f"kernels-{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
-    """Compile ``rows.cu`` unless the library for this source exists."""
+    """Compile every source unless the library for them exists."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
+    procs = [subprocess.Popen(
+        [nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(sources(), objs)]
+    logs = [p.communicate()[0] for p in procs]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-        capture_output=True, text=True, check=False)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
+    link = None
+    if all(p.returncode == 0 for p in procs):
+        link = subprocess.run(
+            [nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True, check=False)
+        logs.append(link.stdout + link.stderr)
+    out.with_suffix(".log").write_text("".join(logs))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if link is None or link.returncode != 0:
+        raise RuntimeError("nvcc failed:\n" + "".join(logs))
     os.replace(tmp, out)  # atomic: concurrent builders never load a partial
     return out
 
@@ -87,22 +112,38 @@ def check(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
 
 
-def check_operands(name: str, rows_like, *others) -> None:
-    """The kernels take contiguous float32 CUDA tensors on one device: a 2-D
-    ``(rows, d)`` first operand with fewer than 2^31 elements, and further
-    operands of any shape. Raise on anything else."""
-    for t in (rows_like, *others):
+def _check_cuda(name: str, first, tensors, x_types) -> None:
+    for i, t in enumerate(tensors):
         if t.device.type != "cuda":
             raise ValueError(f"{name}: expected CUDA tensors, got {t.device}")
-        if t.device != rows_like.device:
+        if t.device != first.device:
             raise ValueError(f"{name}: operands on {t.device} and "
-                             f"{rows_like.device}")
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{name}: expected contiguous float32, got "
-                             f"{t.dtype} (contiguous={t.is_contiguous()})")
-    if rows_like.dim() != 2 or rows_like.numel() >= 2 ** 31:
-        raise ValueError(f"{name}: expected (rows, d) with < 2^31 elements, "
-                         f"got {tuple(rows_like.shape)}")
+                             f"{first.device}")
+        allowed = x_types if i == 0 else (torch.float32,)
+        if t.dtype not in allowed or not t.is_contiguous():
+            raise ValueError(f"{name}: expected contiguous "
+                             f"{'/'.join(map(str, allowed))}, got {t.dtype} "
+                             f"(contiguous={t.is_contiguous()})")
+    if first.numel() >= 2 ** 31:
+        raise ValueError(f"{name}: expected < 2^31 elements, got "
+                         f"{first.numel()}")
+
+
+def check_operands(name: str, rows_like, *others) -> None:
+    """The row kernels take contiguous float32 CUDA tensors on one device: a
+    2-D ``(rows, d)`` first operand with fewer than 2^31 elements, and
+    further operands of any shape. Raise on anything else."""
+    _check_cuda(name, rows_like, (rows_like, *others), (torch.float32,))
+    if rows_like.dim() != 2:
+        raise ValueError(f"{name}: expected (rows, d), got "
+                         f"{tuple(rows_like.shape)}")
+
+
+def check_tile_operands(name: str, x, *others) -> None:
+    """The tile kernels take a contiguous CUDA ``x`` of any shape in float32
+    or bfloat16 with fewer than 2^31 elements, and further contiguous float32
+    operands on its device. Raise on anything else."""
+    _check_cuda(name, x, (x, *others), (torch.float32, torch.bfloat16))
 
 
 def stream(t) -> int:

@@ -12,8 +12,9 @@
 // writes c, e' (16 B/elem). The design keeps every reduction on-chip:
 //
 // * rows of width <= 1024 map to one warp each, eight rows per 256-thread
-//   block; a lane keeps its VPT = pow2ceil(D/32) values in registers, so a
-//   32-wide row costs one load per lane and the 25 bisection reductions of
+//   block (the warp-row code of warp_rows.cuh, shared with the tile
+//   kernels); a lane keeps its VPT = pow2ceil(D/32) values in registers, so
+//   a 32-wide row costs one load per lane and the 25 bisection reductions of
 //   topk are warp shuffles, with no shared memory and no second read;
 // * wider rows get a 512-thread block each. topk caches the row in dynamic
 //   shared memory when it fits (D <= 50176 floats) and otherwise re-reads it
@@ -32,35 +33,12 @@
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError().
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "warp_rows.cuh"
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kBisect = 24;          // N_BISECT of the TPU kernel
-constexpr int kWarpRowsMax = 1024;   // widest row on the warp-per-row path
 constexpr int kRowThreads = 512;     // threads of the block-per-row path
 constexpr int kSmemRowMax = 50176;   // floats of a row cached in shared memory
-
-__device__ __forceinline__ float sgnf(float v) {
-  return v > 0.f ? 1.f : (v < 0.f ? -1.f : 0.f);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-__device__ __forceinline__ int warp_sum_int(int v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
 
 // Block-wide reductions over kRowThreads threads; `red` holds 32 slots. Each
 // call starts with a barrier so that `red` may be reused back to back.
@@ -104,45 +82,15 @@ __device__ int block_sum_int(int v, int* red) {
 }
 
 // ---------------------------------------------------------------- top-k ---
-// Per row: hi = max|x|, lo = 0; 24 times mid = 0.5 (lo + hi), count |x| >= mid
-// and move lo up when the count exceeds k; keep x where |x| >= lo.
 
 template <int VPT>
 __global__ void topk_rows_warp(const float* __restrict__ x,
                                float* __restrict__ out, int rows, int d,
                                const float* __restrict__ kp) {
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
   if (row >= rows) return;  // whole warps leave together
-  const float k = *kp;
-  const float* xr = x + (size_t)row * d;
-  float v[VPT], a[VPT];
-  float hi = 0.f;
-#pragma unroll
-  for (int j = 0; j < VPT; ++j) {
-    const int c = lane + 32 * j;
-    v[j] = c < d ? xr[c] : 0.f;
-    a[j] = c < d ? fabsf(v[j]) : -1.f;  // never counted: mid >= 0
-    hi = fmaxf(hi, a[j]);
-  }
-  hi = warp_max(hi);
-  float lo = 0.f;
-  for (int it = 0; it < kBisect; ++it) {
-    const float mid = 0.5f * (lo + hi);
-    int cnt = 0;
-#pragma unroll
-    for (int j = 0; j < VPT; ++j) cnt += a[j] >= mid;
-    cnt = warp_sum_int(cnt);
-    const bool take_hi = (float)cnt > k;
-    lo = take_hi ? mid : lo;
-    hi = take_hi ? hi : mid;
-  }
-  float* orow = out + (size_t)row * d;
-#pragma unroll
-  for (int j = 0; j < VPT; ++j) {
-    const int c = lane + 32 * j;
-    if (c < d) orow[c] = a[j] >= lo ? v[j] : 0.f;
-  }
+  topk_warp_row<VPT>(x, out, (size_t)row * d, d, (size_t)rows * d, *kp,
+                     threadIdx.x & 31);
 }
 
 __global__ void topk_rows_block(const float* __restrict__ x,
@@ -167,7 +115,7 @@ __global__ void topk_rows_block(const float* __restrict__ x,
     for (int c = threadIdx.x; c < d; c += blockDim.x)
       cnt += fabsf(cache ? row[c] : xr[c]) >= mid;
     cnt = block_sum_int(cnt, reinterpret_cast<int*>(red));
-    const bool take_hi = (float)cnt > k;
+    const bool take_hi = over_budget(cnt, k);
     lo = take_hi ? mid : lo;
     hi = take_hi ? hi : mid;
   }
@@ -179,8 +127,7 @@ __global__ void topk_rows_block(const float* __restrict__ x,
 }
 
 // ----------------------------------------------------------------- QSGD ---
-// scaled = |x| / max(norm, 1e-30) * L; q = (floor(scaled) + [u < frac]) / L;
-// out = sign(x) * q * norm. `levels` is already clamped to >= 1.
+// `levels` is already clamped to >= 1; each row has its own norm.
 
 __global__ void qsgd_rows_kernel(const float* __restrict__ x,
                                  const float* __restrict__ u,
@@ -189,19 +136,11 @@ __global__ void qsgd_rows_kernel(const float* __restrict__ x,
                                  unsigned d, const float* __restrict__ lp) {
   const float levels = *lp;
   for (unsigned i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += gridDim.x * blockDim.x) {
-    const float nm = norms[i / d];
-    const float xv = x[i];
-    const float scaled = fabsf(xv) / fmaxf(nm, 1e-30f) * levels;
-    const float lower = floorf(scaled);
-    const float up = u[i] < scaled - lower ? 1.f : 0.f;
-    const float q = (lower + up) / levels;
-    out[i] = sgnf(xv) * q * nm;
-  }
+       i += gridDim.x * blockDim.x)
+    out[i] = qsgd_elem(x[i], u[i], norms[i / d], levels);
 }
 
 // --------------------------------------------------- scaled sign + EF ---
-// corr = x + e; scale = sum|corr| / d; c = scale * sign(corr); e' = corr - c.
 
 template <int VPT>
 __global__ void sign_ef_rows_warp(const float* __restrict__ x,
@@ -209,27 +148,9 @@ __global__ void sign_ef_rows_warp(const float* __restrict__ x,
                                   float* __restrict__ c_out,
                                   float* __restrict__ e_out, int rows, int d) {
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
   if (row >= rows) return;
-  const size_t base = (size_t)row * d;
-  float corr[VPT];
-  float s = 0.f;
-#pragma unroll
-  for (int j = 0; j < VPT; ++j) {
-    const int c = lane + 32 * j;
-    corr[j] = c < d ? x[base + c] + e[base + c] : 0.f;
-    s += fabsf(corr[j]);
-  }
-  const float scale = warp_sum(s) / (float)d;
-#pragma unroll
-  for (int j = 0; j < VPT; ++j) {
-    const int c = lane + 32 * j;
-    if (c < d) {
-      const float cv = scale * sgnf(corr[j]);
-      c_out[base + c] = cv;
-      e_out[base + c] = corr[j] - cv;
-    }
-  }
+  sign_ef_warp_row<VPT>(x, e, c_out, e_out, (size_t)row * d, d,
+                        (size_t)rows * d, threadIdx.x & 31);
 }
 
 __global__ void sign_ef_rows_block(const float* __restrict__ x,
@@ -250,12 +171,6 @@ __global__ void sign_ef_rows_block(const float* __restrict__ x,
   }
 }
 
-int vpt_for(int d) {
-  int v = 1;
-  while (32 * v < d) v <<= 1;
-  return v;
-}
-
 }  // namespace
 
 extern "C" int topk_rows_launch(const float* x, float* out, int rows, int d,
@@ -263,15 +178,8 @@ extern "C" int topk_rows_launch(const float* x, float* out, int rows, int d,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rows == 0) return 0;
   if (d <= kWarpRowsMax) {
-    const int grid = (rows + 7) / 8;
-    switch (vpt_for(d)) {
-      case 1: topk_rows_warp<1><<<grid, 256, 0, s>>>(x, out, rows, d, k); break;
-      case 2: topk_rows_warp<2><<<grid, 256, 0, s>>>(x, out, rows, d, k); break;
-      case 4: topk_rows_warp<4><<<grid, 256, 0, s>>>(x, out, rows, d, k); break;
-      case 8: topk_rows_warp<8><<<grid, 256, 0, s>>>(x, out, rows, d, k); break;
-      case 16: topk_rows_warp<16><<<grid, 256, 0, s>>>(x, out, rows, d, k); break;
-      default: topk_rows_warp<32><<<grid, 256, 0, s>>>(x, out, rows, d, k); break;
-    }
+    const int grid = (rows + kWarpRowsPerBlock - 1) / kWarpRowsPerBlock;
+    VPT_SWITCH(d, topk_rows_warp<VPT><<<grid, 256, 0, s>>>(x, out, rows, d, k))
   } else {
     const int cache = d <= kSmemRowMax;
     const size_t smem = (32 + (cache ? (size_t)d : 0)) * sizeof(float);
@@ -305,15 +213,9 @@ extern "C" int sign_ef_rows_launch(const float* x, const float* e,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rows == 0) return 0;
   if (d <= kWarpRowsMax) {
-    const int grid = (rows + 7) / 8;
-    switch (vpt_for(d)) {
-      case 1: sign_ef_rows_warp<1><<<grid, 256, 0, s>>>(x, e, c_out, e_out, rows, d); break;
-      case 2: sign_ef_rows_warp<2><<<grid, 256, 0, s>>>(x, e, c_out, e_out, rows, d); break;
-      case 4: sign_ef_rows_warp<4><<<grid, 256, 0, s>>>(x, e, c_out, e_out, rows, d); break;
-      case 8: sign_ef_rows_warp<8><<<grid, 256, 0, s>>>(x, e, c_out, e_out, rows, d); break;
-      case 16: sign_ef_rows_warp<16><<<grid, 256, 0, s>>>(x, e, c_out, e_out, rows, d); break;
-      default: sign_ef_rows_warp<32><<<grid, 256, 0, s>>>(x, e, c_out, e_out, rows, d); break;
-    }
+    const int grid = (rows + kWarpRowsPerBlock - 1) / kWarpRowsPerBlock;
+    VPT_SWITCH(d, sign_ef_rows_warp<VPT><<<grid, 256, 0, s>>>(
+                      x, e, c_out, e_out, rows, d))
   } else {
     sign_ef_rows_block<<<rows, kRowThreads, 0, s>>>(x, e, c_out, e_out, d);
   }

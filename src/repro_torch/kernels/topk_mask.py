@@ -1,9 +1,18 @@
-"""Per-row threshold-bisection top-k (paper §II.A.3), CUDA kernel + plain twin.
+"""Per-row threshold-bisection top-k (paper §II.A.3), two CUDA kernels, each
+with its plain twin.
 
-Replaces ``repro/kernels/topk_mask.py::topk_rows_pallas`` (body
+``topk_rows`` replaces ``repro/kernels/topk_mask.py::topk_rows_pallas`` (body
 ``_topk_rows_kernel``): per row, ``hi = max|x|``, ``lo = 0``, 24 halvings of
 ``[lo, hi]`` that count ``|x| >= mid`` against a float keep budget ``k``, then
 keep ``x`` where ``|x| >= lo``. No sort; ties may keep more than ``k``.
+
+``block_topk_tiles`` replaces ``block_topk_pallas`` (body ``_topk_kernel``):
+the same bisection per 1024-wide row of a flattened gradient of any shape in
+float32 or bf16, int counts against a static int ``k``, with the ragged last
+row read as the zeros of the reference's padding. The kernel
+(``csrc/tiles.cu``) runs the same warp-per-row code as ``topk_rows`` without
+a padded copy: 8 B per element in float32, 4 B in bf16, and it is bitwise
+equal to its plain version and to ``block_topk_threshold_ref``.
 
 Bound on the card: device-memory bytes, one read of ``x`` and one write of
 the output, 8 B per element. The kernel (``csrc/rows.cu``) keeps the row
@@ -22,17 +31,22 @@ from repro_torch.kernels import build
 N_BISECT = 24
 
 
-def topk_rows_plain(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version: the same bisection on a (B, D) tensor."""
+def _bisect(x: torch.Tensor, k, count_dtype) -> torch.Tensor:
+    """The bisection on a (B, D) tensor, counting in ``count_dtype``."""
     absx = x.to(torch.float32).abs()
     hi = absx.amax(dim=1, keepdim=True)
     lo = torch.zeros_like(hi)
     for _ in range(N_BISECT):
         mid = 0.5 * (lo + hi)
-        cnt = (absx >= mid).to(torch.float32).sum(dim=1, keepdim=True)
+        cnt = (absx >= mid).to(count_dtype).sum(dim=1, keepdim=True)
         take_hi = cnt > k
         lo, hi = torch.where(take_hi, mid, lo), torch.where(take_hi, hi, mid)
     return torch.where(absx >= lo, x, torch.zeros_like(x))
+
+
+def topk_rows_plain(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: the same bisection on a (B, D) tensor."""
+    return _bisect(x, k, torch.float32)
 
 
 def topk_rows(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -55,3 +69,39 @@ def topk_rows(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
 
 
 topk_rows.launches = 0
+
+
+def block_topk_tiles_plain(x: torch.Tensor, k: int, cols: int = 1024
+                           ) -> torch.Tensor:
+    """Plain PyTorch version: ``x`` flattened, zero-padded to whole rows of
+    ``cols`` and bisected per row with int counts against the int ``k``;
+    returns x's shape and type."""
+    flat = x.reshape(-1)
+    n = flat.numel()
+    tiles = torch.nn.functional.pad(flat, (0, -n % cols)).reshape(-1, cols)
+    return _bisect(tiles, int(k), torch.int32).reshape(-1)[:n].reshape(
+        x.shape)
+
+
+def block_topk_tiles(x: torch.Tensor, k: int, cols: int = 1024
+                     ) -> torch.Tensor:
+    """Top-k of every ``cols``-wide row of flattened ``x`` (float32 or bf16,
+    any shape, ``cols`` <= 1024) with the int budget ``k``. CPU tensors take
+    the plain version; CUDA tensors launch the kernel."""
+    if x.device.type == "cpu":
+        return block_topk_tiles_plain(x, k, cols)
+    build.check_tile_operands("block_topk_tiles", x)
+    if not 1 <= cols <= 1024:
+        raise ValueError(f"block_topk_tiles: cols must be in [1, 1024], got "
+                         f"{cols}")
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        rc = build.lib().topk_tiles_launch(
+            x.data_ptr(), out.data_ptr(), x.numel(), cols, int(k),
+            int(x.dtype == torch.bfloat16), build.stream(x))
+    build.check(rc, "block_topk_tiles")
+    block_topk_tiles.launches += 1
+    return out
+
+
+block_topk_tiles.launches = 0

@@ -250,8 +250,7 @@ def test_flat_helpers_and_registry():
     assert all(torch.equal(back[k], tree[k]) for k in tree)
     rows = talg.unflatten_rows(torch.stack([vec, 2 * vec]), tree)
     assert rows["a"].shape == (2, 2, 2) and talg.flat_dim(tree) == 7
-    with pytest.raises(NotImplementedError):
-        talg.get_algorithm("scaffold")
+    assert talg.get_algorithm("scaffold").uses_ctrl  # ported: none raise
     with pytest.raises(ValueError):
         talg.get_algorithm("nope")
 

@@ -1,8 +1,10 @@
-"""The CUDA row kernels against their plain PyTorch versions, on a card.
+"""The CUDA row and tile kernels against their plain PyTorch versions, on a
+card.
 
 Top-k and QSGD must be bitwise equal to their plain versions (exact steps;
 QSGD built with -fmad=false); scaled sign + EF sums in another order, so it
-holds to rtol 1e-5, atol 1e-6. The machine with the card has no JAX, so this
+holds to rtol 1e-5, atol 1e-6. The tile kernels run in float32 and bf16, at
+shapes whose last 1024-wide row is ragged. The machine with the card has no JAX, so this
 file needs only PyTorch; without a CUDA device every test skips.
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_kernels_cuda.py
@@ -11,7 +13,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import qsgd, sign_ef, topk_mask  # noqa: E402
+from repro_torch.kernels import ops, qsgd, ref, sign_ef, topk_mask  # noqa: E402
 
 
 @pytest.fixture
@@ -39,4 +41,60 @@ def test_kernels_match_plain_on_cuda(cuda, shape):
     for got, want in zip(sign_ef.sign_ef_rows(x, e),
                          sign_ef.sign_ef_rows_plain(x, e)):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("shape", [(100,), (3, 777), (5, 7, 11), (1 << 18,),
+                                   (64, 128), (1000, 1001)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tile_kernels_match_plain_on_cuda(cuda, shape, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(shape, device=cuda, generator=gen).to(dtype)
+    e = 0.1 * torch.randn(shape, device=cuda, generator=gen)
+    n = x.numel()
+    u = torch.rand(-(-n // 8192) * 8, 1024, device=cuda, generator=gen)
+    norm = torch.linalg.vector_norm(x.to(torch.float32).reshape(-1))
+    for k in (1, 10, 200):
+        got = topk_mask.block_topk_tiles(x, k)
+        assert got.dtype == dtype
+        assert torch.equal(got, topk_mask.block_topk_tiles_plain(x, k))
+    for levels in (4, 256):
+        got = qsgd.qsgd_tiles(x, u, norm, levels)
+        assert got.dtype == dtype
+        assert torch.equal(got, qsgd.qsgd_tiles_plain(x, u, norm, levels))
+    for got, want in zip(sign_ef.sign_ef_tiles(x, e),
+                         sign_ef.sign_ef_tiles_plain(x, e)):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.requires_cuda
+def test_tile_kernels_match_oracles_on_cuda(cuda):
+    """At whole tiles the kernels equal the oracles of ``kernels/ref.py``."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn(64, 1024, device=cuda, generator=gen)
+    e = torch.randn(64, 1024, device=cuda, generator=gen)
+    u = torch.rand(64, 1024, device=cuda, generator=gen)
+    norm = torch.linalg.vector_norm(x)
+    assert torch.equal(topk_mask.block_topk_tiles(x, 10),
+                       ref.block_topk_threshold_ref(x, 10))
+    assert torch.equal(qsgd.qsgd_tiles(x, u, norm, 16),
+                       ref.qsgd_ref(x, u, norm, 16))
+    for got, want in zip(sign_ef.sign_ef_tiles(x, e), ref.sign_ef_ref(x, e)):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.requires_cuda
+def test_tile_apis_launch_once_on_cuda(cuda):
+    x = torch.randn(3, 777, device=cuda)
+    key = torch.tensor([0, 9], device=cuda)
+    for fn, call in ((topk_mask.block_topk_tiles,
+                      lambda: ops.block_topk(x)),
+                     (qsgd.qsgd_tiles, lambda: ops.qsgd_quantize(key, x)),
+                     (sign_ef.sign_ef_tiles,
+                      lambda: ops.sign_ef_compress(x, torch.zeros_like(x)))):
+        before = fn.launches
+        call()
+        assert fn.launches == before + 1
     torch.cuda.synchronize()
