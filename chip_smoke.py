@@ -10,14 +10,23 @@ Phases (any failure exits non-zero):
    the compiler's register report;
 3. row kernels: each row kernel against its plain PyTorch version on the
    card at the engine's block (4096, 32), the whole fleet (102400, 32), wide
-   rows (256, 65536) and a ragged (1000, 1000): top-k and QSGD bitwise,
-   scaled sign + EF to rtol 1e-5 / atol 1e-6; with each kernel's time, the
-   plain version's time and the least time the card could take (bytes or
-   operations over the card's peak rate);
+   rows (256, 65536), a ragged (1000, 1000) and (4096, 1024): top-k and QSGD
+   bitwise, scaled sign + EF to rtol 1e-5 / atol 1e-6; with each kernel's
+   time per call (host launch included), its time alone on the device (a
+   CUDA graph of many launches), the plain version's time and the least
+   time the card could take (bytes or operations over the card's peak
+   rate), and top-k's device time over scaled sign's at the engine's block
+   (the median of RATIO_ROUNDS alternating timings);
 4. tile kernels: the whole-tensor kernels the same way at (100,), (3, 777),
    (5, 7, 11), 2^18, 2^22 and 10^8 elements in float32, and 2^22 and 10^8
-   in bf16: top-k (k = 10 of 1024) and QSGD (256 levels) bitwise, scaled
-   sign + EF to rtol 1e-5 / atol 1e-6;
+   in bf16, and at 10^8 in both types from a view one element into its
+   storage (not 16-byte aligned): top-k (k = 10 of 1024) and QSGD (256
+   levels) bitwise, scaled sign + EF to rtol 1e-5 / atol 1e-6; then both
+   top-k kernels bit for bit against their plain versions on adversarial
+   rows (``ref.topk_adversarial``: ties at the threshold, constant rows,
+   NaN, +inf and -inf, signed zeros, denormals, more candidates than a warp
+   row's buffer) for budgets below 0, 0, fractional, past 32 and at and
+   past the row's width, the tile form also from an unaligned view;
 5. API: ``block_topk``, ``qsgd_quantize`` and ``sign_ef_compress`` on one
    10^8-element gradient (the ~100M-parameter model of
    ``examples/train_fl_100m.py --full-100m``), each launch counter set to 0
@@ -58,13 +67,20 @@ import torch  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
-SHAPES = [(4096, 32), (102400, 32), (256, 65536), (1000, 1000)]
+SHAPES = [(4096, 32), (102400, 32), (256, 65536), (1000, 1000), (4096, 1024)]
 ENGINE_BLOCK = (4096, 32)
 GRAD_ELEMS = 10 ** 8       # the ~100M-parameter model's gradient
-TILE_CASES = ([((100,), torch.float32), ((3, 777), torch.float32),
-               ((5, 7, 11), torch.float32), ((1 << 18,), torch.float32)]
-              + [((n,), dt) for n in (1 << 22, GRAD_ELEMS)
+# (shape, x type, offset): an offset of 1 makes x a view that starts one
+# element into its storage, so that it is not 16-byte aligned
+TILE_CASES = ([((100,), torch.float32, 0), ((3, 777), torch.float32, 0),
+               ((5, 7, 11), torch.float32, 0), ((1 << 18,), torch.float32, 0)]
+              + [((n,), dt, 0) for n in (1 << 22, GRAD_ELEMS)
+                 for dt in (torch.float32, torch.bfloat16)]
+              + [((GRAD_ELEMS,), dt, 1)
                  for dt in (torch.float32, torch.bfloat16)])
+RATIO_ROUNDS = 5  # alternating device timings of top-k and scaled sign
+ADVERSARIAL_SHAPES = [(4096, 32), (999, 33), (4096, 1024), (64, 3000),
+                      (18, 65536)]
 TILE_K, TILE_LEVELS = 10, 256  # block_topk's default k_frac, qsgd's levels
 FLEET = dict(n_devices=100_000, n_scheduled=256, local_steps=2,
              policy="random", chunk_size=4096, seed=0)
@@ -77,18 +93,19 @@ TILES_SRC = "src/repro_torch/kernels/csrc/tiles.cu"
 # per kernel: the TPU kernel it replaces, its source, and what it must move
 # and compute: bytes per element as a function of x's element size (each
 # input read once, each output written once), bytes per row and per call,
-# and float32 operations per element (top-k: |x|, max, 24 x (compare,
-# count), final compare + select; QSGD: 11 elementwise ops; scaled sign + EF:
-# add, |.|, sum, sign, scale, subtract)
+# and float32 operations per element (top-k, select then replay: |x| with
+# the denormal flush, key, max, candidate compare and count, final compare
+# + select; QSGD: 11 elementwise ops; scaled sign + EF: add, |.|, sum, sign,
+# scale, subtract)
 KERNELS = {
     "sign_ef_rows": ("src/repro/kernels/sign_ef.py:55", ROWS_SRC,
                      lambda sx: 16, 0, 0, 6),
     "topk_rows": ("src/repro/kernels/topk_mask.py:83", ROWS_SRC,
-                  lambda sx: 8, 0, 0, 52),
+                  lambda sx: 8, 0, 0, 7),
     "qsgd_rows": ("src/repro/kernels/qsgd.py:64", ROWS_SRC,
                   lambda sx: 12, 4, 0, 11),
     "block_topk_tiles": ("src/repro/kernels/topk_mask.py:42", TILES_SRC,
-                         lambda sx: 2 * sx, 0, 0, 52),
+                         lambda sx: 2 * sx, 0, 0, 7),
     "qsgd_tiles": ("src/repro/kernels/qsgd.py:28", TILES_SRC,
                    lambda sx: 2 * sx + 4, 0, 4, 11),
     "sign_ef_tiles": ("src/repro/kernels/sign_ef.py:23", TILES_SRC,
@@ -118,6 +135,30 @@ def time_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, reps: int) -> float:
+    """The kernel alone on the device: ``reps`` calls captured in one CUDA
+    graph, replayed three times between CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm on a side stream, as capture requires
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (3 * reps)
 
 
 def wall_s(fn):
@@ -153,7 +194,7 @@ def build() -> None:
     for line in so.with_suffix(".log").read_text().splitlines():
         m = re.search(r"(topk_rows_warp|topk_rows_block|qsgd_rows_kernel|"
                       r"sign_ef_rows_warp|sign_ef_rows_block|topk_tiles_warp|"
-                      r"sign_ef_tiles_warp|qsgd_tiles_kernel)"
+                      r"topk_tiles_staged|sign_ef_tiles_warp|qsgd_tiles_kernel)"
                       r"(?:I(?:Li(\d+)E)?(f|13__nv_bfloat16)?(Lb[01]E)?E)?",
                       line)
         if m and "Compiling" in line:
@@ -165,11 +206,12 @@ def build() -> None:
             log(f"  ptxas {name}: {line.split(':', 1)[-1].strip()}")
 
 
-def _record(table, name, err, ms, plain_ms, b_ms, b_by, headline):
+def _record(table, name, err, ms, dev_ms, plain_ms, b_ms, b_by, headline):
     row = table.setdefault(name, {"max_abs_err": 0.0})
     row["max_abs_err"] = max(row["max_abs_err"], err)
     if headline:
-        row.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        row.update(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                   bound_by=b_by)
 
 
 def _compare(name, what, got, want, tolerant):
@@ -205,26 +247,43 @@ def check_kernels(dev, table: dict) -> None:
             "sign_ef_rows": (lambda: sign_ef.sign_ef_rows(x, e),
                              lambda: sign_ef.sign_ef_rows_plain(x, e)),
         }
+        dev_t = {}
         for name, (kern, plain) in runs.items():
             err = _compare(name, shape, kern(), plain(),
                            name == "sign_ef_rows")
             ms, plain_ms = time_ms(kern, iters), time_ms(plain, iters)
+            dev_t[name] = device_ms(kern, iters)
             b_ms, b_by = bound_ms(name, rows * d, rows)
             log(f"kernel {name} {shape}: max_abs_err {err:.3g} "
-                f"ms {ms:.5f} plain_ms {plain_ms:.5f} "
-                f"bound_ms {b_ms:.5f} ({b_by})")
-            _record(table, name, err, ms, plain_ms, b_ms, b_by,
+                f"ms {ms:.5f} device_ms {dev_t[name]:.5f} "
+                f"plain_ms {plain_ms:.5f} bound_ms {b_ms:.5f} ({b_by})")
+            _record(table, name, err, ms, dev_t[name], plain_ms, b_ms, b_by,
                     shape == ENGINE_BLOCK)
+        if shape == ENGINE_BLOCK:
+            ratios = []
+            for _ in range(RATIO_ROUNDS):
+                t_ms = device_ms(runs["topk_rows"][0], iters)
+                s_ms = device_ms(runs["sign_ef_rows"][0], iters)
+                ratios.append(t_ms / s_ms)
+                log(f"kernel topk_rows {shape}: device_ms {t_ms:.5f}, "
+                    f"sign_ef_rows {s_ms:.5f}, ratio {ratios[-1]:.3f}")
+            log(f"kernel topk_rows {shape}: device time "
+                f"{float(np.median(ratios)):.3f}x sign_ef_rows's, the "
+                f"median of {RATIO_ROUNDS} alternating rounds")
         del x, e, u, norms
 
 
 def check_tile_kernels(dev, table: dict) -> None:
     from repro_torch.kernels import qsgd, sign_ef, topk_mask
     gen = torch.Generator(device=dev).manual_seed(1)
-    for shape, dt in TILE_CASES:
-        x = torch.randn(shape, device=dev, generator=gen).to(dt)
+    for shape, dt, offset in TILE_CASES:
+        n = int(np.prod(shape))
+        x = torch.randn(offset + n, device=dev, generator=gen).to(dt)
+        x = x[offset:].view(shape)
+        if offset and x.data_ptr() % 16 == 0:
+            raise AssertionError(f"tile case {shape} offset {offset}: the "
+                                 "view is 16-byte aligned")
         e = 0.1 * torch.randn(shape, device=dev, generator=gen)
-        n = x.numel()
         u = torch.rand(-(-n // 8192) * 8, 1024, device=dev, generator=gen)
         norm = torch.linalg.vector_norm(x.to(torch.float32).reshape(-1))
         runs = {
@@ -237,20 +296,63 @@ def check_tile_kernels(dev, table: dict) -> None:
             "sign_ef_tiles": (lambda: sign_ef.sign_ef_tiles(x, e),
                               lambda: sign_ef.sign_ef_tiles_plain(x, e)),
         }
-        what = f"{shape} {str(dt).split('.')[-1]}"
+        what = (f"{shape} {str(dt).split('.')[-1]}"
+                + (f" offset {offset}" if offset else ""))
         iters = 200 if n <= 1 << 22 else 12
         for name, (kern, plain) in runs.items():
             err = _compare(name, what, kern(), plain(),
                            name == "sign_ef_tiles")
             ms, plain_ms = time_ms(kern, iters), time_ms(plain, iters // 4)
+            dev_ms = device_ms(kern, iters)
             b_ms, b_by = bound_ms(name, n, sx=x.element_size())
             log(f"kernel {name} {what}: max_abs_err {err:.3g} "
-                f"ms {ms:.5f} plain_ms {plain_ms:.5f} "
-                f"bound_ms {b_ms:.5f} ({b_by})")
-            _record(table, name, err, ms, plain_ms, b_ms, b_by,
-                    n == GRAD_ELEMS and dt == torch.float32)
+                f"ms {ms:.5f} device_ms {dev_ms:.5f} "
+                f"plain_ms {plain_ms:.5f} bound_ms {b_ms:.5f} ({b_by})")
+            _record(table, name, err, ms, dev_ms, plain_ms, b_ms, b_by,
+                    n == GRAD_ELEMS and dt == torch.float32 and not offset)
         del x, e, u, norm
     torch.cuda.empty_cache()
+
+
+def _same_bits(a, b) -> bool:
+    ints = torch.int16 if a.element_size() == 2 else torch.int32
+    return a.dtype == b.dtype and torch.equal(a.view(ints), b.view(ints))
+
+
+def check_topk_adversarial(dev) -> None:
+    """Both top-k kernels bit for bit against their plain versions on rows
+    built to break a selection: the warp path at 32, 33 and 1024 columns,
+    the block path at 3000 (cached row) and 65536 (re-read)."""
+    from repro_torch.kernels import ref, topk_mask
+    n_cases = 0
+    for rows, d in ADVERSARIAL_SHAPES:
+        x = torch.from_numpy(ref.topk_adversarial(rows, d, seed=d)).to(dev)
+        for k in (-1.0, 0.0, 0.5, 1.0, 3.7, 10.0, 40.0, d - 1.0, float(d),
+                  d + 5.0):
+            kt = torch.tensor(k, device=dev)
+            if not _same_bits(topk_mask.topk_rows(x, kt),
+                              topk_mask.topk_rows_plain(x, kt)):
+                raise AssertionError(f"topk_rows adversarial ({rows}, {d}) "
+                                     f"k={k}: kernel differs from plain")
+            n_cases += 1
+        # a ragged last tile row, from the storage's start and from a view
+        # one element in (not 16-byte aligned)
+        n_flat = x.numel() - 77
+        for dt, offset in [(torch.float32, 0), (torch.float32, 1),
+                           (torch.bfloat16, 0), (torch.bfloat16, 1)]:
+            xf = x.reshape(-1).to(dt)[offset:offset + n_flat]
+            for k in (-1, 0, 1, 10, 31, 32, 40, 1023, 1024, 1030):
+                if not _same_bits(topk_mask.block_topk_tiles(xf, k),
+                                  topk_mask.block_topk_tiles_plain(xf, k)):
+                    raise AssertionError(
+                        f"block_topk_tiles adversarial {n_flat} {dt} "
+                        f"offset {offset} k={k}: kernel differs from plain")
+                n_cases += 1
+        del x, xf
+    torch.cuda.synchronize()
+    log(f"topk adversarial: both kernels bitwise equal to plain in "
+        f"{n_cases} cases (NaN, +-inf, zero, denormal, tie, constant and "
+        f"overflow rows)")
 
 
 def run_api(dev) -> dict:
@@ -426,6 +528,7 @@ def main() -> int:
     table = {}
     check_kernels(dev, table)
     check_tile_kernels(dev, table)
+    check_topk_adversarial(dev)
     log("kernels: no single PyTorch call computes any of the six "
         "functions, so library_ms is null")
     launches = run_api(dev)
@@ -438,6 +541,7 @@ def main() -> int:
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                     "device_ms": r["device_ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": rows}), flush=True)

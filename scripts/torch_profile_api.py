@@ -31,7 +31,8 @@ from repro_torch.kernels import ops  # noqa: E402
 
 CASES = [(1 << 18, torch.float32), (10 ** 8, torch.float32),
          (10 ** 8, torch.bfloat16)]
-PORT_KERNELS = ("topk_tiles_warp", "qsgd_tiles_kernel", "sign_ef_tiles_warp")
+PORT_KERNELS = ("topk_tiles_warp", "topk_tiles_staged", "qsgd_tiles_kernel",
+                "sign_ef_tiles_warp")
 
 
 def profile(fn, calls: int, table):

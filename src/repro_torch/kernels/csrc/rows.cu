@@ -6,26 +6,36 @@
 //   qsgd_rows     <- repro/kernels/qsgd.py::qsgd_rows_pallas
 //   sign_ef_rows  <- repro/kernels/sign_ef.py::sign_ef_rows_pallas
 //
-// All three are bound by device-memory bytes (a few flops per element):
-// topk reads x and writes the masked row (8 B/elem), qsgd reads x, u and
-// writes the output (12 B/elem + one norm per row), sign_ef reads x, e and
-// writes c, e' (16 B/elem). The design keeps every reduction on-chip:
+// All three are bound by device-memory bytes once each element costs a few
+// operations: topk reads x and writes the masked row (8 B/elem), qsgd reads
+// x, u and writes the output (12 B/elem + one norm per row), sign_ef reads
+// x, e and writes c, e' (16 B/elem). The design keeps every reduction
+// on-chip:
 //
 // * rows of width <= 1024 map to one warp each, eight rows per 256-thread
 //   block (the warp-row code of warp_rows.cuh, shared with the tile
 //   kernels); a lane keeps its VPT = pow2ceil(D/32) values in registers, so
-//   a 32-wide row costs one load per lane and the 25 bisection reductions of
-//   topk are warp shuffles, with no shared memory and no second read;
+//   a row costs one read and one write;
+// * topk selects, then replays (warp_rows.cuh): the row's K-th largest |x|
+//   t answers each of the reference's 24 count questions, so the 24
+//   halvings run as scalar arithmetic. A 32-wide row finds t in K rounds of
+//   a warp max; rows up to 1024 by a lane-maximum bound and a 64-slot
+//   candidate buffer in shared memory, with the counting bisection as the
+//   in-kernel path for rows the buffer cannot hold. One warp replays the
+//   block's eight rows, a lane each: on every lane of every warp the
+//   replay's issue slots, not its latency, bounded the 32-wide rows;
 // * wider rows get a 512-thread block each. topk caches the row in dynamic
-//   shared memory when it fits (D <= 50176 floats) and otherwise re-reads it
-//   per step (from L2); sign_ef reduces in one pass and recomputes in a
-//   second;
+//   shared memory when it fits (D <= 50176 floats), else re-reads it from
+//   L2, and finds t by a radix select of four 8-bit digits (four passes
+//   over the row in place of the reference's 24); sign_ef reduces in one
+//   pass and recomputes in a second;
 // * qsgd needs no reduction once the per-row norms are an operand, so it is
 //   a flat elementwise pass;
 // * no padding: each kernel masks the ragged edge itself, and sign_ef divides
 //   by the real width d.
 //
-// Numerics: topk is exact (max, halvings and integer counts below 2^24), and
+// Numerics: topk is exact (its row maximum keeps NaN as jnp.max does, every
+// decision of the replay is the count's, integer counts below 2^24), and
 // qsgd is bitwise equal to its plain PyTorch version when built with
 // -fmad=false (IEEE division is nvcc's default). sign_ef sums in another
 // order than the plain version and agrees to a tolerance.
@@ -39,6 +49,7 @@ namespace {
 
 constexpr int kRowThreads = 512;     // threads of the block-per-row path
 constexpr int kSmemRowMax = 50176;   // floats of a row cached in shared memory
+constexpr int kLoads = 8;            // loads in flight a thread, top-k passes
 
 // Block-wide reductions over kRowThreads threads; `red` holds 32 slots. Each
 // call starts with a barrier so that `red` may be reused back to back.
@@ -55,27 +66,15 @@ __device__ float block_sum(float v, float* red) {
   return red[0];
 }
 
-__device__ float block_max(float v, float* red) {
+// The block-wide maximum of unsigned keys; `red` holds 32 slots.
+__device__ unsigned block_max_u(unsigned v, unsigned* red) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = warp_max(v);
+  v = __reduce_max_sync(kFull, v);
   __syncthreads();
   if (lane == 0) red[warp] = v;
   __syncthreads();
-  v = (threadIdx.x < (blockDim.x >> 5)) ? red[threadIdx.x] : 0.f;
-  if (warp == 0) v = warp_max(v);
-  if (threadIdx.x == 0) red[0] = v;
-  __syncthreads();
-  return red[0];
-}
-
-__device__ int block_sum_int(int v, int* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = warp_sum_int(v);
-  __syncthreads();
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  v = (threadIdx.x < (blockDim.x >> 5)) ? red[threadIdx.x] : 0;
-  if (warp == 0) v = warp_sum_int(v);
+  v = (threadIdx.x < (blockDim.x >> 5)) ? red[threadIdx.x] : 0u;
+  if (warp == 0) v = __reduce_max_sync(kFull, v);
   if (threadIdx.x == 0) red[0] = v;
   __syncthreads();
   return red[0];
@@ -83,46 +82,139 @@ __device__ int block_sum_int(int v, int* red) {
 
 // ---------------------------------------------------------------- top-k ---
 
+// Each warp selects on its row; then warp 0 replays the block's eight rows
+// side by side, one lane each, so a row's 24 halvings are issued once and
+// not by all 32 lanes of its warp (at the engine's 32-wide rows, issuing
+// them on every warp was most of the kernel's time); then each warp writes.
 template <int VPT>
-__global__ void topk_rows_warp(const float* __restrict__ x,
-                               float* __restrict__ out, int rows, int d,
-                               const float* __restrict__ kp) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  if (row >= rows) return;  // whole warps leave together
-  topk_warp_row<VPT>(x, out, (size_t)row * d, d, (size_t)rows * d, *kp,
-                     threadIdx.x & 31);
+__global__ void __launch_bounds__(kWarpRowsPerBlock * 32,
+                                  topk_blocks_per_sm(VPT))
+topk_rows_warp(const float* __restrict__ x, float* __restrict__ out, int rows,
+               int d, const float* __restrict__ kp) {
+  __shared__ unsigned cand[kWarpRowsPerBlock][kCandMax];
+  __shared__ float row_hi[kWarpRowsPerBlock];  // hi, then lo
+  __shared__ unsigned row_tkey[kWarpRowsPerBlock];
+  const float k = __ldg(kp);  // issued ahead of the row's load
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int first = blockIdx.x * kWarpRowsPerBlock;
+  const bool live = first + warp < rows;  // whole warps alike
+  const size_t base = (size_t)(first + warp) * d;
+  float v[VPT];
+  if (live) {
+    float hi;
+    unsigned tkey;
+    topk_warp_select<VPT>(x + base, d, d, k, lane, cand[warp], v, hi, tkey);
+    if (lane == 0) {
+      row_hi[warp] = hi;
+      row_tkey[warp] = tkey;
+    }
+  }
+  __syncthreads();
+  if (warp == 0 && lane < kWarpRowsPerBlock && first + lane < rows)
+    row_hi[lane] = topk_lo(row_hi[lane], row_tkey[lane]);
+  __syncthreads();
+  if (live) topk_warp_write<VPT>(v, out + base, d, d, lane, row_hi[warp]);
 }
 
+// The K-th largest |x| bit pattern of a row of d values (K <= d, no NaN):
+// a radix select over four 8-bit digits from the top (the first holds the
+// exponent's 7 high bits, as bit 31 of |x| is 0), each a histogram of the
+// values that match the digits found so far (shared atomics, aggregated
+// per warp over lanes with the same digit). `sh` holds 32 slots.
+__device__ unsigned block_kth(const float* r, int d, int K, unsigned* hist,
+                              unsigned* sh) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  unsigned prefix = 0, fixed = 0;  // the digits found so far, and their bits
+  for (int shift = 24; shift >= 0; shift -= 8) {
+    for (int i = threadIdx.x; i < 256; i += blockDim.x) hist[i] = 0;
+    __syncthreads();
+    // kLoads values a thread are loaded before any is counted, so that a
+    // row re-read from L2 keeps that many loads in flight; the trip count
+    // is uniform over the block
+    for (int c0 = 0; c0 < d; c0 += kLoads * blockDim.x) {
+      unsigned key[kLoads];
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int c = c0 + u * blockDim.x + threadIdx.x;
+        key[u] = c < d ? abs_bits(r[c]) : ~0u;  // ~0u: past the row
+      }
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const bool match = key[u] != ~0u && (key[u] & fixed) == prefix;
+        if (__any_sync(kFull, match)) {
+          const unsigned dig = match ? (key[u] >> shift) & 255u : 256u;
+          const unsigned peers = __match_any_sync(kFull, dig);
+          if (match && lane == __ffs(peers) - 1)
+            atomicAdd(&hist[dig], (unsigned)__popc(peers));
+        }
+      }
+    }
+    __syncthreads();
+    if (warp == 0) {
+      // lane l owns bins 8l..8l+7; the digit is the highest bin at which
+      // the count of matching keys from the top reaches K
+      unsigned h[8], own = 0;
+#pragma unroll
+      for (int b = 0; b < 8; ++b) own += h[b] = hist[8 * lane + b];
+      unsigned from = own;  // keys in this lane's bins and above
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const unsigned y = __shfl_down_sync(kFull, from, o);
+        from += lane + o < 32 ? y : 0u;
+      }
+      unsigned above = from - own;
+      if (above < (unsigned)K && (unsigned)K <= from) {
+        for (int b = 7; b >= 0; --b) {
+          if (above + h[b] >= (unsigned)K) {
+            sh[0] = 8 * lane + b;
+            sh[1] = K - above;
+            break;
+          }
+          above += h[b];
+        }
+      }
+    }
+    __syncthreads();
+    prefix |= sh[0] << shift;
+    fixed |= 255u << shift;
+    K = (int)sh[1];
+    __syncthreads();  // sh and hist are rewritten by the next digit
+  }
+  return prefix;
+}
+
+// One block per row: hi = max|x| and the radix select of t over the row
+// (cached in shared memory when `cache`, re-read from L2 otherwise), the
+// replay, and the write.
 __global__ void topk_rows_block(const float* __restrict__ x,
                                 float* __restrict__ out, int d,
                                 const float* __restrict__ kp, int cache) {
-  extern __shared__ float smem[];
-  float* red = smem;         // 32 reduction slots
-  float* row = smem + 32;    // the cached row, when `cache`
+  extern __shared__ unsigned smem[];
+  unsigned* hist = smem;                               // 256 bins
+  unsigned* red = smem + 256;                          // 32 slots
+  float* row = reinterpret_cast<float*>(smem + 288);   // the cached row
   const float k = *kp;
   const float* xr = x + (size_t)blockIdx.x * d;
-  float hi = 0.f;
+  unsigned top = 0;
+#pragma unroll 8
   for (int c = threadIdx.x; c < d; c += blockDim.x) {
     const float xv = xr[c];
     if (cache) row[c] = xv;
-    hi = fmaxf(hi, fabsf(xv));
+    top = max(top, abs_bits(xv));
   }
-  hi = block_max(hi, red);  // its barriers also publish `row`
-  float lo = 0.f;
-  for (int it = 0; it < kBisect; ++it) {
-    const float mid = 0.5f * (lo + hi);
-    int cnt = 0;
-    for (int c = threadIdx.x; c < d; c += blockDim.x)
-      cnt += fabsf(cache ? row[c] : xr[c]) >= mid;
-    cnt = block_sum_int(cnt, reinterpret_cast<int*>(red));
-    const bool take_hi = over_budget(cnt, k);
-    lo = take_hi ? mid : lo;
-    hi = take_hi ? hi : mid;
-  }
+  const float hi = __uint_as_float(block_max_u(top, red));  // publishes row
+  const TopkBudget b = topk_budget(k, d);
+  const float* r = cache ? row : xr;
+  const unsigned tkey =
+      b.always              ? kTakeAlways
+      : !b.have || hi != hi ? kTakeNever
+                            : block_kth(r, d, b.K, hist, red) + 1u;
+  const float lo = topk_lo(hi, tkey);
   float* orow = out + (size_t)blockIdx.x * d;
+#pragma unroll 8
   for (int c = threadIdx.x; c < d; c += blockDim.x) {
-    const float xv = cache ? row[c] : xr[c];
-    orow[c] = fabsf(xv) >= lo ? xv : 0.f;
+    const float xv = r[c];
+    orow[c] = flush_abs(xv) >= lo ? xv : 0.f;
   }
 }
 
@@ -182,7 +274,7 @@ extern "C" int topk_rows_launch(const float* x, float* out, int rows, int d,
     VPT_SWITCH(d, topk_rows_warp<VPT><<<grid, 256, 0, s>>>(x, out, rows, d, k))
   } else {
     const int cache = d <= kSmemRowMax;
-    const size_t smem = (32 + (cache ? (size_t)d : 0)) * sizeof(float);
+    const size_t smem = (288 + (cache ? (size_t)d : 0)) * sizeof(float);
     if (smem > 48 * 1024) {
       cudaError_t err = cudaFuncSetAttribute(
           topk_rows_block, cudaFuncAttributeMaxDynamicSharedMemorySize,

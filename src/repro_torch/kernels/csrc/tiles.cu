@@ -15,8 +15,19 @@
 // * topk_tiles reads x and writes the kept values: 8 B per element in
 //   float32, 4 B in bf16. One warp per row (the warp-row code of
 //   warp_rows.cuh that the engine's row kernel runs too): 32 values per lane
-//   in registers, the 25 bisection reductions as shuffles, one read and one
-//   write. The budget is the reference's static int k against int counts.
+//   in registers, one read and one write. 1024-wide rows (every call of
+//   the API) go through a persistent grid that copies each warp's next row
+//   into shared memory with cp.async while it works on the current one,
+//   since a warp alone cannot keep enough of its row's loads in flight; a
+//   tensor that does not start on 16 bytes (a view with an offset) is read
+//   from device memory directly by the same kernel. It
+//   selects, then replays: the K-th largest of the 32 lane maxima bounds
+//   the row's K-th largest |x| t from below, the few values above it go to
+//   a 64-slot buffer in shared memory where t is found by rank, and the
+//   reference's 24 halvings run against t with no reduction. Rows with
+//   more candidates (ties, constant rows) or k >= 32 take the counting
+//   bisection inside the kernel. The budget is the reference's static
+//   int k.
 // * qsgd_tiles reads x and u and writes the output: 12 B per element in
 //   float32, 10 B with bf16 x, plus the one global norm, read through a
 //   device pointer so the host never waits for it. A grid-stride
@@ -38,12 +49,73 @@
 namespace {
 
 template <int VPT, typename T>
-__global__ void topk_tiles_warp(const T* __restrict__ x, T* __restrict__ out,
-                                long long n, int cols, int rows, int k) {
+__global__ void __launch_bounds__(kWarpRowsPerBlock * 32,
+                                  topk_blocks_per_sm(VPT))
+topk_tiles_warp(const T* __restrict__ x, T* __restrict__ out, long long n,
+                int cols, int rows, int k) {
+  __shared__ unsigned cand[kWarpRowsPerBlock][kCandMax];
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   if (row >= rows) return;  // whole warps leave together
-  topk_warp_row<VPT>(x, out, (size_t)row * cols, cols, (size_t)n, k,
-                     threadIdx.x & 31);
+  const size_t base = (size_t)row * cols;
+  const int valid = (int)min((long long)cols, n - (long long)base);
+  topk_warp_row<VPT>(x + base, out + base, cols, valid, k, threadIdx.x & 31,
+                     cand[threadIdx.x >> 5]);
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+// 1024-wide rows, each warp persistent over rows w, w + W, ...: a row is
+// copied into the warp's shared-memory buffer with cp.async (16 bytes a
+// lane and copy) while the warp selects on the row before it, so the loads
+// of the next row overlap the selection and the stores of this one. The
+// ragged last row, and every row of an x that is not 16-byte aligned
+// (`aligned` false), is read from device memory directly.
+template <typename T>
+__global__ void __launch_bounds__(kWarpRowsPerBlock * 32,
+                                  topk_blocks_per_sm(32))
+topk_tiles_staged(const T* __restrict__ x, T* __restrict__ out, long long n,
+                  int rows, int k, bool aligned) {
+  constexpr int kCols = 1024;
+  constexpr int kChunks = kCols * (int)sizeof(T) / 16 / 32;  // per lane
+  extern __shared__ __align__(16) unsigned char staged[];
+  __shared__ unsigned cand[kWarpRowsPerBlock][kCandMax];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  T* buf = reinterpret_cast<T*>(staged) + (size_t)warp * 2 * kCols;
+  const int stride = gridDim.x * kWarpRowsPerBlock;
+  const auto from_smem = [&](int r) {
+    return aligned && (long long)(r + 1) * kCols <= n;
+  };
+  const auto fetch = [&](int r, int slot) {
+    if (r < rows && from_smem(r)) {
+      const uint4* src =
+          reinterpret_cast<const uint4*>(x + (size_t)r * kCols);
+      uint4* dst = reinterpret_cast<uint4*>(buf + slot * kCols);
+#pragma unroll
+      for (int q = 0; q < kChunks; ++q)
+        cp_async16(dst + lane + 32 * q, src + lane + 32 * q);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  int r = blockIdx.x * kWarpRowsPerBlock + warp;
+  fetch(r, 0);
+  for (int i = 0; r < rows; r += stride, ++i) {
+    fetch(r + stride, (i + 1) & 1);
+    asm volatile("cp.async.wait_group 1;\n" ::);
+    __syncwarp();
+    const size_t base = (size_t)r * kCols;
+    if (from_smem(r))
+      topk_warp_row<32>(buf + (i & 1) * kCols, out + base, kCols, kCols, k,
+                        lane, cand[warp]);
+    else
+      topk_warp_row<32>(x + base, out + base, kCols,
+                        (int)min((long long)kCols, n - (long long)base), k,
+                        lane, cand[warp]);
+    __syncwarp();  // the slot is refilled by the next iteration's fetch
+  }
 }
 
 template <int VPT, typename T>
@@ -113,8 +185,26 @@ int topk_tiles(const void* x, void* out, long long n, int cols, int k,
   const int rows = tile_rows(n, cols);
   const T* xt = static_cast<const T*>(x);
   T* ot = static_cast<T*>(out);
-  VPT_SWITCH(cols, topk_tiles_warp<VPT, T><<<warp_grid(rows), 256, 0, s>>>(
-                       xt, ot, n, cols, rows, k))
+  if (cols == 1024) {
+    // two resident blocks on every SM of the current device; the shared
+    // memory attribute is set for it at every call
+    const size_t smem = kWarpRowsPerBlock * 2 * 1024 * sizeof(T);
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(topk_tiles_staged<T>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem);
+    if (err != cudaSuccess) return err;
+    const int grid = min(topk_blocks_per_sm(32) * sms, warp_grid(rows));
+    const bool aligned = (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+    topk_tiles_staged<T><<<grid, 256, smem, s>>>(xt, ot, n, rows, k, aligned);
+  } else {
+    VPT_SWITCH(cols, topk_tiles_warp<VPT, T><<<warp_grid(rows), 256, 0, s>>>(
+                         xt, ot, n, cols, rows, k))
+  }
   return cudaGetLastError();
 }
 

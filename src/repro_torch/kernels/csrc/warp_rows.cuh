@@ -1,9 +1,10 @@
 // Device code shared by the row kernels (rows.cu) and the tile kernels
-// (tiles.cu): one warp per row of up to 1024 values held in registers, every
-// reduction a warp shuffle, and QSGD's elementwise rule.
+// (tiles.cu): one warp per row of up to 1024 values held in registers, and
+// QSGD's elementwise rule.
 //
 // A warp row is described by where it starts in a flat tensor (`base`), its
-// width `cols` and the tensor's length `n`:
+// width `cols` and the tensor's length `n` (top-k takes the row's start and
+// `valid = n - base`, its present columns):
 //   * columns at or past `cols` are absent (lanes beyond a narrow row);
 //   * columns inside the row but at or past `n` (the ragged last row of a
 //     flat tensor walked as 1024-wide rows) read as zeros, the values the
@@ -15,6 +16,27 @@
 // Values are read in their stored type (float or bf16) and computed in
 // float, as the TPU kernels upcast. A lane holds VPT = pow2ceil(cols / 32)
 // values; VPT_SWITCH instantiates the six widths.
+//
+// Top-k is select-then-replay. The reference bisects [0, max|x|] 24 times,
+// and each step asks one question: is count(|x| >= mid) > k? With
+// K = floor(k) + 1 and t the K-th largest counted |x| (the columns inside
+// the row, tail zeros included; NaN never counts), that count exceeds k
+// exactly when t >= mid. So a row finds t once and replays the 24 halvings
+// as scalar float arithmetic, with no reduction in the loop (topk_lo):
+//   * rows of at most 32 columns (one value per lane): t is the K-th
+//     largest of the lanes' keys, K rounds of a warp max;
+//   * rows of 33-1024 columns, K <= 32: the K-th largest lane maximum m is
+//     a lower bound of t; the values >= m (about K of them on random data)
+//     are compacted into a 64-slot buffer in shared memory and t is chosen
+//     there by rank. A row with more than 64 candidates (ties, constant
+//     rows) or K > 32 takes the counting bisection, in the kernel;
+//   * k < 0 (every step moves lo), K > cols (no step does) and rows that
+//     hold a NaN (max|x| is NaN, as jnp.max gives it, so every mid is NaN
+//     and counts 0) need no t.
+// Keys are the bits of |x| plus one (0 for an absent column): unsigned
+// order is float order, and a NaN sorts above +inf. Denormal |x| and mid
+// count as zero, as the reference's XLA flushes them. Every decision equals
+// the count's, so the kept set is bitwise the reference's.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -51,61 +73,231 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__device__ __forceinline__ int warp_sum_int(int v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
-
-// The bisection's "more than k kept" test: the row kernel compares a float
-// count with a float budget (B2), the tile kernel an int count with a static
-// int budget (B4). Both are exact below 2^24, so they decide alike.
+// The counting bisection's "more than k kept" test: the row kernel compares
+// a float count with a float budget (B2), the tile kernel an int count with
+// a static int budget (B4). Both are exact below 2^24, so they decide alike.
 __device__ __forceinline__ bool over_budget(int cnt, float k) {
   return (float)cnt > k;
 }
 __device__ __forceinline__ bool over_budget(int cnt, int k) { return cnt > k; }
 
 // ---------------------------------------------------------------- top-k ---
-// hi = max|x|, lo = 0; 24 times mid = 0.5 (lo + hi), count |x| >= mid and
-// move lo up when the count exceeds k; keep x where |x| >= lo. Every step is
-// exact, so the result is bitwise the reference's.
-template <int VPT, typename T, typename K>
-__device__ __forceinline__ void topk_warp_row(const T* __restrict__ x,
-                                              T* __restrict__ out,
-                                              size_t base, int cols,
-                                              size_t n, K k, int lane) {
-  float v[VPT], a[VPT];
-  float hi = 0.f;
-#pragma unroll
-  for (int j = 0; j < VPT; ++j) {
-    const int c = lane + 32 * j;
-    const bool in_x = c < cols && base + c < n;
-    v[j] = in_x ? to_f(x[base + c]) : 0.f;
-    a[j] = c < cols ? fabsf(v[j]) : -1.f;  // absent: never counted, mid >= 0
-    hi = fmaxf(hi, a[j]);
-  }
-  hi = warp_max(hi);
+constexpr int kCandMax = 64;  // candidate slots per warp row
+// Resident 256-thread blocks per SM the top-k warp kernels are built for:
+// a lane's VPT values stay in registers without spills (up to 128, 85 and
+// 64 registers a thread), and 16 or more warps keep their rows' loads in
+// flight.
+constexpr int topk_blocks_per_sm(int vpt) {
+  return vpt >= 32 ? 2 : vpt >= 16 ? 3 : 4;
+}
+
+// The budget as the replay needs it: `always`, every step moves lo (k < 0);
+// `have`, some step may (K <= cols); K = floor(k) + 1. A NaN k has neither.
+struct TopkBudget {
+  bool always, have;
+  int K;
+};
+__device__ __forceinline__ TopkBudget topk_budget(float k, int cols) {
+  const bool have = k >= 0.f && k < (float)cols;
+  return {0.f > k, have, have ? (int)floorf(k) + 1 : 0};
+}
+__device__ __forceinline__ TopkBudget topk_budget(int k, int cols) {
+  const bool have = k >= 0 && k < cols;
+  return {k < 0, have, have ? k + 1 : 0};
+}
+
+// |x| and mid as the reference compares them: its XLA flushes denormals to
+// zero on the CPU and the TPU. abs_bits is the bit pattern of |x| so
+// flushed; a NaN keeps its bits, above +inf's.
+__device__ __forceinline__ unsigned abs_bits(float v) {
+  const unsigned b = __float_as_uint(v) & 0x7fffffffu;
+  return b < 0x00800000u ? 0u : b;
+}
+__device__ __forceinline__ float flush_abs(float v) {
+  return __uint_as_float(abs_bits(v));
+}
+__device__ __forceinline__ float flush(float m) {
+  return m < 1.17549435e-38f ? 0.f : m;  // FLT_MIN, the least normal
+}
+
+// What the replay takes in place of k and t: kTakeNever (K past the row, a
+// NaN k, or a row that holds a NaN), kTakeAlways (k < 0), or the key of t
+// (its bits plus one). kLoReady marks a row whose lo is already known.
+constexpr unsigned kTakeNever = 0u, kTakeAlways = 0x7fffffffu;
+constexpr unsigned kLoReady = 0xffffffffu;
+
+// lo of a row: the 24 halvings of [0, hi], lo moving up where the count
+// would exceed k: always, or where t reaches mid (never for a NaN mid). A
+// mid below the least normal is flushed to zero, as the reference's XLA
+// does. Where tkey is kLoReady, hi already holds lo.
+__device__ __forceinline__ float topk_lo(float hi, unsigned tkey) {
+  if (tkey == kLoReady) return hi;
+  const bool always = tkey == kTakeAlways;
+  const bool have = tkey != kTakeNever && !always;
+  const float t = __uint_as_float(tkey - 1u);
   float lo = 0.f;
   for (int it = 0; it < kBisect; ++it) {
-    const float mid = 0.5f * (lo + hi);
-    int cnt = 0;
-#pragma unroll
-    for (int j = 0; j < VPT; ++j) cnt += a[j] >= mid;
-    const bool take_hi = over_budget(warp_sum_int(cnt), k);
+    const float mid = flush(0.5f * (lo + hi));
+    const bool take_hi = always || (have && t >= mid);
     lo = take_hi ? mid : lo;
     hi = take_hi ? hi : mid;
   }
+  return lo;
+}
+
+// The K-th largest (1 <= K <= 32) of the warp's 32 keys, with multiplicity,
+// given their maximum mx. The next maximum is reduced while the ties at
+// this one are counted.
+__device__ __forceinline__ unsigned warp_kth(unsigned key, unsigned mx,
+                                             int K) {
+  for (;;) {
+    const bool at = key == mx;
+    const unsigned rest = at ? 0u : key;
+    const unsigned next = __reduce_max_sync(kFull, rest);
+    const int c = __popc(__ballot_sync(kFull, at));
+    if (c >= K) return mx;
+    K -= c;
+    key = rest;
+    mx = next;
+  }
+}
+
+// The key of a lane's j-th value. The lanes' lower half of values always
+// lies inside the row (cols > 16 VPT), so only the upper half is checked.
+template <int VPT>
+__device__ __forceinline__ unsigned topk_key(float v, int j, int lane,
+                                             int cols) {
+  return j < VPT / 2 || lane + 32 * j < cols ? abs_bits(v) + 1u : 0u;
+}
+
+// The K-th largest key of a warp row, given a lower bound m of it: the keys
+// >= m are compacted into `cand` and t is the least candidate with fewer
+// than K candidates above it. 0 when more than kCandMax keys reach m.
+template <int VPT>
+__device__ __forceinline__ unsigned candidates_kth(const float (&v)[VPT],
+                                                   int cols, int lane,
+                                                   unsigned m, int K,
+                                                   unsigned* cand) {
+  int mine = 0;
+#pragma unroll
+  for (int j = 0; j < VPT; ++j) mine += topk_key<VPT>(v[j], j, lane, cols) >= m;
+  int incl = mine;  // inclusive scan of the candidate counts over lanes
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(kFull, incl, o);
+    incl += lane >= o ? y : 0;
+  }
+  const int total = __shfl_sync(kFull, incl, 31);
+  if (total > kCandMax) return 0u;
+  int pos = incl - mine;
+#pragma unroll
+  for (int j = 0; j < VPT; ++j) {
+    const unsigned key = topk_key<VPT>(v[j], j, lane, cols);
+    if (key >= m) cand[pos++] = key;
+  }
+  __syncwarp();
+  const unsigned c0 = lane < total ? cand[lane] : 0u;
+  const unsigned c1 = lane + 32 < total ? cand[lane + 32] : 0u;
+  int gt0 = 0, gt1 = 0;
+  for (int i = 0; i < total; ++i) {
+    const unsigned u = cand[i];
+    gt0 += u > c0;
+    gt1 += u > c1;
+  }
+  unsigned best = lane < total && gt0 < K ? c0 : ~0u;
+  best = lane + 32 < total && gt1 < K ? min(best, c1) : best;
+  return __reduce_min_sync(kFull, best);
+}
+
+// The reference's counting bisection, for rows the selection leaves out.
+template <int VPT, typename K>
+__device__ __forceinline__ float topk_count_bisect(const float (&v)[VPT],
+                                                   int cols, int lane,
+                                                   float hi, K k) {
+  float lo = 0.f;
+  for (int it = 0; it < kBisect; ++it) {
+    const float mid = flush(0.5f * (lo + hi));
+    // key >= bits(mid) + 1 is |x| >= mid: the row holds no NaN, mid >= 0
+    const unsigned mid_key = __float_as_uint(mid) + 1u;
+    int cnt = 0;
+#pragma unroll
+    for (int j = 0; j < VPT; ++j)
+      cnt += topk_key<VPT>(v[j], j, lane, cols) >= mid_key;
+    const bool take_hi = over_budget(__reduce_add_sync(kFull, cnt), k);
+    lo = take_hi ? mid : lo;
+    hi = take_hi ? hi : mid;
+  }
+  return lo;
+}
+
+// A warp row's selection: the lane's values of the row's `cols` go to v,
+// read from `src` (global or shared memory), of which only the first
+// `valid` are present (the rest read as zeros); hi = max|x| (NaN if the row
+// holds one) and tkey are what topk_lo needs. A row the candidate buffer
+// cannot hold is bisected by counting here and comes back as its lo in hi,
+// with tkey = kLoReady. `cand` is the warp's kCandMax slots of shared
+// memory.
+template <int VPT, typename T, typename K>
+__device__ __forceinline__ void topk_warp_select(const T* src, int cols,
+                                                 int valid, K k, int lane,
+                                                 unsigned* cand,
+                                                 float (&v)[VPT], float& hi,
+                                                 unsigned& tkey) {
+  unsigned top = 0;  // the lane's largest key
+  const bool whole = valid >= cols;  // not the ragged last tile row
 #pragma unroll
   for (int j = 0; j < VPT; ++j) {
     const int c = lane + 32 * j;
-    // a kept value is written back in its own type: bf16 -> float -> bf16
-    // is exact
-    if (c < cols && base + c < n) out[base + c] = from_f<T>(a[j] >= lo ? v[j] : 0.f);
+    v[j] = (j < VPT / 2 || c < cols) && (whole || c < valid) ? to_f(src[c])
+                                                             : 0.f;
+    top = max(top, topk_key<VPT>(v[j], j, lane, cols));
   }
+  const unsigned top_max = __reduce_max_sync(kFull, top);
+  hi = __uint_as_float(top_max - 1u);
+  const TopkBudget b = topk_budget(k, cols);
+  if (b.always) {
+    tkey = kTakeAlways;
+  } else if (!b.have || hi != hi) {
+    tkey = kTakeNever;
+  } else {
+    unsigned t = 0;  // the K-th largest key; 0 where the selection gives up
+    if constexpr (VPT == 1) {
+      t = warp_kth(top, top_max, b.K);
+    } else if (b.K <= 32) {
+      t = candidates_kth<VPT>(v, cols, lane, warp_kth(top, top_max, b.K),
+                              b.K, cand);
+    }
+    tkey = t ? t : kLoReady;
+    if (!t) hi = topk_count_bisect<VPT>(v, cols, lane, hi, k);
+  }
+}
+
+// Keep x where |x| >= lo, written to `dst` in x's own type (bf16 -> float
+// -> bf16 is exact); absent and missing columns are not written.
+template <int VPT, typename T>
+__device__ __forceinline__ void topk_warp_write(const float (&v)[VPT],
+                                                T* __restrict__ dst,
+                                                int cols, int valid,
+                                                int lane, float lo) {
+  const bool whole = valid >= cols;
+#pragma unroll
+  for (int j = 0; j < VPT; ++j) {
+    const int c = lane + 32 * j;
+    if ((j < VPT / 2 || c < cols) && (whole || c < valid))
+      dst[c] = from_f<T>(flush_abs(v[j]) >= lo ? v[j] : 0.f);
+  }
+}
+
+// A whole warp row: select, replay on every lane, write.
+template <int VPT, typename T, typename K>
+__device__ __forceinline__ void topk_warp_row(const T* src,
+                                              T* __restrict__ dst, int cols,
+                                              int valid, K k, int lane,
+                                              unsigned* cand) {
+  float v[VPT], hi;
+  unsigned tkey;
+  topk_warp_select<VPT>(src, cols, valid, k, lane, cand, v, hi, tkey);
+  topk_warp_write<VPT>(v, dst, cols, valid, lane, topk_lo(hi, tkey));
 }
 
 // --------------------------------------------------- scaled sign + EF ---

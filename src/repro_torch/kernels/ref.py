@@ -6,6 +6,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 
@@ -28,6 +29,28 @@ def block_topk_threshold_ref(x: torch.Tensor, k: int, n_iter: int = 24
         take_hi = (absx >= mid).sum(dim=1, keepdim=True) > k
         lo, hi = torch.where(take_hi, mid, lo), torch.where(take_hi, hi, mid)
     return torch.where(absx >= lo, x, torch.zeros_like(x))
+
+
+def topk_adversarial(rows: int, d: int, seed: int = 0) -> np.ndarray:
+    """(rows, d) float32 rows that stress the top-k kernels' selection, one
+    kind per row in turn: normal draws; halves of them rounded (ties at every
+    threshold); constant; one NaN; one +inf; one -inf; signed zeros;
+    denormals; 100 (or all) equal maxima over small values, more candidates
+    than a warp row's 64-slot buffer holds."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((rows, d)).astype(np.float32)
+    kind = np.arange(rows) % 9
+    col = np.arange(rows) % d
+    x[kind == 1] = np.round(2 * x[kind == 1]) / 2
+    x[kind == 2] = 2.5
+    for kd, val in ((3, np.nan), (4, np.inf), (5, -np.inf)):
+        x[kind == kd, col[kind == kd]] = val
+    x[kind == 6] = np.where(np.arange(d) % 2, -0.0, 0.0).astype(np.float32)
+    x[kind == 7] = x[kind == 7] * np.float32(1e-40)
+    tops = np.where(np.arange(min(d, 100)) % 2, -5.0, 5.0)
+    x[kind == 8] = 0.01 * x[kind == 8]
+    x[np.ix_(kind == 8, np.arange(min(d, 100)))] = tops
+    return x
 
 
 def qsgd_ref(x: torch.Tensor, u: torch.Tensor, norm: torch.Tensor,

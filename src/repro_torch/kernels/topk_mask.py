@@ -5,22 +5,32 @@ with its plain twin.
 ``_topk_rows_kernel``): per row, ``hi = max|x|``, ``lo = 0``, 24 halvings of
 ``[lo, hi]`` that count ``|x| >= mid`` against a float keep budget ``k``, then
 keep ``x`` where ``|x| >= lo``. No sort; ties may keep more than ``k``.
+Denormal ``|x|`` and ``mid`` count as zero, as the reference's XLA flushes
+them on the CPU and the TPU; a kept denormal is written as it was. A row
+that holds a NaN has ``hi = NaN``, as ``jnp.max`` gives it: every ``mid`` is
+NaN and counts nothing, so (for ``k >= 0``) every non-NaN value is kept.
 
 ``block_topk_tiles`` replaces ``block_topk_pallas`` (body ``_topk_kernel``):
 the same bisection per 1024-wide row of a flattened gradient of any shape in
 float32 or bf16, int counts against a static int ``k``, with the ragged last
-row read as the zeros of the reference's padding. The kernel
-(``csrc/tiles.cu``) runs the same warp-per-row code as ``topk_rows`` without
-a padded copy: 8 B per element in float32, 4 B in bf16, and it is bitwise
-equal to its plain version and to ``block_topk_threshold_ref``.
+row read as the zeros of the reference's padding, and no padded copy.
 
-Bound on the card: device-memory bytes, one read of ``x`` and one write of
-the output, 8 B per element. The kernel (``csrc/rows.cu``) keeps the row
-on-chip for all 25 reductions: in registers, one warp per row, for rows up to
-1024 wide; in shared memory, one block per row, up to 50176; wider rows are
-re-read per step. Every step is exact (max, halving, integer counts below
-2^24), so kernel and plain version agree bitwise, and the plain version
-equals the reference's compiled mirror ``ops._topk_rows_jnp`` bitwise.
+The kernels (``csrc/warp_rows.cuh``, ``rows.cu``, ``tiles.cu``) select, then
+replay. Each step of the bisection asks whether ``count(|x| >= mid) > k``;
+with ``K = floor(k) + 1`` and ``t`` the row's K-th largest ``|x|``, that holds
+exactly when ``t >= mid``. So a kernel finds ``t`` once per row (a warp max
+K times for rows of up to 32, a lane-maximum bound and a candidate buffer up
+to 1024, a radix select of four 8-bit digits above) and replays the 24
+halvings as scalar arithmetic. ``k < 0`` moves ``lo`` at every step, ``K``
+past the row's width at none. Bound on the card: device-memory bytes, one
+read of ``x`` and one write of the output (8 B per element in float32, 4 B
+in bf16). Every decision is the count's, so kernel and plain version agree
+bitwise, and the plain version equals the reference's kernels and its
+compiled mirror ``ops._topk_rows_jnp`` bitwise.
+
+``_bisect`` is the kernels' plain version; ``select_replay`` is the second
+formulation, by sort, that the tests hold bitwise equal to it as the CPU
+evidence for the invariant the kernels rely on.
 """
 from __future__ import annotations
 
@@ -29,17 +39,48 @@ import torch
 from repro_torch.kernels import build
 
 N_BISECT = 24
+FLT_MIN = torch.finfo(torch.float32).tiny
+
+
+def _flush(a: torch.Tensor) -> torch.Tensor:
+    """Denormals to zero, as the reference's XLA computes on the CPU and the
+    TPU: a non-negative float32 below the least normal is 0 (NaN stays)."""
+    return torch.where(a < FLT_MIN, torch.zeros_like(a), a)
 
 
 def _bisect(x: torch.Tensor, k, count_dtype) -> torch.Tensor:
     """The bisection on a (B, D) tensor, counting in ``count_dtype``."""
-    absx = x.to(torch.float32).abs()
+    absx = _flush(x.to(torch.float32).abs())
     hi = absx.amax(dim=1, keepdim=True)
     lo = torch.zeros_like(hi)
     for _ in range(N_BISECT):
-        mid = 0.5 * (lo + hi)
+        mid = _flush(0.5 * (lo + hi))
         cnt = (absx >= mid).to(count_dtype).sum(dim=1, keepdim=True)
         take_hi = cnt > k
+        lo, hi = torch.where(take_hi, mid, lo), torch.where(take_hi, hi, mid)
+    return torch.where(absx >= lo, x, torch.zeros_like(x))
+
+
+def select_replay(x: torch.Tensor, k) -> torch.Tensor:
+    """The bisection on a (B, D) tensor by select-then-replay: ``t``, the
+    K-th largest ``|x|`` of each row (``K = floor(k) + 1``) by ``torch.sort``,
+    then the 24 halvings with ``take_hi = k < 0 or (K <= D and t >= mid)``.
+    Equal to ``_bisect`` bitwise (a NaN ``mid`` fails the comparison, as it
+    counts nothing)."""
+    absx = _flush(x.to(torch.float32).abs())
+    d = absx.shape[1]
+    k = torch.as_tensor(k, dtype=torch.float32)
+    hi = absx.amax(dim=1, keepdim=True)
+    always = bool(k < 0)
+    have = bool(k >= 0) and bool(k < d)
+    t = torch.zeros_like(hi)
+    if have:
+        kk = int(torch.floor(k)) + 1
+        t = torch.sort(absx, dim=1, descending=True).values[:, kk - 1:kk]
+    lo = torch.zeros_like(hi)
+    for _ in range(N_BISECT):
+        mid = _flush(0.5 * (lo + hi))
+        take_hi = (t >= mid) & have | always
         lo, hi = torch.where(take_hi, mid, lo), torch.where(take_hi, hi, mid)
     return torch.where(absx >= lo, x, torch.zeros_like(x))
 

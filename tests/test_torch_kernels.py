@@ -19,7 +19,7 @@ jnp = pytest.importorskip("jax.numpy")
 
 from repro.kernels import ops as jops  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
-from repro_torch.kernels import qsgd, sign_ef, topk_mask  # noqa: E402
+from repro_torch.kernels import qsgd, ref, sign_ef, topk_mask  # noqa: E402
 
 CASES = [("interpret", (12, 200)), ("jit", (4096, 32)), ("jit", (64, 1000))]
 
@@ -44,6 +44,26 @@ def test_topk_plain_matches_reference_bitwise(mode, shape, k):
     np.testing.assert_array_equal(
         tops.topk_rows(torch.from_numpy(x), torch.tensor(k)).numpy(), want)
     assert topk_mask.topk_rows.launches == before
+
+
+@pytest.mark.parametrize("mode,shape", [("interpret", (18, 40)),
+                                        ("interpret", (18, 128)),
+                                        ("jit", (27, 1024))])
+@pytest.mark.parametrize("k", [0.0, 0.5, 3.7, 39.0, 40.0, 45.0, -1.0])
+def test_topk_plain_matches_reference_on_adversarial_rows(mode, shape, k):
+    """Rows with NaN, +inf, -inf, only (signed) zeros, denormals, ties and
+    constants: the plain version equals the reference bit for bit. A NaN
+    row's maximum is NaN in both, so it keeps every non-NaN value (k >= 0)
+    or none (k < 0)."""
+    x = ref.topk_adversarial(*shape, seed=3)
+    want = np.asarray(jops.topk_rows(jnp.asarray(x), k, mode=mode))
+    got = topk_mask.topk_rows_plain(torch.from_numpy(x), torch.tensor(k))
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  want.view(np.uint32))
+    nan_row = np.isnan(x).any(axis=1)
+    kept = (got.numpy() != 0) | (x == 0)
+    n_kept = 0 if k < 0 else (~np.isnan(x[nan_row])).sum()
+    assert kept[nan_row].sum() == n_kept
 
 
 @pytest.mark.parametrize("mode,shape", CASES)

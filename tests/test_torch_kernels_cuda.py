@@ -69,6 +69,58 @@ def test_tile_kernels_match_plain_on_cuda(cuda, shape, dtype):
     torch.cuda.synchronize()
 
 
+def _same_bits(a, b) -> bool:
+    ints = torch.int16 if a.element_size() == 2 else torch.int32
+    return a.dtype == b.dtype and torch.equal(a.view(ints), b.view(ints))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("shape", [(4096, 32), (999, 33), (512, 1024),
+                                   (64, 3000), (18, 65536)])
+def test_topk_kernels_match_plain_on_adversarial_rows_cuda(cuda, shape):
+    """Both top-k kernels bit for bit against their plain versions on rows
+    with NaN, +inf, -inf, signed zeros, denormals, ties, constants and more
+    candidates than a warp row's buffer holds; a NaN row keeps every
+    non-NaN value, as the reference's does."""
+    x = torch.from_numpy(ref.topk_adversarial(*shape, seed=6)).to(cuda)
+    d = shape[1]
+    for k in (-1.0, 0.0, 0.5, 1.0, 3.7, 10.0, 40.0, d - 1.0, float(d),
+              d + 5.0):
+        kt = torch.tensor(k, device=cuda)
+        got = topk_mask.topk_rows(x, kt)
+        assert _same_bits(got, topk_mask.topk_rows_plain(x, kt)), k
+    nan_rows = torch.isnan(x).any(dim=1)
+    kept = topk_mask.topk_rows(x, torch.tensor(1.0, device=cuda))[nan_rows]
+    xn = x[nan_rows]
+    assert torch.equal(kept != 0, ~torch.isnan(xn) & (xn != 0))
+    flat = x.reshape(-1)[:x.numel() - 77]
+    for dtype in (torch.float32, torch.bfloat16):
+        xf = flat.to(dtype)
+        for k in (-1, 0, 1, 10, 31, 32, 40, 1023, 1024, 1030):
+            assert _same_bits(topk_mask.block_topk_tiles(xf, k),
+                              topk_mask.block_topk_tiles_plain(xf, k)), k
+    torch.cuda.synchronize()
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [1, 3])
+def test_block_topk_unaligned_view_matches_plain_cuda(cuda, dtype, offset):
+    """A view that does not start on 16 bytes (one with a storage offset)
+    takes the 1024-wide kernel's direct reads, bit for bit as an aligned
+    tensor does; through the API too."""
+    store = torch.from_numpy(ref.topk_adversarial(40, 1024, seed=7))
+    store = store.to(cuda).to(dtype).reshape(-1)
+    x = store[offset:offset + store.numel() - 1000]  # ragged last row
+    assert x.data_ptr() % 16
+    for k in (-1, 0, 1, 10, 31, 40, 1023, 1024):
+        assert _same_bits(topk_mask.block_topk_tiles(x, k),
+                          topk_mask.block_topk_tiles_plain(x, k)), k
+    assert _same_bits(ops.block_topk(x),
+                      topk_mask.block_topk_tiles_plain(x, 10))
+    torch.cuda.synchronize()
+
+
 @pytest.mark.requires_cuda
 def test_tile_kernels_match_oracles_on_cuda(cuda):
     """At whole tiles the kernels equal the oracles of ``kernels/ref.py``."""

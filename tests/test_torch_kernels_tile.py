@@ -131,6 +131,37 @@ def test_sign_ef_tiles_plain_matches_pallas(shape, dtype):
                                    atol=1e-6)
 
 
+@pytest.mark.parametrize("cols", [128, 1024])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("k", [0, 10, 40, 1024, -1])
+def test_topk_tiles_plain_matches_pallas_on_adversarial_rows(cols, dtype, k):
+    """Rows with NaN, +inf, -inf, only (signed) zeros, denormals, ties and
+    constants, bit for bit against ``block_topk_pallas`` in interpret mode."""
+    x = ref.topk_adversarial(18 if cols == 128 else 9, cols, seed=4)
+    x = np.concatenate([x, x[: (-len(x)) % 8]])  # whole 8-row tiles
+    xj, xt = _pair(x, dtype)
+    want = block_topk_pallas(xj, k, interpret=True)
+    got = topk_mask.block_topk_tiles_plain(xt, k, cols=cols)
+    bits = np.uint32 if dtype == "float32" else np.uint16
+    np.testing.assert_array_equal(got.view(torch.int16 if bits is np.uint16
+                                           else torch.int32).numpy()
+                                  .view(bits),
+                                  np.asarray(want).view(bits))
+
+
+def test_block_topk_api_keeps_nan_rows():
+    """A ragged gradient whose rows hold NaN and infinities through the API,
+    against the JAX wrapper: every non-NaN value of a NaN row is kept."""
+    x = ref.topk_adversarial(9, 1024, seed=5).reshape(-1)[:9 * 1024 - 300]
+    got = tops.block_topk(torch.from_numpy(x), 0.01)
+    want = np.asarray(jops.block_topk(jnp.asarray(x), 0.01, interpret=True))
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  want.view(np.uint32))
+    nan_row = x[3 * 1024:4 * 1024]
+    assert np.array_equal(got.numpy()[3 * 1024:4 * 1024] != 0,
+                          ~np.isnan(nan_row) & (nan_row != 0))
+
+
 def test_block_topk_ref_is_exact_topk():
     """The sort-based oracle keeps exactly the k largest magnitudes per row
     (no ties in normal draws); the bisection's threshold stays at or below
