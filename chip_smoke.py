@@ -11,12 +11,21 @@ Phases (any failure exits non-zero):
 3. row kernels: each row kernel against its plain PyTorch version on the
    card at the engine's block (4096, 32), the whole fleet (102400, 32), wide
    rows (256, 65536), a ragged (1000, 1000) and (4096, 1024): top-k and QSGD
-   bitwise, scaled sign + EF to rtol 1e-5 / atol 1e-6; with each kernel's
-   time per call (host launch included), its time alone on the device (a
-   CUDA graph of many launches), the plain version's time and the least
-   time the card could take (bytes or operations over the card's peak
+   bitwise (QSGD both with its norms computed in the kernel, the engine's
+   path, and given), scaled sign + EF to rtol 1e-5 / atol 1e-6; with each
+   kernel's time per call (host launch included), its time alone on the
+   device (a CUDA graph of many launches), the plain version's time and the
+   least time the card could take (bytes or operations over the card's peak
    rate), and top-k's device time over scaled sign's at the engine's block
-   (the median of RATIO_ROUNDS alternating timings);
+   (the median of RATIO_ROUNDS alternating timings). Then QSGD and scaled
+   sign at the other layouts' shapes (4096, 64), (4096, 128), (999, 36) and
+   from views one element into their storage (not 16-byte aligned); and at
+   the engine's block the card's floor for such one-wave kernels, by the
+   same CUDA-graph timing: a one-element add (the launch), an add that
+   moves QSGD's 12 B per element and a concatenation that moves scaled
+   sign's 16 B, with scaled sign, QSGD given its norms and the engine's
+   whole ``ops.qsgd_rows`` call each over its floor (medians of
+   RATIO_ROUNDS alternating rounds);
 4. tile kernels: the whole-tensor kernels the same way at (100,), (3, 777),
    (5, 7, 11), 2^18, 2^22 and 10^8 elements in float32, and 2^22 and 10^8
    in bf16, and at 10^8 in both types from a view one element into its
@@ -79,6 +88,12 @@ TILE_CASES = ([((100,), torch.float32, 0), ((3, 777), torch.float32, 0),
               + [((GRAD_ELEMS,), dt, 1)
                  for dt in (torch.float32, torch.bfloat16)])
 RATIO_ROUNDS = 5  # alternating device timings of top-k and scaled sign
+# (shape, offset) of the further row cases: a warp a row group in 8-byte
+# accesses (64 columns) and in 16-byte ones (128), a ragged group (36
+# columns: 18 float2s in 32 threads), and the engine's block from views one
+# element into their storage (4-byte accesses)
+ROW_CASES = [((4096, 64), 0), ((4096, 128), 0), ((999, 36), 0),
+             ((4096, 32), 1)]
 ADVERSARIAL_SHAPES = [(4096, 32), (999, 33), (4096, 1024), (64, 3000),
                       (18, 65536)]
 TILE_K, TILE_LEVELS = 10, 256  # block_topk's default k_frac, qsgd's levels
@@ -92,24 +107,24 @@ TILES_SRC = "src/repro_torch/kernels/csrc/tiles.cu"
 
 # per kernel: the TPU kernel it replaces, its source, and what it must move
 # and compute: bytes per element as a function of x's element size (each
-# input read once, each output written once), bytes per row and per call,
-# and float32 operations per element (top-k, select then replay: |x| with
-# the denormal flush, key, max, candidate compare and count, final compare
-# + select; QSGD: 11 elementwise ops; scaled sign + EF: add, |.|, sum, sign,
-# scale, subtract)
+# input read once, each output written once), bytes per call, and float32
+# operations per element (top-k, select then replay: |x| with the denormal
+# flush, key, max, candidate compare and count, final compare + select;
+# QSGD on the engine's path, its norms computed: square, sum and 11
+# elementwise ops; scaled sign + EF: add, |.|, sum, sign, scale, subtract)
 KERNELS = {
     "sign_ef_rows": ("src/repro/kernels/sign_ef.py:55", ROWS_SRC,
-                     lambda sx: 16, 0, 0, 6),
+                     lambda sx: 16, 0, 6),
     "topk_rows": ("src/repro/kernels/topk_mask.py:83", ROWS_SRC,
-                  lambda sx: 8, 0, 0, 7),
+                  lambda sx: 8, 0, 7),
     "qsgd_rows": ("src/repro/kernels/qsgd.py:64", ROWS_SRC,
-                  lambda sx: 12, 4, 0, 11),
+                  lambda sx: 12, 0, 13),
     "block_topk_tiles": ("src/repro/kernels/topk_mask.py:42", TILES_SRC,
-                         lambda sx: 2 * sx, 0, 0, 7),
+                         lambda sx: 2 * sx, 0, 7),
     "qsgd_tiles": ("src/repro/kernels/qsgd.py:28", TILES_SRC,
-                   lambda sx: 2 * sx + 4, 0, 4, 11),
+                   lambda sx: 2 * sx + 4, 4, 11),
     "sign_ef_tiles": ("src/repro/kernels/sign_ef.py:23", TILES_SRC,
-                      lambda sx: sx + 12, 0, 0, 6),
+                      lambda sx: sx + 12, 0, 6),
 }
 
 
@@ -117,9 +132,11 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def bound_ms(name: str, n: int, rows: int = 0, sx: int = 4) -> tuple:
-    _, _, b_elem, b_row, b_call, ops = KERNELS[name]
-    t_bytes = (n * b_elem(sx) + rows * b_row + b_call) / HBM_BYTES_PER_S * 1e3
+def bound_ms(name: str, n: int, sx: int = 4, extra: int = 0) -> tuple:
+    """The least time for ``name`` on n elements of x's size sx, with
+    ``extra`` bytes more to move (QSGD's norms, where they are given)."""
+    _, _, b_elem, b_call, ops = KERNELS[name]
+    t_bytes = (n * b_elem(sx) + b_call + extra) / HBM_BYTES_PER_S * 1e3
     t_ops = n * ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -192,15 +209,17 @@ def build() -> None:
         f"{time.perf_counter() - t0:.2f} s")
     name = None
     for line in so.with_suffix(".log").read_text().splitlines():
-        m = re.search(r"(topk_rows_warp|topk_rows_block|qsgd_rows_kernel|"
+        m = re.search(r"(topk_rows_warp|topk_rows_block|qsgd_rows_group|"
+                      r"qsgd_rows_flat|qsgd_rows_block|sign_ef_rows_group|"
                       r"sign_ef_rows_warp|sign_ef_rows_block|topk_tiles_warp|"
                       r"topk_tiles_staged|sign_ef_tiles_warp|qsgd_tiles_kernel)"
-                      r"(?:I(?:Li(\d+)E)?(f|13__nv_bfloat16)?(Lb[01]E)?E)?",
-                      line)
+                      r"(?:I((?:Li\d+E|Lb[01]E|f|13__nv_bfloat16)+)E)?", line)
         if m and "Compiling" in line:
-            args = [a for a in (m.group(2), {"f": "float", None: None}.get(
-                m.group(3), "bf16"), {"Lb1E": "vec", "Lb0E": "scalar"}.get(
-                m.group(4))) if a]
+            # the template arguments, as mangled: ints, bools, the x type
+            args = [i or {"1": "vec", "0": "scalar"}.get(b) or
+                    ("float" if f else "bf16") for i, b, f, _ in re.findall(
+                        r"Li(\d+)E|Lb([01])E|(f)|(13__nv_bfloat16)",
+                        m.group(2) or "")]
             name = m.group(1) + (f"<{','.join(args)}>" if args else "")
         elif "registers" in line or "spill" in line:
             log(f"  ptxas {name}: {line.split(':', 1)[-1].strip()}")
@@ -227,33 +246,101 @@ def _compare(name, what, got, want, tolerant):
                else 0.0 for g, w in pairs)
 
 
-def check_kernels(dev, table: dict) -> None:
+def _row_inputs(dev, gen, shape, offset=0):
+    """x, e (EF state) and u (dither) of ``shape``; each a view ``offset``
+    elements into its storage."""
+    n = shape[0] * shape[1]
+
+    def draw(fn, scale=1.0):
+        return (scale * fn(offset + n, device=dev, generator=gen))[
+            offset:].view(shape)
+    x, e, u = draw(torch.randn), draw(torch.randn, 0.1), draw(torch.rand)
+    if offset and x.data_ptr() % 16 == 0:
+        raise AssertionError(f"row case {shape} offset {offset}: the view "
+                             "is 16-byte aligned")
+    return x, e, u
+
+
+def _row_runs(x, e, u, k, lv, norms):
+    """(kernel, plain) per row kernel; ``qsgd_rows`` is the engine's path,
+    its norms computed in the kernel, and ``qsgd_rows+norms`` the TPU
+    kernel's interface, its norms given."""
     from repro_torch.kernels import qsgd, sign_ef, topk_mask
+    return {
+        "topk_rows": (lambda: topk_mask.topk_rows(x, k),
+                      lambda: topk_mask.topk_rows_plain(x, k)),
+        "qsgd_rows": (lambda: qsgd.qsgd_rows(x, u, None, lv),
+                      lambda: qsgd.qsgd_rows_plain(x, u, None, lv)),
+        "qsgd_rows+norms": (lambda: qsgd.qsgd_rows(x, u, norms, lv),
+                            lambda: qsgd.qsgd_rows_plain(x, u, norms, lv)),
+        "sign_ef_rows": (lambda: sign_ef.sign_ef_rows(x, e),
+                         lambda: sign_ef.sign_ef_rows_plain(x, e)),
+    }
+
+
+def _median_rounds(timed: dict, floors: dict, iters: int) -> dict:
+    """RATIO_ROUNDS alternating rounds: each floor, then each timed call,
+    by device_ms; returns each timed call's median device ms and median
+    ratio to its floor."""
+    got = {name: ([], []) for name in timed}
+    for rnd in range(RATIO_ROUNDS):
+        f_ms = {name: device_ms(fn, iters) for name, fn in floors.items()}
+        line = ", ".join(f"{n} {v * 1e3:.4f} us" for n, v in f_ms.items())
+        for name, (fn, floor) in timed.items():
+            t_ms = device_ms(fn, iters)
+            got[name][0].append(t_ms)
+            got[name][1].append(t_ms / f_ms[floor])
+            line += (f"; {name} {t_ms * 1e3:.4f} us = "
+                     f"{got[name][1][-1]:.3f}x {floor}")
+        log(f"floor round {rnd}: {line}")
+    return {name: (float(np.median(t)), float(np.median(r)), min(r), max(r))
+            for name, (t, r) in got.items()}
+
+
+def check_floor(dev, x, e, u, lv, iters) -> None:
+    """The card's floor for a one-wave row kernel at the engine's block,
+    beside scaled sign, QSGD given its norms and the engine's QSGD call."""
+    from repro_torch.kernels import ops, qsgd, sign_ef
+    rows, d = x.shape
+    one = torch.zeros(1, device=dev)
+    o12 = torch.empty_like(x)
+    o16 = torch.empty(2 * rows, d, device=dev)
+    norms = torch.linalg.vector_norm(x, dim=1, keepdim=True)
+    floors = {"launch": lambda: one.add_(1.0),
+              "12 B/elem": lambda: torch.add(x, u, out=o12),
+              "16 B/elem": lambda: torch.cat((x, e), out=o16)}
+    timed = {"sign_ef_rows": (lambda: sign_ef.sign_ef_rows(x, e),
+                              "16 B/elem"),
+             "qsgd_rows+norms": (lambda: qsgd.qsgd_rows(x, u, norms, lv),
+                                 "12 B/elem"),
+             "ops.qsgd_rows": (lambda: ops.qsgd_rows(x, u, lv),
+                               "12 B/elem")}
+    for name, (t_ms, ratio, lo, hi) in _median_rounds(
+            timed, floors, iters).items():
+        log(f"floor {name} {tuple(x.shape)}: device_ms {t_ms:.6f}, "
+            f"{ratio:.3f}x the {timed[name][1]} floor (rounds {lo:.3f}-"
+            f"{hi:.3f}), the median of {RATIO_ROUNDS} alternating rounds")
+
+
+def check_kernels(dev, table: dict) -> None:
     gen = torch.Generator(device=dev).manual_seed(0)
+    lv = torch.tensor(256.0, device=dev)
     for shape in SHAPES:
         rows, d = shape
-        x = torch.randn(shape, device=dev, generator=gen)
-        e = 0.1 * torch.randn(shape, device=dev, generator=gen)
-        u = torch.rand(shape, device=dev, generator=gen)
+        x, e, u = _row_inputs(dev, gen, shape)
         k = torch.tensor(float(max(1, d // 100)), device=dev)
-        lv = torch.tensor(256.0, device=dev)
         norms = torch.linalg.vector_norm(x, dim=1, keepdim=True)
         iters = 200 if rows * d <= 1 << 22 else 20
-        runs = {
-            "topk_rows": (lambda: topk_mask.topk_rows(x, k),
-                          lambda: topk_mask.topk_rows_plain(x, k)),
-            "qsgd_rows": (lambda: qsgd.qsgd_rows(x, u, norms, lv),
-                          lambda: qsgd.qsgd_rows_plain(x, u, norms, lv)),
-            "sign_ef_rows": (lambda: sign_ef.sign_ef_rows(x, e),
-                             lambda: sign_ef.sign_ef_rows_plain(x, e)),
-        }
+        runs = _row_runs(x, e, u, k, lv, norms)
         dev_t = {}
         for name, (kern, plain) in runs.items():
+            kname = name.split("+")[0]
             err = _compare(name, shape, kern(), plain(),
-                           name == "sign_ef_rows")
+                           kname == "sign_ef_rows")
             ms, plain_ms = time_ms(kern, iters), time_ms(plain, iters)
             dev_t[name] = device_ms(kern, iters)
-            b_ms, b_by = bound_ms(name, rows * d, rows)
+            b_ms, b_by = bound_ms(kname, rows * d,
+                                  extra=4 * rows if "+" in name else 0)
             log(f"kernel {name} {shape}: max_abs_err {err:.3g} "
                 f"ms {ms:.5f} device_ms {dev_t[name]:.5f} "
                 f"plain_ms {plain_ms:.5f} bound_ms {b_ms:.5f} ({b_by})")
@@ -270,6 +357,20 @@ def check_kernels(dev, table: dict) -> None:
             log(f"kernel topk_rows {shape}: device time "
                 f"{float(np.median(ratios)):.3f}x sign_ef_rows's, the "
                 f"median of {RATIO_ROUNDS} alternating rounds")
+            check_floor(dev, x, e, u, lv, iters)
+        del x, e, u, norms
+    for shape, offset in ROW_CASES:
+        x, e, u = _row_inputs(dev, gen, shape, offset)
+        norms = torch.linalg.vector_norm(x, dim=1, keepdim=True)
+        runs = _row_runs(x, e, u, None, lv, norms)
+        del runs["topk_rows"]
+        for name, (kern, plain) in runs.items():
+            err = _compare(name, f"{shape} offset {offset}", kern(), plain(),
+                           name == "sign_ef_rows")
+            table[name.split("+")[0]]["max_abs_err"] = max(
+                table[name.split("+")[0]]["max_abs_err"], err)
+            log(f"kernel {name} {shape} offset {offset}: max_abs_err "
+                f"{err:.3g} device_ms {device_ms(kern, 200):.5f}")
         del x, e, u, norms
 
 
@@ -304,7 +405,7 @@ def check_tile_kernels(dev, table: dict) -> None:
                            name == "sign_ef_tiles")
             ms, plain_ms = time_ms(kern, iters), time_ms(plain, iters // 4)
             dev_ms = device_ms(kern, iters)
-            b_ms, b_by = bound_ms(name, n, sx=x.element_size())
+            b_ms, b_by = bound_ms(name, n, x.element_size())
             log(f"kernel {name} {what}: max_abs_err {err:.3g} "
                 f"ms {ms:.5f} device_ms {dev_ms:.5f} "
                 f"plain_ms {plain_ms:.5f} bound_ms {b_ms:.5f} ({b_by})")

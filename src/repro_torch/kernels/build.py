@@ -113,10 +113,13 @@ def check(rc: int, name: str) -> None:
 
 
 def _check_cuda(name: str, first, tensors, x_types) -> None:
+    # is_cuda and get_device() read the device without building a
+    # torch.device, a few microseconds a call on the host path
+    index = first.get_device()
     for i, t in enumerate(tensors):
-        if t.device.type != "cuda":
+        if not t.is_cuda:
             raise ValueError(f"{name}: expected CUDA tensors, got {t.device}")
-        if t.device != first.device:
+        if t.get_device() != index:
             raise ValueError(f"{name}: operands on {t.device} and "
                              f"{first.device}")
         allowed = x_types if i == 0 else (torch.float32,)
@@ -146,6 +149,17 @@ def check_tile_operands(name: str, x, *others) -> None:
     _check_cuda(name, x, (x, *others), (torch.float32, torch.bfloat16))
 
 
-def stream(t) -> int:
-    """PyTorch's current stream on ``t``'s device, as a raw handle."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+def launch(name: str, fn, first, *args) -> None:
+    """Call the entry point ``fn(*args, stream)`` with PyTorch's current
+    stream on ``first``'s device, and raise if it returns a CUDA error. The
+    launch goes to the calling thread's current device, so that device is
+    switched to ``first``'s for the call, where it is another."""
+    # the raw handle as PyTorch's generated code reads it, with no
+    # torch.cuda.Stream built around it
+    index = first.get_device()
+    if index == torch.cuda.current_device():
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    check(rc, name)

@@ -8,14 +8,22 @@
 //
 // All three are bound by device-memory bytes once each element costs a few
 // operations: topk reads x and writes the masked row (8 B/elem), qsgd reads
-// x, u and writes the output (12 B/elem + one norm per row), sign_ef reads
-// x, e and writes c, e' (16 B/elem). The design keeps every reduction
-// on-chip:
+// x, u and writes the output (12 B/elem; its per-row norms are computed
+// here from the same x), sign_ef reads x, e and writes c, e' (16 B/elem).
+// At the engine's block each is one wave of about 2 us, most of it the
+// launch and one load's latency (the floor lines of chip_smoke.py), so the
+// design keeps every reduction on-chip and the chain from load to store
+// short:
 //
-// * rows of width <= 1024 map to one warp each, eight rows per 256-thread
-//   block (the warp-row code of warp_rows.cuh, shared with the tile
-//   kernels); a lane keeps its VPT = pow2ceil(D/32) values in registers, so
-//   a row costs one read and one write;
+// * qsgd, and sign_ef on rows that take at most 32 threads, hold rows in
+//   the row groups of warp_rows.cuh: a group of threads a row, two or four
+//   neighbouring values a thread (row_vals), the row's sum in log2(G)
+//   shuffles and, past a warp, one trip through shared memory; no division
+//   by d;
+// * other rows of width <= 1024 map to one warp each, eight rows per
+//   256-thread block (the warp-row code of warp_rows.cuh, shared with the
+//   tile kernels); a lane keeps its VPT = pow2ceil(D/32) values in
+//   registers, so a row costs one read and one write;
 // * topk selects, then replays (warp_rows.cuh): the row's K-th largest |x|
 //   t answers each of the reference's 24 count questions, so the 24
 //   halvings run as scalar arithmetic. A 32-wide row finds t in K rounds of
@@ -27,17 +35,18 @@
 // * wider rows get a 512-thread block each. topk caches the row in dynamic
 //   shared memory when it fits (D <= 50176 floats), else re-reads it from
 //   L2, and finds t by a radix select of four 8-bit digits (four passes
-//   over the row in place of the reference's 24); sign_ef reduces in one
-//   pass and recomputes in a second;
-// * qsgd needs no reduction once the per-row norms are an operand, so it is
-//   a flat elementwise pass;
+//   over the row in place of the reference's 24); sign_ef and qsgd's norm
+//   reduce in one pass and compute in a second (qsgd given its norms: one
+//   flat pass);
 // * no padding: each kernel masks the ragged edge itself, and sign_ef divides
 //   by the real width d.
 //
 // Numerics: topk is exact (its row maximum keeps NaN as jnp.max does, every
 // decision of the replay is the count's, integer counts below 2^24), and
-// qsgd is bitwise equal to its plain PyTorch version when built with
-// -fmad=false (IEEE division is nvcc's default). sign_ef sums in another
+// qsgd, built with -fmad=false (squares and sums rounded apart, as PyTorch
+// rounds them; IEEE division and sqrtf are nvcc's defaults), is bitwise
+// equal to its plain PyTorch version given the same norms, or computing
+// them in the same order (ref.lane_order_norms). sign_ef sums in another
 // order than the plain version and agrees to a tolerance.
 //
 // Every entry point launches on the caller's stream, allocates nothing and
@@ -219,20 +228,122 @@ __global__ void topk_rows_block(const float* __restrict__ x,
 }
 
 // ----------------------------------------------------------------- QSGD ---
-// `levels` is already clamped to >= 1; each row has its own norm.
+// L = max(levels, 1) is taken here, as the TPU kernel takes it. With
+// `norms` null each row's L2 norm is summed from the x already loaded
+// (squares in order within a thread, then across the row's threads;
+// ref.lane_order_norms gives the same order) and rounded by the IEEE sqrtf.
 
-__global__ void qsgd_rows_kernel(const float* __restrict__ x,
-                                 const float* __restrict__ u,
-                                 const float* __restrict__ norms,
-                                 float* __restrict__ out, unsigned n,
-                                 unsigned d, const float* __restrict__ lp) {
-  const float levels = *lp;
+// Rows in row groups (warp_rows.cuh), the engine's path, norms given or
+// computed.
+template <int G, int V, bool VEC>
+__global__ void __launch_bounds__(group_block(G))
+qsgd_rows_group(const float* __restrict__ x, const float* __restrict__ u,
+                const float* __restrict__ norms, float* __restrict__ out,
+                int rows, int d, const float* __restrict__ lp) {
+  __shared__ float red[32];
+  const float levels = clamp_levels(__ldg(lp));
+  const GroupLane l = group_lane<G, V>(rows, d);
+  float xv[V], uv[V], ov[V];
+  load_vals<V, VEC>(x + l.off, l.live, xv);
+  load_vals<V, VEC>(u + l.off, l.live, uv);
+  float nm;
+  if (norms) {
+    nm = l.row < rows ? norms[l.row] : 0.f;
+  } else {
+    float s = xv[0] * xv[0];
+#pragma unroll
+    for (int j = 1; j < V; ++j) s += xv[j] * xv[j];
+    nm = sqrtf(group_sum<G>(s, red));
+  }
+  if (!l.live) return;
+#pragma unroll
+  for (int j = 0; j < V; ++j) ov[j] = qsgd_elem(xv[j], uv[j], nm, levels);
+  store_vals<V, VEC>(out + l.off, ov);
+}
+
+// Wider rows with their norms given: no reduction left, a flat pass.
+__global__ void qsgd_rows_flat(const float* __restrict__ x,
+                               const float* __restrict__ u,
+                               const float* __restrict__ norms,
+                               float* __restrict__ out, unsigned n,
+                               unsigned d, const float* __restrict__ lp) {
+  const float levels = clamp_levels(*lp);
   for (unsigned i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += gridDim.x * blockDim.x)
     out[i] = qsgd_elem(x[i], u[i], norms[i / d], levels);
 }
 
+// Wider rows, norms computed: a block per row sums the squares in a first
+// pass and quantizes in a second, re-reading x; kLoads values a thread in
+// flight in both.
+__global__ void qsgd_rows_block(const float* __restrict__ x,
+                                const float* __restrict__ u,
+                                float* __restrict__ out, int d,
+                                const float* __restrict__ lp) {
+  __shared__ float red[32];
+  const float levels = clamp_levels(*lp);
+  const float* xr = x + (size_t)blockIdx.x * d;
+  const float* ur = u + (size_t)blockIdx.x * d;
+  float* orow = out + (size_t)blockIdx.x * d;
+  float s = 0.f;
+  for (int c0 = 0; c0 < d; c0 += kLoads * blockDim.x) {
+    float v[kLoads];
+#pragma unroll
+    for (int k = 0; k < kLoads; ++k) {
+      const int c = c0 + k * blockDim.x + threadIdx.x;
+      v[k] = c < d ? xr[c] : 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < kLoads; ++k) s += v[k] * v[k];
+  }
+  const float nm = sqrtf(block_sum(s, red));
+  for (int c0 = 0; c0 < d; c0 += kLoads * blockDim.x) {
+    float v[kLoads], w[kLoads];
+#pragma unroll
+    for (int k = 0; k < kLoads; ++k) {
+      const int c = c0 + k * blockDim.x + threadIdx.x;
+      v[k] = c < d ? xr[c] : 0.f;
+      w[k] = c < d ? ur[c] : 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < kLoads; ++k) {
+      const int c = c0 + k * blockDim.x + threadIdx.x;
+      if (c < d) orow[c] = qsgd_elem(v[k], w[k], nm, levels);
+    }
+  }
+}
+
 // --------------------------------------------------- scaled sign + EF ---
+
+// Rows of up to 32 threads in row groups (d <= 128 with d % 4 == 0, other
+// even d <= 64, odd d <= 32; the engine's d = 32): a row's sum takes
+// log2(G) shuffles (4 at d = 32, where a warp row takes 5), then the IEEE
+// division by d and the writes of c and e'.
+template <int G, int V, bool VEC>
+__global__ void __launch_bounds__(group_block(G))
+sign_ef_rows_group(const float* __restrict__ x, const float* __restrict__ e,
+                   float* __restrict__ c_out, float* __restrict__ e_out,
+                   int rows, int d) {
+  __shared__ float red[32];
+  const GroupLane l = group_lane<G, V>(rows, d);
+  float xv[V], ev[V], corr[V], cv[V], rv[V];
+  load_vals<V, VEC>(x + l.off, l.live, xv);
+  load_vals<V, VEC>(e + l.off, l.live, ev);
+#pragma unroll
+  for (int j = 0; j < V; ++j) corr[j] = xv[j] + ev[j];
+  float s = fabsf(corr[0]);
+#pragma unroll
+  for (int j = 1; j < V; ++j) s += fabsf(corr[j]);
+  const float scale = group_sum<G>(s, red) / (float)d;
+  if (!l.live) return;
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    cv[j] = scale * sgnf(corr[j]);
+    rv[j] = corr[j] - cv[j];
+  }
+  store_vals<V, VEC>(c_out + l.off, cv);
+  store_vals<V, VEC>(e_out + l.off, rv);
+}
 
 template <int VPT>
 __global__ void sign_ef_rows_warp(const float* __restrict__ x,
@@ -286,16 +397,31 @@ extern "C" int topk_rows_launch(const float* x, float* out, int rows, int d,
   return cudaGetLastError();
 }
 
+// `norms` may be null: each row's norm is then computed in the kernel.
+// Row groups take 4V-byte accesses where x, u and out all start on 4V
+// bytes, 4-byte ones in the same layout otherwise.
 extern "C" int qsgd_rows_launch(const float* x, const float* u,
                                 const float* norms, float* out, int rows,
                                 int d, const float* levels, void* stream) {
-  const unsigned n = (unsigned)rows * (unsigned)d;
-  if (n == 0) return 0;
-  const unsigned threads = 256;
-  unsigned grid = (n + threads - 1) / threads;
-  if (grid > 132u * 32u) grid = 132u * 32u;  // grid-stride beyond ~32 waves
-  qsgd_rows_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, u, norms, out, n, (unsigned)d, levels);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rows == 0 || d == 0) return 0;
+  const int v = row_vals(d), g = group_threads(d, v);
+  if (g <= 1024) {
+    const bool vec = aligned(4 * v, x, u, out, out);
+    const int block = group_block(g), per = block / g;  // rows a block
+    const int grid = (rows + per - 1) / per;
+    GROUP_SWITCH(g, v, vec,
+                 qsgd_rows_group<G, V, VEC><<<grid, block, 0, s>>>(
+                     x, u, norms, out, rows, d, levels))
+  } else if (norms) {
+    const unsigned n = (unsigned)rows * (unsigned)d;
+    unsigned grid = (n + 255) / 256;
+    if (grid > 132u * 32u) grid = 132u * 32u;  // grid-stride beyond ~32 waves
+    qsgd_rows_flat<<<grid, 256, 0, s>>>(x, u, norms, out, n, (unsigned)d,
+                                        levels);
+  } else {
+    qsgd_rows_block<<<rows, kRowThreads, 0, s>>>(x, u, out, d, levels);
+  }
   return cudaGetLastError();
 }
 
@@ -303,8 +429,16 @@ extern "C" int sign_ef_rows_launch(const float* x, const float* e,
                                    float* c_out, float* e_out, int rows,
                                    int d, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rows == 0) return 0;
-  if (d <= kWarpRowsMax) {
+  if (rows == 0 || d == 0) return 0;
+  const int v = row_vals(d), g = group_threads(d, v);
+  if (g <= 32) {
+    const bool vec = aligned(4 * v, x, e, c_out, e_out);
+    const int block = group_block(g), per = block / g;
+    const int grid = (rows + per - 1) / per;
+    GROUP_SWITCH(g, v, vec,
+                 sign_ef_rows_group<G, V, VEC><<<grid, block, 0, s>>>(
+                     x, e, c_out, e_out, rows, d))
+  } else if (d <= kWarpRowsMax) {
     const int grid = (rows + kWarpRowsPerBlock - 1) / kWarpRowsPerBlock;
     VPT_SWITCH(d, sign_ef_rows_warp<VPT><<<grid, 256, 0, s>>>(
                       x, e, c_out, e_out, rows, d))

@@ -1,6 +1,7 @@
 // Device code shared by the row kernels (rows.cu) and the tile kernels
-// (tiles.cu): one warp per row of up to 1024 values held in registers, and
-// QSGD's elementwise rule.
+// (tiles.cu): one warp per row of up to 1024 values held in registers,
+// QSGD's elementwise rule, and the row-group layout of the row kernels (a
+// group of threads a row, a few values a thread; see "row groups" below).
 //
 // A warp row is described by where it starts in a flat tensor (`base`), its
 // width `cols` and the tensor's length `n` (top-k takes the row's start and
@@ -346,13 +347,167 @@ __device__ __forceinline__ float qsgd_elem(float xv, float uv, float nm,
   return sgnf(xv) * q * nm;
 }
 
+// The TPU kernel's L = max(levels, 1); a NaN stays NaN, as jnp.maximum
+// keeps it.
+__device__ __forceinline__ float clamp_levels(float levels) {
+  return levels < 1.f ? 1.f : levels;
+}
+
+// ----------------------------------------------------------- row groups ---
+// A row of d columns as a group of G = pow2ceil(ceil(d / V)) <= 1024
+// threads, thread q of the group holding columns Vq..Vq+V-1 (V = row_vals(d)
+// neighbouring values). VEC: every operand starts on 4V bytes, so a
+// thread's values are one access; else V 4-byte ones in the same layout, so
+// the order of a row's sum depends on d alone. Groups of up to 32 threads
+// share a warp (32 / G rows a warp) and sum by xor shuffles at offsets G/2
+// down to 1. Wider groups take G / 32 warps of one block: each warp sums by
+// shuffles (offsets 16 down to 1), puts its sum in shared memory, and every
+// warp adds the row's G / 32 warp sums by shuffles again. A block holds
+// max(G, 256) threads; a thread finds its row and columns from its
+// position, with no division by d. Threads past the row or past the last
+// row hold zeros and join every shuffle and barrier.
+constexpr int kGroupBlock = 256;
+
+// Values a thread: two up to d = 64, where the engine's (4096, 32) client
+// block makes a one-wave kernel whose time is a thread's chain of work
+// (QSGD's IEEE divisions, two an element, each ending in a branch to its
+// slow path, run one after another: with four values a thread QSGD took
+// about a fifth longer there on an H100); four above, where rows span waves
+// and 16-byte accesses halve the instructions; fewer where d is odd or not
+// a multiple of four.
+inline int row_vals(int cols) {
+  return cols % 4 == 0 && cols > 64 ? 4 : cols % 2 == 0 ? 2 : 1;
+}
+
+inline int group_threads(int cols, int vals) {
+  int g = 1;
+  while (vals * g < cols) g <<= 1;
+  return g;
+}
+
+__host__ __device__ constexpr int group_block(int g) {
+  return g > kGroupBlock ? g : kGroupBlock;
+}
+
+struct GroupLane {
+  int row;
+  bool live;   // the thread holds columns of a row
+  size_t off;  // where they start
+};
+
+template <int G, int V>
+__device__ __forceinline__ GroupLane group_lane(int rows, int cols) {
+  constexpr int kRows = group_block(G) / G;  // rows a block
+  const int row = blockIdx.x * kRows + threadIdx.x / G;
+  const int q = threadIdx.x % G;
+  return {row, row < rows && V * q < cols, (size_t)row * cols + V * q};
+}
+
+template <int V, bool VEC>
+__device__ __forceinline__ void load_vals(const float* __restrict__ p,
+                                          bool live, float (&v)[V]) {
+  if (!live) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) v[j] = 0.f;
+  } else if constexpr (VEC && V == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x;
+    v[1] = t.y;
+    v[2] = t.z;
+    v[3] = t.w;
+  } else if constexpr (VEC && V == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x;
+    v[1] = t.y;
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j) v[j] = p[j];
+  }
+}
+
+template <int V, bool VEC>
+__device__ __forceinline__ void store_vals(float* __restrict__ p,
+                                           const float (&v)[V]) {
+  if constexpr (VEC && V == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (VEC && V == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j) p[j] = v[j];
+  }
+}
+
+// The sum over a row's group; every thread of the group gets the same bits
+// (IEEE addition commutes). `red` is 32 floats of shared memory, used and
+// behind a barrier when G > 32, so the whole block must call this.
+template <int G>
+__device__ __forceinline__ float group_sum(float v, float* red) {
+  constexpr int kWarps = G > 32 ? G / 32 : 1;
+  constexpr int kFirst = G > 32 ? 16 : G / 2;
+#pragma unroll
+  for (int o = kFirst; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  if constexpr (kWarps > 1) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    if (lane == 0) red[warp] = v;
+    __syncthreads();
+    v = red[warp / kWarps * kWarps + lane % kWarps];
+#pragma unroll
+    for (int o = kWarps / 2; o > 0; o >>= 1)
+      v += __shfl_xor_sync(kFull, v, o);
+  }
+  return v;
+}
+
 inline int vpt_for(int cols) {
   int v = 1;
   while (32 * v < cols) v <<= 1;
   return v;
 }
 
+inline bool aligned(int bytes, const void* a, const void* b, const void* c,
+                    const void* d) {
+  return ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
+           reinterpret_cast<uintptr_t>(c) | reinterpret_cast<uintptr_t>(d)) &
+          (uintptr_t)(bytes - 1)) == 0;
+}
+
 }  // namespace
+
+// Run STMT with `constexpr int G, V` set to `g` (a power of two up to 1024)
+// and `v` (1, 2 or 4), and `constexpr bool VEC` to `vec` (false for v = 1).
+#define GROUP_CASE(N, V_, VEC_, ...)                                    \
+  case N: {                                                             \
+    constexpr int G = N, V = V_;                                        \
+    constexpr bool VEC = VEC_;                                          \
+    __VA_ARGS__;                                                        \
+  } break;
+#define GROUP_CASES(g, V_, VEC_, ...)                                   \
+  switch (g) {                                                          \
+    GROUP_CASE(1, V_, VEC_, __VA_ARGS__)                                \
+    GROUP_CASE(2, V_, VEC_, __VA_ARGS__)                                \
+    GROUP_CASE(4, V_, VEC_, __VA_ARGS__)                                \
+    GROUP_CASE(8, V_, VEC_, __VA_ARGS__)                                \
+    GROUP_CASE(16, V_, VEC_, __VA_ARGS__)                               \
+    GROUP_CASE(32, V_, VEC_, __VA_ARGS__)                               \
+    GROUP_CASE(64, V_, VEC_, __VA_ARGS__)                               \
+    GROUP_CASE(128, V_, VEC_, __VA_ARGS__)                              \
+    GROUP_CASE(256, V_, VEC_, __VA_ARGS__)                              \
+    GROUP_CASE(512, V_, VEC_, __VA_ARGS__)                              \
+    GROUP_CASE(1024, V_, VEC_, __VA_ARGS__)                             \
+  }
+#define GROUP_SWITCH(g, v, vec, ...)                                    \
+  if ((v) == 4 && (vec)) {                                              \
+    GROUP_CASES(g, 4, true, __VA_ARGS__)                                \
+  } else if ((v) == 4) {                                                \
+    GROUP_CASES(g, 4, false, __VA_ARGS__)                               \
+  } else if ((v) == 2 && (vec)) {                                       \
+    GROUP_CASES(g, 2, true, __VA_ARGS__)                                \
+  } else if ((v) == 2) {                                                \
+    GROUP_CASES(g, 2, false, __VA_ARGS__)                               \
+  } else {                                                              \
+    GROUP_CASES(g, 1, false, __VA_ARGS__)                               \
+  }
 
 // Run STMT with `constexpr int VPT` set to the lane width for `cols` <= 1024.
 #define VPT_SWITCH(cols, ...)                                   \

@@ -33,9 +33,11 @@ def topk_rows(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
 def qsgd_rows(x: torch.Tensor, u: torch.Tensor,
               levels: torch.Tensor) -> torch.Tensor:
     """Per-row QSGD with per-row L2 norms; ``u`` is the caller's (B, D)
-    stochastic-rounding noise from per-client keys."""
-    levels = torch.clamp_min(
-        torch.as_tensor(levels, dtype=torch.float32, device=x.device), 1.0)
+    stochastic-rounding noise from per-client keys. On a card one launch
+    computes the norms and quantizes; on the CPU the norms come from
+    ``torch.linalg.vector_norm``."""
+    if x.device.type != "cpu":
+        return qsgd.qsgd_rows(x, u, None, levels)
     norms = torch.linalg.vector_norm(x.to(torch.float32), dim=1, keepdim=True)
     return qsgd.qsgd_rows(x, u, norms, levels)
 

@@ -1,13 +1,15 @@
 """Plain oracles of the tile kernels, port of ``repro/kernels/ref.py``: on
 ``(rows, cols)`` tensors, written from the paper's definitions rather than
 from the kernels, so that a test on a card can hold a kernel against them
-without JAX."""
+without JAX. Also the row norms in the summation order of QSGD's row
+kernel (``lane_order_norms``), and adversarial rows for top-k."""
 from __future__ import annotations
 
 from typing import Tuple
 
 import numpy as np
 import torch
+from torch.nn.functional import pad
 
 
 def block_topk_ref(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -51,6 +53,75 @@ def topk_adversarial(rows: int, d: int, seed: int = 0) -> np.ndarray:
     x[kind == 8] = 0.01 * x[kind == 8]
     x[np.ix_(kind == 8, np.arange(min(d, 100)))] = tops
     return x
+
+
+GROUP_MAX = 1024   # threads of the widest row group (csrc/warp_rows.cuh)
+ROW_THREADS = 512  # threads of a block-per-row kernel (csrc/rows.cu)
+
+
+def _xor_tree(s: torch.Tensor) -> torch.Tensor:
+    """The sum over the last dimension (a power of two) in the order of xor
+    shuffles at offsets n/2 down to 1: its first and second halves are
+    added, until one value is left."""
+    n = s.shape[-1]
+    while n > 1:
+        n //= 2
+        s = s[..., :n] + s[..., n:2 * n]
+    return s[..., 0]
+
+
+def _lane_sums(sq: torch.Tensor, lanes: int) -> torch.Tensor:
+    """(rows, lanes): lane l's sum of columns l, l + lanes, ... in order."""
+    rows, d = sq.shape
+    per = -(-d // lanes)
+    sq = pad(sq, (0, per * lanes - d)).reshape(rows, per, lanes)
+    s = sq[:, 0]
+    for j in range(1, per):
+        s = s + sq[:, j]
+    return s
+
+
+def _pow2ceil(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+def row_vals(d: int) -> int:
+    """Values a thread of a row group holds (``warp_rows.cuh::row_vals``)."""
+    return 4 if d % 4 == 0 and d > 64 else 2 if d % 2 == 0 else 1
+
+
+def lane_order_norms(x: torch.Tensor) -> torch.Tensor:
+    """Each row's L2 norm of float32 ``(rows, d)`` x, as QSGD's row kernel
+    (``csrc/rows.cu``) computes it with no norms given: squares rounded
+    apart from the sums, summed in the order of the kernel's layout for d,
+    then the IEEE square root. Returns ``(rows, 1)``.
+
+    * a row group (G = pow2ceil(d / V) <= 1024 threads, V = ``row_vals``):
+      thread q sums the squares of columns Vq..Vq+V-1 in order; up to 32
+      threads meet by xor shuffles at offsets G/2 down to 1; more meet so
+      within each warp, then the G / 32 warp sums meet by xor shuffles at
+      offsets G/64 down to 1;
+    * wider rows (a 512-thread block a row): thread t sums columns t,
+      t + 512, ... in order; each warp's 32 sums meet by xor shuffles, then
+      the 16 warps' sums, padded to 32 with zeros, likewise.
+    """
+    rows, d = x.shape
+    sq = x * x
+    v = row_vals(d)
+    g = _pow2ceil(-(-d // v))
+    if g <= GROUP_MAX:
+        q = sq.reshape(rows, d // v, v)
+        s = q[..., 0]
+        for j in range(1, v):
+            s = s + q[..., j]
+        s = pad(s, (0, g - s.shape[1]))
+        if g > 32:
+            s = _xor_tree(s.reshape(rows, g // 32, 32))
+        total = _xor_tree(s)
+    else:
+        warps = _xor_tree(_lane_sums(sq, ROW_THREADS).reshape(rows, -1, 32))
+        total = _xor_tree(pad(warps, (0, 32 - warps.shape[1])))
+    return torch.sqrt(total).reshape(rows, 1)
 
 
 def qsgd_ref(x: torch.Tensor, u: torch.Tensor, norm: torch.Tensor,

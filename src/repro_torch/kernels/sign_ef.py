@@ -7,11 +7,18 @@ each with its plain twin.
 
 Bound on the card: device-memory bytes, reads of ``x`` and ``e`` and writes
 of ``c`` and ``e'``, 16 B per element (unfused it would be three reads and
-two writes). The kernel (``csrc/rows.cu``) keeps each row of width <= 1024 in
-one warp's registers and reduces with shuffles; wider rows take one block
-each, reduce in a first pass and recompute in a second. It needs no padding,
-so it divides by the real ``d`` directly. Its sum runs in another order than
-the plain version's: they agree to rtol 1e-5, atol 1e-6.
+two writes). At the engine's (4096, 32) the kernel (``csrc/rows.cu``) is one
+wave of about 2 us, mostly launch and load latency, so rows that fit 32
+threads (d <= 64, or d <= 128 with d % 4 == 0) take the row groups of
+``csrc/warp_rows.cuh``: two neighbouring values a thread up to d = 64, four
+above, in one load and store each (4-byte ones where an operand is not
+aligned to them), a row's sum in log2 of its threads' count of shuffles.
+Other rows of width <= 1024 stay in one warp's registers and reduce with
+shuffles; wider rows take one block each, reduce in a first pass and
+recompute in a second. It needs no padding, so it divides by the real ``d``
+directly (IEEE division, as the reference divides). Its sum runs in another
+order than the plain version's, lane by lane and then across lanes: they
+agree to rtol 1e-5, atol 1e-6.
 
 ``sign_ef_tiles`` replaces ``sign_ef_pallas`` (body ``_sign_ef_kernel``): the
 same update per 1024-wide row of a flattened gradient of any shape, ``x`` in
@@ -51,11 +58,9 @@ def sign_ef_rows(x: torch.Tensor, e: torch.Tensor
                          f"{tuple(x.shape)}")
     c = torch.empty_like(x)
     e_new = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        rc = build.lib().sign_ef_rows_launch(
-            x.data_ptr(), e.data_ptr(), c.data_ptr(), e_new.data_ptr(),
-            x.shape[0], x.shape[1], build.stream(x))
-    build.check(rc, "sign_ef_rows")
+    build.launch("sign_ef_rows", build.lib().sign_ef_rows_launch, x,
+                 x.data_ptr(), e.data_ptr(), c.data_ptr(), e_new.data_ptr(),
+                 x.shape[0], x.shape[1])
     sign_ef_rows.launches += 1
     return c, e_new
 
@@ -93,11 +98,9 @@ def sign_ef_tiles(x: torch.Tensor, e: torch.Tensor, cols: int = 1024
                          "[1, 1024]")
     c = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     e_new = torch.empty_like(c)
-    with torch.cuda.device(x.device):
-        rc = build.lib().sign_ef_tiles_launch(
-            x.data_ptr(), e.data_ptr(), c.data_ptr(), e_new.data_ptr(),
-            x.numel(), cols, int(x.dtype == torch.bfloat16), build.stream(x))
-    build.check(rc, "sign_ef_tiles")
+    build.launch("sign_ef_tiles", build.lib().sign_ef_tiles_launch, x,
+                 x.data_ptr(), e.data_ptr(), c.data_ptr(), e_new.data_ptr(),
+                 x.numel(), cols, int(x.dtype == torch.bfloat16))
     sign_ef_tiles.launches += 1
     return c, e_new
 

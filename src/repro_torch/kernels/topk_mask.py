@@ -100,11 +100,9 @@ def topk_rows(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     k = k.reshape(1).contiguous()
     build.check_operands("topk_rows", x, k)
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        rc = build.lib().topk_rows_launch(
-            x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1],
-            k.data_ptr(), build.stream(x))
-    build.check(rc, "topk_rows")
+    build.launch("topk_rows", build.lib().topk_rows_launch, x,
+                 x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1],
+                 k.data_ptr())
     topk_rows.launches += 1
     return out
 
@@ -136,11 +134,9 @@ def block_topk_tiles(x: torch.Tensor, k: int, cols: int = 1024
         raise ValueError(f"block_topk_tiles: cols must be in [1, 1024], got "
                          f"{cols}")
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        rc = build.lib().topk_tiles_launch(
-            x.data_ptr(), out.data_ptr(), x.numel(), cols, int(k),
-            int(x.dtype == torch.bfloat16), build.stream(x))
-    build.check(rc, "block_topk_tiles")
+    build.launch("block_topk_tiles", build.lib().topk_tiles_launch, x,
+                 x.data_ptr(), out.data_ptr(), x.numel(), cols, int(k),
+                 int(x.dtype == torch.bfloat16))
     block_topk_tiles.launches += 1
     return out
 

@@ -2,7 +2,8 @@
 card.
 
 Top-k and QSGD must be bitwise equal to their plain versions (exact steps;
-QSGD built with -fmad=false); scaled sign + EF sums in another order, so it
+QSGD built with -fmad=false, its in-kernel norms summed in the order of
+``ref.lane_order_norms``); scaled sign + EF sums in another order, so it
 holds to rtol 1e-5, atol 1e-6. The tile kernels run in float32 and bf16, at
 shapes whose last 1024-wide row is ragged. The machine with the card has no JAX, so this
 file needs only PyTorch; without a CUDA device every test skips.
@@ -42,6 +43,63 @@ def test_kernels_match_plain_on_cuda(cuda, shape):
                          sign_ef.sign_ef_rows_plain(x, e)):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
     torch.cuda.synchronize()
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("shape", [(4096, 32), (999, 32), (4096, 64),
+                                   (4096, 128), (7, 36), (1000, 1000),
+                                   (3, 1025)])
+def test_row_kernels_every_layout_match_plain_on_cuda(cuda, shape, offset):
+    """QSGD with its norms given and computed (``norms=None``) bit for bit
+    against the plain version, at levels below 1 too (clamped inside), and
+    scaled sign + EF to rtol 1e-5, atol 1e-6: row groups within a warp
+    (d <= 128), of several warps (1000), block rows (1025); offset 1 makes
+    every operand a view one element into its storage, so the row groups
+    take 4-byte accesses."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    n = shape[0] * shape[1]
+
+    def draw(fn, scale=1.0):
+        t = scale * fn(offset + n, device=cuda, generator=gen)
+        return t[offset:].view(shape)
+    x, e, u = draw(torch.randn), draw(torch.randn, 0.1), draw(torch.rand)
+    assert bool(x.data_ptr() % 16) == bool(offset)
+    norms = torch.linalg.vector_norm(x, dim=1, keepdim=True)
+    for lv in (0.5, 3.0, 256.0):
+        lvt = torch.tensor(lv, device=cuda)
+        for nm in (None, norms):
+            got = qsgd.qsgd_rows(x, u, nm, lvt)
+            assert torch.isfinite(got).all()
+            assert torch.equal(got, qsgd.qsgd_rows_plain(x, u, nm, lvt)), (
+                lv, nm is None)
+    for got, want in zip(sign_ef.sign_ef_rows(x, e),
+                         sign_ef.sign_ef_rows_plain(x, e)):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.requires_cuda
+def test_qsgd_rows_api_is_one_kernel_on_cuda(cuda):
+    """``ops.qsgd_rows`` on the card computes the norms inside its one
+    kernel: torch.profiler sees one kernel a call, and the counter one
+    launch."""
+    from torch.autograd import DeviceType
+    x = torch.randn(4096, 32, device=cuda)
+    u = torch.rand(4096, 32, device=cuda)
+    lv = torch.tensor(256.0, device=cuda)
+    ops.qsgd_rows(x, u, lv)  # build and warm up outside the window
+    torch.cuda.synchronize()
+    before = qsgd.qsgd_rows.launches
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            ops.qsgd_rows(x, u, lv)
+        torch.cuda.synchronize()
+    names = [ev.name for ev in prof.events()
+             if ev.device_type == DeviceType.CUDA]
+    assert len(names) == 3 and all("qsgd_rows" in n for n in names), names
+    assert qsgd.qsgd_rows.launches == before + 3
 
 
 @pytest.mark.requires_cuda
