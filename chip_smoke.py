@@ -45,7 +45,15 @@ Phases (any failure exits non-zero):
    (whose plain versions the test suite holds against the JAX reference) at
    N = 4096, d = 256, the kernel-dispatch threshold, for each kernel-backed
    compressor under fedavg and for scaffold, fedadam and fedbuff under
-   top-k: participation and uplink bits equal, loss within rtol 1e-4;
+   top-k: participation and uplink bits equal, loss within rtol 1e-4; then
+   with ``benchmarks/bench_faults.py``'s faults (``max_retries=2``) under
+   fedavg x each kernel-backed compressor and fedbuff x top-k, and with
+   privacy (clip 0.5, sigma 0.3, as ``benchmarks/bench_privacy.py``)
+   secagg x QSGD, secagg_dp x scaled sign and dp x top-k: participation,
+   survivors, drops, retransmissions, uplink and mask bits equal, loss
+   within rtol 1e-4, epsilon within rtol 1e-5; the CPU run's smallest SNR
+   margin to the decode threshold, ``|snr / snr_min - 1|``, must exceed
+   1e-5 (an ulp of the fading draw could flip a decode closer than that);
 7. engine: the headline fleet configuration (N = 100000 clients, linear
    model d = 32, H = 2 local steps of batch 8, 4096-client blocks, on-device
    data, random scheduling of 256, 6 rounds) once per kernel-backed
@@ -55,9 +63,22 @@ Phases (any failure exits non-zero):
 8. algorithms: all eight algorithms at the same fleet configuration with
    top-k and dense EF, 3 rounds after a 1-round warm-up: rounds/s each, the
    loss finite and falling, and ``topk_rows`` launched 25 times per round
-   (50 under SCAFFOLD, whose ctrl delta is a second uplink message).
+   (50 under SCAFFOLD, whose ctrl delta is a second uplink message);
+9. faults: the fleet configuration with ``bench_faults.py``'s faults and
+   ``max_retries=2``, once per kernel-backed compressor, 3 rounds after a
+   1-round warm-up: each kernel launched 25 times a round (every client
+   compresses, survivor or not), survivors + drops at most the schedule,
+   drops in every round, the loss finite and falling; rounds/s beside
+   phase 7's fault-free rate, and the retransmissions;
+10. privacy: the fleet configuration under secagg x QSGD, secagg_dp x
+   scaled sign and dp x top-k (clip 0.5, sigma 0.3), 3 rounds each after a
+   warm-up: 25 launches a round, the loss finite and falling, epsilon
+   finite and non-decreasing under DP; secagg's final params bit for bit
+   those of the same run without masks (``_secagg_unmasked``); and the
+   mask prepass of one round timed alone.
 
-The last two lines of output are the kernel table as JSON and the result.
+Every phase prints its wall time. The last two lines of output are the
+kernel table as JSON and the result.
 """
 from __future__ import annotations
 
@@ -102,6 +123,17 @@ FLEET = dict(n_devices=100_000, n_scheduled=256, local_steps=2,
 D_FLEET, ROUNDS, ALGO_ROUNDS, BATCH = 32, 6, 3, 8
 ALGOS = ("fedavg", "fedavg_m", "fedprox", "scaffold", "slowmo", "fedadam",
          "fedyogi", "fedbuff")
+# benchmarks/bench_faults.py's FAULTS and bench_privacy.py's clip and sigma
+FAULTS = dict(drop_prob=0.2, churn_p_off=0.05, churn_p_on=0.5,
+              straggler_prob=0.1, straggler_alpha=1.5, snr_min=1.0,
+              fading_rho=0.5)
+MAX_RETRIES = 2
+PRIVACY = dict(clip=0.5, sigma=0.3)
+PRIV_CASES = (("secagg", "qsgd"), ("secagg_dp", "scaled_sign"),
+              ("dp", "topk"))
+KERNEL_OF = {"topk": "topk_rows", "qsgd": "qsgd_rows",
+             "scaled_sign": "sign_ef_rows"}
+SNR_MARGIN = 1e-5
 ROWS_SRC = "src/repro_torch/kernels/csrc/rows.cu"
 TILES_SRC = "src/repro_torch/kernels/csrc/tiles.cu"
 
@@ -514,39 +546,86 @@ def _loss(p, b):
     return ((b["x"] @ p["w"] - b["y"]) ** 2).mean(), {}
 
 
+def _snr_margin(seed: int, n: int, rounds: int, fp, max_retries: int) -> float:
+    """The smallest ``|snr / snr_min - 1|`` a fault run meets on the CPU:
+    each round's Gauss-Markov draw and every retry draw, all clients."""
+    from repro_torch import random as trandom
+    from repro_torch.core import faults, wireless
+    chan = wireless.channel_params(wireless.WirelessConfig(n_devices=n))
+    k_pos, k_rounds = trandom.split(trandom.PRNGKey(seed))
+    dist = wireless.sample_positions_jax(k_pos, chan, n)
+    fad = torch.zeros(n, 2)
+    worst = float("inf")
+    for t in range(rounds):
+        kt = trandom.fold_in(k_rounds, t)
+        fad, power = faults.gauss_markov_fading(fp, kt, fad, t)
+        for p in [power] + [faults.retry_fading(kt, r, n)
+                            for r in range(1, max_retries + 1)]:
+            snr = wireless.snr_jax(dist, p, chan)
+            worst = min(worst, float((snr / fp.snr_min - 1.0).abs().min()))
+    return worst
+
+
 def check_against_cpu(dev) -> None:
     """The engine on the card against the engine on the CPU."""
+    from repro_torch.core import faults, privacy
     from repro_torch.core.algorithms import registry as algos
     from repro_torch.data import make_linear_datagen
     from repro_torch.fl import runtime as rt
-    d = 256
+    d, n, rounds, seed = 256, 4096, 2, 20
     w_star = np.random.default_rng(42).standard_normal(d).astype(np.float32)
-    cases = ([("fedavg", c) for c in ("topk", "qsgd", "scaled_sign")]
-             + [(a, "topk") for a in ("scaffold", "fedadam", "fedbuff")])
-    for algo, comp in cases:
+    fp = faults.fault_params(**FAULTS)
+    pp = privacy.privacy_params(**PRIVACY)
+    cases = ([(a, c, {}) for a, c in (
+        [("fedavg", c) for c in ("topk", "qsgd", "scaled_sign")]
+        + [(a, "topk") for a in ("scaffold", "fedadam", "fedbuff")])]
+        + [(a, c, dict(faults=fp, max_retries=MAX_RETRIES)) for a, c in (
+            [("fedavg", c) for c in ("topk", "qsgd", "scaled_sign")]
+            + [("fedbuff", "topk")])]
+        + [("fedavg", c, dict(privacy=p, privacy_params=pp))
+           for p, c in PRIV_CASES])
+    margin = _snr_margin(seed, n, rounds, fp, MAX_RETRIES)
+    log(f"reference: the CPU fault runs' smallest |snr / snr_min - 1| is "
+        f"{margin:.3g}")
+    if margin <= SNR_MARGIN:
+        raise AssertionError(f"reference: an SNR lies within {margin:.3g} "
+                             "of the decode threshold; pick another seed")
+    for algo, comp, extra in cases:
         logs = []
         for device in (dev, "cpu"):
             cfg = rt.SimConfig(
-                n_devices=4096, n_scheduled=64, rounds=2, local_steps=2,
-                policy="random", compression=comp, chunk_size=1024, seed=20,
-                algorithm=algo, algo_params=algos.algo_params(lr=0.1),
-                datagen=make_linear_datagen(w_star))
+                n_devices=n, n_scheduled=64, rounds=rounds, local_steps=2,
+                policy="random", compression=comp, chunk_size=1024,
+                seed=seed, algorithm=algo,
+                algo_params=algos.algo_params(lr=0.1),
+                datagen=make_linear_datagen(w_star), **extra)
             _, lg = rt.run_simulation_scan(
                 cfg, _loss, {"w": np.zeros(d, np.float32)}, device=device)
             logs.append(lg)
         g, c = logs
-        np.testing.assert_array_equal(g.participation, c.participation)
-        np.testing.assert_array_equal(g.uplink_bits, c.uplink_bits)
+        for f in ("participation", "uplink_bits", "n_survived", "n_dropped",
+                  "retransmissions", "mask_bits"):
+            np.testing.assert_array_equal(getattr(g, f), getattr(c, f),
+                                          err_msg=f)
         np.testing.assert_allclose(g.loss, c.loss, rtol=1e-4)
         np.testing.assert_allclose(g.latency_s, c.latency_s, rtol=1e-5)
+        np.testing.assert_allclose(g.epsilon, c.epsilon, rtol=1e-5)
         rel = float(np.max(np.abs(g.loss - c.loss) / np.abs(c.loss)))
-        log(f"reference {algo} {comp}: card == cpu (participation, bits); "
-            f"loss max rel diff {rel:.3g}")
+        what = " ".join(v for v in (algo, comp, extra.get("privacy"),
+                                    "faults" if "faults" in extra else None)
+                        if v)
+        log(f"reference {what}: card == cpu (participation, bits, "
+            f"survivors {c.n_survived.tolist()}, drops "
+            f"{c.n_dropped.tolist()}, retransmissions "
+            f"{c.retransmissions.tolist()}); loss max rel diff {rel:.3g}; "
+            f"epsilon {c.epsilon.tolist()}")
 
 
-def _fleet_run(dev, datagen, rounds, **kw):
+def _fleet_run(dev, datagen, rounds, full_schedule=True, **kw):
     """One warmed-up engine run at the fleet configuration, every row
-    launch counter set to 0 just before it and read just after."""
+    launch counter set to 0 just before it and read just after. Under churn
+    fewer than ``n_scheduled`` clients may be online: ``full_schedule=False``
+    asks only for at most that many."""
     from repro_torch.core.algorithms import registry as algos
     from repro_torch.fl import runtime as rt
     from repro_torch.kernels import qsgd, sign_ef, topk_mask
@@ -567,7 +646,7 @@ def _fleet_run(dev, datagen, rounds, **kw):
         lambda: rt.run_simulation_scan(cfg(rounds), _loss, params0,
                                        device=dev))
     counts = {n: fn.launches for n, fn in counters.items()}
-    what = " ".join(str(v) for v in kw.values())
+    what = " ".join(str(v) for v in kw.values() if isinstance(v, str))
     if not np.all(np.isfinite(logs.loss)) or not (
             logs.loss[-1] < logs.loss[0]):
         raise AssertionError(f"engine {what}: loss not finite or not "
@@ -575,9 +654,11 @@ def _fleet_run(dev, datagen, rounds, **kw):
     if params["w"].shape != (D_FLEET,) or not bool(
             torch.isfinite(params["w"]).all()):
         raise AssertionError(f"engine {what}: bad final params")
-    if not np.all(logs.n_scheduled == FLEET["n_scheduled"]):
+    if not (np.all(logs.n_scheduled == FLEET["n_scheduled"])
+            if full_schedule
+            else np.all(logs.n_scheduled <= FLEET["n_scheduled"])):
         raise AssertionError(f"engine {what}: schedule size off")
-    return rounds / dt, counts, logs
+    return rounds / dt, counts, logs, params["w"]
 
 
 def _datagen():
@@ -587,29 +668,29 @@ def _datagen():
     return make_linear_datagen(w_star, local_steps=2, batch=BATCH)
 
 
-def run_engine(dev, smi: str) -> dict:
-    by_comp = {"topk": "topk_rows", "qsgd": "qsgd_rows",
-               "scaled_sign": "sign_ef_rows"}
+def run_engine(dev, smi: str) -> tuple:
     datagen = _datagen()
-    launches = {}
-    for comp, kname in by_comp.items():
-        rate, counts, logs = _fleet_run(dev, datagen, ROUNDS,
-                                        compression=comp)
+    launches, rates = {}, {}
+    for comp, kname in KERNEL_OF.items():
+        rate, counts, logs, _ = _fleet_run(dev, datagen, ROUNDS,
+                                           compression=comp)
         launches[kname] = counts[kname]
+        rates[comp] = rate
         log(f"engine {comp}: {rate:.4f} rounds/s at N="
             f"{FLEET['n_devices']} on {smi}; launches {counts}; "
             f"loss {logs.loss.tolist()}")
         if counts[kname] == 0:
             raise AssertionError(f"engine {comp} never launched {kname}")
-    return launches
+    return launches, rates
 
 
 def run_algorithms(dev, smi: str) -> None:
     datagen = _datagen()
     blocks = -(-FLEET["n_devices"] // FLEET["chunk_size"])
     for algo in ALGOS:
-        rate, counts, logs = _fleet_run(dev, datagen, ALGO_ROUNDS,
-                                        compression="topk", algorithm=algo)
+        rate, counts, logs, _ = _fleet_run(dev, datagen, ALGO_ROUNDS,
+                                           compression="topk",
+                                           algorithm=algo)
         per_round = blocks * (2 if algo == "scaffold" else 1)
         log(f"algorithm {algo}: {rate:.4f} rounds/s at N="
             f"{FLEET['n_devices']} (top-k, dense EF) on {smi}; launches "
@@ -620,22 +701,103 @@ def run_algorithms(dev, smi: str) -> None:
                 f" times, expected {per_round} per round")
 
 
+def _check_launches(what, counts, kname, rounds) -> None:
+    blocks = -(-FLEET["n_devices"] // FLEET["chunk_size"])
+    if counts[kname] != blocks * rounds:
+        raise AssertionError(f"{what}: {kname} launched {counts[kname]} "
+                             f"times, expected {blocks} per round")
+
+
+def run_faults(dev, smi: str, base_rates: dict) -> None:
+    from repro_torch.core import faults
+    datagen = _datagen()
+    fp = faults.fault_params(**FAULTS)
+    for comp, kname in KERNEL_OF.items():
+        rate, counts, logs, _ = _fleet_run(
+            dev, datagen, ALGO_ROUNDS, full_schedule=False, compression=comp,
+            faults=fp, max_retries=MAX_RETRIES)
+        log(f"faults {comp}: {rate:.4f} rounds/s at N={FLEET['n_devices']} "
+            f"(fault-free {base_rates[comp]:.4f}, phase 7) on {smi}; "
+            f"launches {counts}; scheduled {logs.n_scheduled.tolist()}, "
+            f"survived {logs.n_survived.tolist()}, dropped "
+            f"{logs.n_dropped.tolist()}, retransmissions "
+            f"{logs.retransmissions.tolist()}; loss {logs.loss.tolist()}")
+        _check_launches(f"faults {comp}", counts, kname, ALGO_ROUNDS)
+        if not (np.all(logs.n_survived + logs.n_dropped <= logs.n_scheduled)
+                and np.all(logs.n_dropped > 0)):
+            raise AssertionError(f"faults {comp}: survivors and drops off")
+
+
+def run_privacy(dev, smi: str) -> None:
+    from repro_torch.core import privacy
+    from repro_torch.fl import server
+    datagen = _datagen()
+    pp = privacy.privacy_params(**PRIVACY)
+    finals = {}
+    for priv, comp in PRIV_CASES + (("_secagg_unmasked", "qsgd"),):
+        kname = KERNEL_OF[comp]
+        rate, counts, logs, w = _fleet_run(
+            dev, datagen, ALGO_ROUNDS, compression=comp, privacy=priv,
+            privacy_params=pp)
+        finals[priv] = (logs, w)
+        log(f"privacy {priv} {comp}: {rate:.4f} rounds/s at N="
+            f"{FLEET['n_devices']} on {smi}; launches {counts}; epsilon "
+            f"{logs.epsilon.tolist()}; mask bits {logs.mask_bits.tolist()}; "
+            f"loss {logs.loss.tolist()}")
+        _check_launches(f"privacy {priv}", counts, kname, ALGO_ROUNDS)
+        if privacy.get_privacy(priv).uses_dp and not (
+                np.all(np.isfinite(logs.epsilon))
+                and np.all(np.diff(logs.epsilon) >= 0)):
+            raise AssertionError(f"privacy {priv}: epsilon not finite or "
+                                 "decreasing")
+    (masked, w_masked), (plain, w_plain) = (finals["secagg"],
+                                            finals["_secagg_unmasked"])
+    if not (np.array_equal(masked.loss, plain.loss)
+            and torch.equal(w_masked, w_plain)):
+        raise AssertionError("privacy: secagg differs from the same run "
+                             "without masks")
+    log(f"privacy: secagg's final params and losses bit for bit those of "
+        f"_secagg_unmasked at N={FLEET['n_devices']}")
+    # the mask prepass of one round alone: the survivor set of a round
+    from repro_torch import random as trandom
+    n = FLEET["n_devices"]
+    part = torch.zeros(n, device=dev)
+    part[torch.randperm(n, device=dev)[:FLEET["n_scheduled"]]] = 1.0
+    key = trandom.PRNGKey(3, dev)
+    server._mask_prepass(key, n, D_FLEET, part, FLEET["chunk_size"])
+    times = [wall_s(lambda: server._mask_prepass(
+        key, n, D_FLEET, part, FLEET["chunk_size"]))[1] for _ in range(3)]
+    log(f"privacy: mask prepass of one round at N={n}, d={D_FLEET}, blocks "
+        f"of {FLEET['chunk_size']}: {min(times):.6f} s (min of 3; "
+        f"{[round(t, 6) for t in times]}) on {smi}")
+
+
 def main() -> int:
+    t0 = time.perf_counter()
     smi = card()
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    build()
     table = {}
-    check_kernels(dev, table)
-    check_tile_kernels(dev, table)
-    check_topk_adversarial(dev)
+    phases = [("build", build),
+              ("row kernels", lambda: check_kernels(dev, table)),
+              ("tile kernels", lambda: (check_tile_kernels(dev, table),
+                                        check_topk_adversarial(dev))),
+              ("api", lambda: run_api(dev)),
+              ("reference", lambda: check_against_cpu(dev)),
+              ("engine", lambda: run_engine(dev, smi)),
+              ("algorithms", lambda: run_algorithms(dev, smi)),
+              ("faults", lambda: run_faults(dev, smi, out["engine"][1])),
+              ("privacy", lambda: run_privacy(dev, smi))]
+    out = {}
+    log(f"phase card: {time.perf_counter() - t0:.2f} s")
+    for name, fn in phases:
+        t = time.perf_counter()
+        out[name] = fn()
+        log(f"phase {name}: {time.perf_counter() - t:.2f} s")
     log("kernels: no single PyTorch call computes any of the six "
         "functions, so library_ms is null")
-    launches = run_api(dev)
-    check_against_cpu(dev)
-    launches.update(run_engine(dev, smi))
-    run_algorithms(dev, smi)
+    launches = dict(out["api"], **out["engine"][0])
     rows = []
     for name, (replaces, source, *_rest) in KERNELS.items():
         r = table[name]

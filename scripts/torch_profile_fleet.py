@@ -1,10 +1,13 @@
 """Where a round of the port's fleet engine spends its time, on one card.
 
     python3 scripts/torch_profile_fleet.py [--compression topk] [--rounds 2]
+        [--faults] [--privacy secagg]
 
 Runs the headline fleet configuration (N = 100000 clients, linear model
 d = 32, H = 2 local steps of batch 8, 4096-client blocks, on-device data,
-random scheduling of 256) and prints:
+random scheduling of 256), optionally with ``benchmarks/bench_faults.py``'s
+faults (``max_retries=2``) and a privacy mechanism (clip 0.5, sigma 0.3, as
+``benchmarks/bench_privacy.py``), and prints:
 
 * the host clock per round and the device's busy share over the profiled
   rounds (``torch.profiler``, CPU + CUDA activities);
@@ -36,6 +39,7 @@ from repro_torch import random as trandom  # noqa: E402
 from repro_torch.core import chunking, faults, scheduling, wireless  # noqa: E402
 from repro_torch.core.algorithms import registry as algos  # noqa: E402
 from repro_torch.core.compression import registry as comp_lib  # noqa: E402
+from repro_torch.core.privacy import privacy_params  # noqa: E402
 from repro_torch.data import make_linear_datagen  # noqa: E402
 from repro_torch.fl import runtime as rt  # noqa: E402
 
@@ -101,6 +105,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--compression", default="topk")
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--faults", action="store_true")
+    ap.add_argument("--privacy", default="none")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_profile_fleet: CUDA is not available")
@@ -113,11 +119,21 @@ def main() -> int:
     w_star = np.random.default_rng(42).standard_normal(D).astype(np.float32)
     datagen = make_linear_datagen(w_star, local_steps=H, batch=B)
 
+    extra = dict(privacy=args.privacy, privacy_params=privacy_params(
+        clip=0.5, sigma=0.3))
+    if args.faults:
+        extra.update(max_retries=2, faults=faults.fault_params(
+            drop_prob=0.2, churn_p_off=0.05, churn_p_on=0.5,
+            straggler_prob=0.1, straggler_alpha=1.5, snr_min=1.0,
+            fading_rho=0.5))
+    what = (f"{args.compression}, privacy {args.privacy}"
+            + (", faults" if args.faults else ""))
+
     def cfg(rounds):
         return rt.SimConfig(
             n_devices=N, n_scheduled=K, rounds=rounds, local_steps=H,
             policy="random", compression=args.compression, chunk_size=CHUNK,
-            datagen=datagen, algo_params=algos.algo_params(lr=0.05))
+            datagen=datagen, algo_params=algos.algo_params(lr=0.05), **extra)
 
     params0 = {"w": np.zeros(D, np.float32)}
     rt.run_simulation_scan(cfg(1), _loss, params0, device=dev)  # warm-up
@@ -132,10 +148,13 @@ def main() -> int:
     events = prof.key_averages()
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     device_us = sum(e.self_device_time_total for e in kernels)
-    print(f"profiled {args.rounds} rounds ({args.compression}): host "
+    print(f"profiled {args.rounds} rounds ({what}): host "
           f"{wall / args.rounds * 1e3:.1f} ms/round; device busy "
           f"{device_us / 1e3 / args.rounds:.1f} ms/round = "
           f"{device_us / 1e6 / wall:.3f} of the wall clock", flush=True)
+    launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
+    print(f"cudaLaunchKernel: {launches / args.rounds:.0f} a round",
+          flush=True)
     by_dev = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
     for e in by_dev:
         print(f"device {e.self_device_time_total / 1e3:9.2f} ms "

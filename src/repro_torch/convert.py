@@ -1,5 +1,5 @@
 """Carry JAX-side values into the port, as numpy arrays: parameter dicts,
-PRNG keys and a whole round state. The port never imports JAX; callers hand
+PRNG keys, a whole round state, and fault and privacy parameters. The port never imports JAX; callers hand
 over JAX objects, which are read through ``np.asarray`` and their field
 names."""
 from __future__ import annotations
@@ -11,6 +11,8 @@ import torch
 
 from repro_torch.core import aggregation as agg
 from repro_torch.core.compression.error_feedback import SparseEF
+from repro_torch.core.faults import FaultParams
+from repro_torch.core.privacy.registry import PrivacyParams
 from repro_torch.fl.server import FLState
 
 
@@ -66,3 +68,15 @@ def fl_state_from_jax(state, device=None):
                    _tree(state.server_error, device),
                    _tree(state.server_opt, device),
                    _tree(state.ctrl, device), int(state.round))
+
+
+def fault_params_from_jax(fp, device=None) -> FaultParams:
+    """The reference's ``FaultParams`` -> the port's, field by field."""
+    return FaultParams(*(_tensor(getattr(fp, f), device)
+                         for f in FaultParams._fields))
+
+
+def privacy_params_from_jax(pp, device=None) -> PrivacyParams:
+    """The reference's ``PrivacyParams`` -> the port's, field by field."""
+    return PrivacyParams(*(_tensor(getattr(pp, f), device)
+                           for f in PrivacyParams._fields))

@@ -45,6 +45,22 @@ class PolicyConfig:
 PolicyFn = Callable[[PolicyConfig, RoundState], torch.Tensor]
 
 
+def masked_round_state(st: RoundState, m: torch.Tensor,
+                       key: torch.Tensor | None = None) -> RoundState:
+    """View of the round state where devices outside the boolean mask ``m``
+    look unschedulable to every score-based policy: zero SNR and norms,
+    infinite comm/comp latency. Index-based policies (random /
+    round_robin) ignore scores, so callers must still ``& m`` the mask."""
+    st2 = st._replace(
+        snr_lin=torch.where(m, st.snr_lin, 0.0),
+        avg_snr=torch.where(m, st.avg_snr, 1.0),
+        rates=torch.where(m, st.rates, 1e-9),
+        comm_lat=torch.where(m, st.comm_lat, torch.inf),
+        comp_lat=torch.where(m, st.comp_lat, torch.inf),
+        update_norms=torch.where(m, st.update_norms, 0.0))
+    return st2 if key is None else st2._replace(key=key)
+
+
 def _mask_of(idx: torch.Tensor, n: int) -> torch.Tensor:
     mask = torch.zeros(n, dtype=torch.bool, device=idx.device)
     mask[idx] = True

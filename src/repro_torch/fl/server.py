@@ -13,9 +13,11 @@ is O(chunk * D), and the result is *bitwise* the unchunked pass, because
 every cross-client sum is the canonical pairwise tree and all per-client
 randomness comes from ``fold_in(key, client_id)``.
 
-``pssgd_round`` is one synchronous gradient-averaging step (Alg. 1).
+With a privacy mechanism (``core/privacy``) each client's wire row is
+clipped, field-encoded, noised and masked after EF and compression; the
+server decodes the modular sum or adds central noise before the mean.
 
-Not in this slice: privacy mechanisms.
+``pssgd_round`` is one synchronous gradient-averaging step (Alg. 1).
 """
 from __future__ import annotations
 
@@ -33,7 +35,10 @@ from repro_torch.core.algorithms.registry import Algorithm, AlgoParams
 from repro_torch.core.compression import error_feedback
 from repro_torch.core.compression import registry as compression_lib
 from repro_torch.core.compression.error_feedback import SparseEF
+from repro_torch.core.compression.coding import FIELD_MASK
 from repro_torch.core.compression.registry import CompressionParams
+from repro_torch.core.privacy import registry as privacy_lib
+from repro_torch.core.privacy.registry import PrivacyParams
 from repro_torch.kernels import ops as kernel_ops
 
 Params = Dict[str, torch.Tensor]
@@ -223,7 +228,8 @@ def fl_round(state: FLState, stacked_batches, loss_fn, *,
              chunk_size: Optional[int] = None,
              n_clients: Optional[int] = None,
              staleness_weights: Optional[torch.Tensor] = None,
-             privacy=None,
+             privacy=None, pparams: Optional[PrivacyParams] = None,
+             privacy_key: Optional[torch.Tensor] = None,
              gate_ef: bool = False, guard_empty: bool = False,
              lr=None, server=None, server_lr=None, slowmo_beta=None,
              momentum=None) -> Tuple[FLState, Dict[str, torch.Tensor]]:
@@ -246,16 +252,17 @@ def fl_round(state: FLState, stacked_batches, loss_fn, *,
     sum only (EF accrues the true residual; all-ones weights are bitwise no
     weights). ``gate_ef`` freezes non-participants' EF rows; ``guard_empty``
     makes a round with no participant a no-op: params, server state and
-    downlink EF carry forward. With ``chunk_size`` the per-client state needs
-    ``init_fl_state(n_rows=ceil(N/chunk) * chunk)``. The deprecated ``lr=``,
+    downlink EF carry forward. ``privacy`` (a registry name or
+    :class:`privacy_lib.Privacy`) with ``pparams`` and a fresh
+    ``privacy_key`` privatizes the wire rows: in the field modes they are
+    int64 field elements summed mod 2^32, masked by the survivors' pairwise
+    masks, and bill ``field_bits * D`` each. With ``chunk_size`` the
+    per-client state needs ``init_fl_state(n_rows=ceil(N/chunk) * chunk)``. The deprecated ``lr=``,
     ``server=``, ``server_lr=``, ``slowmo_beta=`` and ``momentum=`` map onto
     the registry with a warning. Returns the new state and metrics ``loss``,
     ``delta_norm`` and, with compression, the participation-weighted
     ``uplink_bits``.
     """
-    if privacy is not None and privacy != "none":
-        raise NotImplementedError("privacy mechanisms are not ported to "
-                                  "PyTorch yet")
     dev = next(iter(state.params.values())).device
     a, ap = _resolve_algo(algo, aparams, lr, server, server_lr, slowmo_beta,
                           momentum, dev)
@@ -296,6 +303,40 @@ def fl_round(state: FLState, stacked_batches, loss_fn, *,
     if gate_ef and part is None:
         raise ValueError("fl_round(gate_ef=True) needs participation= "
                          "(the gate freezes non-participants' EF rows)")
+
+    priv = None
+    if privacy is not None:
+        priv = (privacy_lib.get_privacy(privacy) if isinstance(privacy, str)
+                else privacy)
+        if priv.name == "none":
+            priv = None
+    if priv is not None:
+        if privacy_key is None:
+            raise ValueError(
+                f"fl_round(privacy={priv.name!r}) needs privacy_key= — mask "
+                "PRG seeds and DP noise must be fresh every round")
+        if pparams is None:
+            pparams = privacy_lib.default_privacy_params(dev)
+        if a.uses_ctrl:
+            raise ValueError(
+                f"privacy={priv.name!r} does not cover algo={a.name!r}: the "
+                "control-variate uplink would be a per-client plaintext "
+                "side channel")
+        if priv.uses_field and sw is not None:
+            raise ValueError(
+                f"privacy={priv.name!r} is incompatible with "
+                "staleness_weights=: fractional weights cannot scale uint32 "
+                "field elements")
+        if (priv.uses_field and compression_name is not None
+                and compression_name not in privacy_lib.FIELD_COMPATIBLE):
+            raise ValueError(
+                f"privacy={priv.name!r} cannot ship "
+                f"compression={compression_name!r} messages through a masked "
+                f"field sum; legal: {'/'.join(privacy_lib.FIELD_COMPATIBLE)}")
+    field = priv is not None and priv.uses_field
+    mask_env = None
+    if priv is not None and priv.uses_masks:
+        mask_env = _mask_prepass(privacy_key, n, d, part, chunk_size)
 
     def one(b):
         delta, _, loss = a.client_update(loss_fn, ap, state.params, b, None)
@@ -350,9 +391,22 @@ def fl_round(state: FLState, stacked_batches, loss_fn, *,
                 new_ef_b = _select_rows(part_b != 0, new_ef_b, ef_b)
 
         w = valid if part_b is None else part_b
+        if priv is not None:
+            # privacy acts on the wire message (after EF and compression):
+            # clip, field-encode, local noise, then the cohort's pairwise
+            # masks; rows with w == 0 are selected away by canonical_sum
+            flat = priv.client_transform(pparams, privacy_key, ids, flat)
+            if mask_env is not None:
+                gsum, cnt = mask_env
+                flat = (flat + privacy_lib.pairwise_masks(
+                    privacy_key, ids, d, gsum, cnt)) & FIELD_MASK
+            if field and bits is not None:
+                # a masked field message is dense: field_bits a coordinate
+                bits = (pparams.field_bits * float(d)).expand(bits.shape)
         # the staleness discount multiplies the wire message in the sum only
         dsrc = flat if sw_b is None else flat * sw_b[:, None]
-        psums = {"delta": chunking.canonical_sum(dsrc, w),
+        delta_sum = chunking.canonical_sum(dsrc, w)
+        psums = {"delta": delta_sum & FIELD_MASK if field else delta_sum,
                  "loss": chunking.canonical_sum(losses, valid)}
         if bits is not None:
             psums["bits"] = chunking.canonical_sum(bits, w)
@@ -391,6 +445,8 @@ def fl_round(state: FLState, stacked_batches, loss_fn, *,
         totals = {k: chunking.canonical_sum(torch.stack([p[k] for p in
                                                          psums_m]))
                   for k in psums_m[0]}
+        if field:  # int64 adds mod 2^32: the reference's wrapping uint32
+            totals["delta"] = totals["delta"] & FIELD_MASK
         client_error = _cat_rows(ef_m)
         new_ctrl = _cat_rows(ctrl_m)
     else:
@@ -404,8 +460,12 @@ def fl_round(state: FLState, stacked_batches, loss_fn, *,
     nsched = part.sum() if part is not None else None
     denom = (torch.tensor(float(n), device=dev) if part is None
              else torch.clamp_min(nsched, 1.0))
-    mean_delta = algorithms.unflatten_vec(totals["delta"] / denom,
-                                          state.params)
+    tot_delta = totals["delta"]
+    if priv is not None:
+        # decode the field sum / add central noise, to the sum (the noise is
+        # calibrated to the clipped per-client sensitivity)
+        tot_delta = priv.server_transform(pparams, privacy_key, tot_delta)
+    mean_delta = algorithms.unflatten_vec(tot_delta / denom, state.params)
 
     # --- downlink (PS-side) EF compression (Alg. 6 lines 15-17) -----------
     server_error = state.server_error
@@ -446,6 +506,36 @@ def fl_round(state: FLState, stacked_batches, loss_fn, *,
         metrics["uplink_bits"] = totals["bits"]
     return FLState(new_params, client_error, server_error, new_opt,
                    new_ctrl, state.round + 1), metrics
+
+
+def _mask_prepass(privacy_key: torch.Tensor, n: int, d: int,
+                  part: Optional[torch.Tensor], chunk_size: Optional[int]
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cohort aggregate every pairwise mask needs: ``(gsum, cnt)``, with
+    ``gsum = sum_{j in S} g_j`` mod 2^32 and ``cnt = |S|`` over the survivor
+    set S (participation != 0; everyone when ``part is None``). Addition mod
+    2^32 is associative, so accumulating per block is bitwise the one-shot
+    sum. The client pass draws the PRG rows again: twice the PRG work for
+    O(chunk * D) memory instead of O(N * D)."""
+    dev = privacy_key.device
+    if chunk_size is not None and chunk_size < n:
+        gsum = torch.zeros(d, dtype=torch.int64, device=dev)
+        cnt = torch.zeros((), dtype=torch.int64, device=dev)
+        for b in range(chunking.n_blocks(n, chunk_size)):
+            ids = chunking.block_ids(b, chunk_size, dev)
+            surv = ids < n
+            if part is not None:
+                surv &= part[ids.clamp_max(n - 1)] != 0
+            g = privacy_lib.mask_rows(privacy_key, ids, d)
+            gsum = (gsum + torch.where(surv[:, None], g, 0).sum(0)
+                    ) & FIELD_MASK
+            cnt = cnt + surv.sum()
+        return gsum, cnt
+    ids = torch.arange(n, device=dev)
+    surv = (torch.ones(n, dtype=torch.bool, device=dev) if part is None
+            else part != 0)
+    g = privacy_lib.mask_rows(privacy_key, ids, d)
+    return torch.where(surv[:, None], g, 0).sum(0) & FIELD_MASK, surv.sum()
 
 
 def _global_norm(tree: Params) -> torch.Tensor:

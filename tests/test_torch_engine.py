@@ -184,7 +184,15 @@ def test_default_device_is_cuda_and_raises_without_it():
 
 
 def test_unported_features_raise():
+    """Faults and privacy are ported (``test_torch_faults.py``,
+    ``test_torch_privacy.py``); the host loop and opaque ``eval_fn``s are
+    not."""
+    _, _, make_batches, _ = make_linear_problem(d=8)
+    cfg = trt.SimConfig(n_devices=4, n_scheduled=2, rounds=1)
+    params = {"w": np.zeros(8, np.float32)}
     with pytest.raises(NotImplementedError):
-        trt.SimConfig(privacy="dp")
+        trt.run_simulation(cfg, _loss_t, params, make_batches,
+                           engine="host", device="cpu")
     with pytest.raises(NotImplementedError):
-        trt.SimConfig(faults=object())
+        trt.run_simulation(cfg, _loss_t, params, make_batches,
+                           eval_fn=lambda p: 0.0, device="cpu")

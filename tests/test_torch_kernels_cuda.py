@@ -5,8 +5,10 @@ Top-k and QSGD must be bitwise equal to their plain versions (exact steps;
 QSGD built with -fmad=false, its in-kernel norms summed in the order of
 ``ref.lane_order_norms``); scaled sign + EF sums in another order, so it
 holds to rtol 1e-5, atol 1e-6. The tile kernels run in float32 and bf16, at
-shapes whose last 1024-wide row is ragged. The machine with the card has no JAX, so this
-file needs only PyTorch; without a CUDA device every test skips.
+shapes whose last 1024-wide row is ragged. Secure aggregation on the card
+must equal its run without masks, and its field arithmetic the CPU's, bit
+for bit. The machine with the card has no JAX, so this file needs only
+PyTorch; without a CUDA device every test skips.
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_kernels_cuda.py
 """
@@ -207,4 +209,59 @@ def test_tile_apis_launch_once_on_cuda(cuda):
         before = fn.launches
         call()
         assert fn.launches == before + 1
+    torch.cuda.synchronize()
+
+
+def _loss(p, b):
+    return ((b["x"] @ p["w"] - b["y"]) ** 2).mean(), {}
+
+
+@pytest.mark.requires_cuda
+def test_secagg_bitwise_unmasked_and_field_ops_on_cuda(cuda):
+    """Secure aggregation on the card: at N = 4096, d = 256 (the kernel row
+    path, QSGD through B3) in blocks of 1024, secagg's params and losses are
+    bit for bit those of the same run without masks; and the field codec
+    and the pairwise masks on CUDA tensors equal the CPU's bit for bit."""
+    import numpy as np
+    from repro_torch import random as trandom
+    from repro_torch.core import privacy
+    from repro_torch.core.algorithms import registry as algos
+    from repro_torch.core.compression import coding
+    from repro_torch.data import make_linear_datagen
+    from repro_torch.fl import runtime as rt
+    from repro_torch.fl import server
+    d = 256
+    w_star = np.random.default_rng(42).standard_normal(d).astype(np.float32)
+    runs = []
+    for priv in ("secagg", "_secagg_unmasked"):
+        cfg = rt.SimConfig(
+            n_devices=4096, n_scheduled=64, rounds=2, local_steps=2,
+            policy="random", compression="qsgd", chunk_size=1024, seed=20,
+            privacy=priv, privacy_params=privacy.privacy_params(
+                clip=0.5, sigma=0.3),
+            algo_params=algos.algo_params(lr=0.1),
+            datagen=make_linear_datagen(w_star))
+        runs.append(rt.run_simulation_scan(
+            cfg, _loss, {"w": np.zeros(d, np.float32)}, device=cuda))
+    (pm, lm), (pu, lu) = runs
+    assert torch.equal(pm["w"], pu["w"])
+    np.testing.assert_array_equal(lm.loss, lu.loss)
+    assert (lm.mask_bits > 0).all() and not lu.mask_bits.any()
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(4096, d, device=cuda, generator=gen)
+    for clip, fb in ((0.5, 20.0), (0.25, 17.0), (1.3, 24.0)):
+        q = coding.to_field(x, clip, fb)
+        assert torch.equal(q.cpu(), coding.to_field(x.cpu(), clip, fb))
+        assert torch.equal(coding.from_field(q, clip, fb).cpu(),
+                           coding.from_field(q.cpu(), clip, fb))
+    key = trandom.PRNGKey(3, cuda)
+    part = (torch.arange(4096, device=cuda) % 5 == 2).to(torch.float32)
+    gsum, cnt = server._mask_prepass(key, 4096, d, part, 1024)
+    gsum_c, cnt_c = server._mask_prepass(key.cpu(), 4096, d, part.cpu(), None)
+    assert torch.equal(gsum.cpu(), gsum_c) and int(cnt) == int(cnt_c)
+    ids = torch.arange(4096, device=cuda)
+    assert torch.equal(
+        privacy.pairwise_masks(key, ids, d, gsum, cnt).cpu(),
+        privacy.pairwise_masks(key.cpu(), ids.cpu(), d, gsum_c, cnt_c))
     torch.cuda.synchronize()
