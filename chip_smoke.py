@@ -54,6 +54,9 @@ Phases (any failure exits non-zero):
    within rtol 1e-4, epsilon within rtol 1e-5; the CPU run's smallest SNR
    margin to the decode threshold, ``|snr / snr_min - 1|``, must exceed
    1e-5 (an ulp of the fading draw could flip a decode closer than that);
+   then a sweep (2 seeds x random and best_channel in mixture mode x 2
+   dropout probabilities x privacy none and dp, 2 rounds) and the host
+   loop with an opaque ``eval_fn``, each on the card against the CPU;
 7. engine: the headline fleet configuration (N = 100000 clients, linear
    model d = 32, H = 2 local steps of batch 8, 4096-client blocks, on-device
    data, random scheduling of 256, 6 rounds) once per kernel-backed
@@ -75,7 +78,25 @@ Phases (any failure exits non-zero):
    warm-up: 25 launches a round, the loss finite and falling, epsilon
    finite and non-decreasing under DP; secagg's final params bit for bit
    those of the same run without masks (``_secagg_unmasked``); and the
-   mask prepass of one round timed alone.
+   mask prepass of one round timed alone;
+11. sweep: (a) ``benchmarks/bench_sweep.py``'s full grid, N = 16 clients,
+   4 scheduled, top-k, 10 policies x 4 seeds x 5 learning rates = 200
+   variants in mixture mode, cut from the bench's 20 rounds to
+   SWEEP_ROUNDS (variants/s; the loss finite and falling on average); (b)
+   its ``--fast`` grid (40 variants, rounds capped at 8) in mixture and
+   loop mode, bitwise equal; (c) its tuner call on the same cell (seconds,
+   variants, engine traces, the winner); (d) the fleet
+   configuration swept over random, best_channel and pf x seeds 0 and 1 for
+   2 rounds with top-k (variant-rounds/s, ``topk_rows`` launched 25 times a
+   variant-round, the loss finite and falling in every variant), then
+   under QSGD and scaled sign (25 launches of their kernels a
+   variant-round); every kernel's counter, the tile kernels' too, is set
+   to 0 before each of these sweeps and read after (``sweep_launches`` in
+   the kernels line);
+12. host: the fleet configuration through the host loop with an opaque
+   ``eval_fn`` for 3 rounds: participation and uplink bits equal to the
+   scan's, its loss equal to the scan's ``eval_batch`` loss, 25 ``topk_rows``
+   launches a round; rounds/s beside phase 7's.
 
 Every phase prints its wall time. The last two lines of output are the
 kernel table as JSON and the result.
@@ -88,6 +109,7 @@ import re
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -134,6 +156,21 @@ PRIV_CASES = (("secagg", "qsgd"), ("secagg_dp", "scaled_sign"),
 KERNEL_OF = {"topk": "topk_rows", "qsgd": "qsgd_rows",
              "scaled_sign": "sign_ef_rows"}
 SNR_MARGIN = 1e-5
+# benchmarks/bench_sweep.py: N = 16 clients, 4 scheduled, top-k, the full
+# grid (10 policies x 4 seeds x 5 learning rates) and its --fast grid (2 x 2,
+# its rounds capped at 8), the linear problem of benchmarks/common.py at
+# d = 32, H = 2, B = 8; its tuner call on the same cell. The bench runs 20
+# rounds; here 2, so that the script stays well inside its time limit (a
+# variant-round takes 40-60 ms of an H100 machine's host, PERF.md)
+SWEEP_N, SWEEP_ROUNDS = 16, 2
+FAST_ROUNDS = min(SWEEP_ROUNDS, 8)
+SWEEP_SEEDS, SWEEP_LRS = (0, 1, 2, 3), (0.02, 0.05, 0.1, 0.15, 0.2)
+FAST_SEEDS, FAST_LRS = (0, 1), (0.05, 0.1)
+TUNE = dict(policies=("random", "best_channel", "latency", "pf"),
+            compressions=("topk", "none"), n_scheduled_grid=(2, 4, 8))
+FLEET_POLICIES, FLEET_SEEDS, FLEET_SWEEP_ROUNDS = (
+    ("random", "best_channel", "pf"), (0, 1), 2)
+HOST_ROUNDS = 3
 ROWS_SRC = "src/repro_torch/kernels/csrc/rows.cu"
 TILES_SRC = "src/repro_torch/kernels/csrc/tiles.cu"
 
@@ -491,10 +528,8 @@ def check_topk_adversarial(dev) -> None:
 def run_api(dev) -> dict:
     """The whole-tensor APIs once each on a 10^8-element gradient."""
     from repro_torch import random as trandom
-    from repro_torch.kernels import ops, qsgd, sign_ef, topk_mask
-    counters = {"block_topk_tiles": topk_mask.block_topk_tiles,
-                "qsgd_tiles": qsgd.qsgd_tiles,
-                "sign_ef_tiles": sign_ef.sign_ef_tiles}
+    from repro_torch.kernels import ops, qsgd, topk_mask
+    counters = _tile_counters()
     gen = torch.Generator(device=dev).manual_seed(2)
     x = torch.randn(GRAD_ELEMS, device=dev, generator=gen)
     e = 0.1 * torch.randn(GRAD_ELEMS, device=dev, generator=gen)
@@ -603,22 +638,77 @@ def check_against_cpu(dev) -> None:
                 cfg, _loss, {"w": np.zeros(d, np.float32)}, device=device)
             logs.append(lg)
         g, c = logs
-        for f in ("participation", "uplink_bits", "n_survived", "n_dropped",
-                  "retransmissions", "mask_bits"):
-            np.testing.assert_array_equal(getattr(g, f), getattr(c, f),
-                                          err_msg=f)
-        np.testing.assert_allclose(g.loss, c.loss, rtol=1e-4)
-        np.testing.assert_allclose(g.latency_s, c.latency_s, rtol=1e-5)
-        np.testing.assert_allclose(g.epsilon, c.epsilon, rtol=1e-5)
-        rel = float(np.max(np.abs(g.loss - c.loss) / np.abs(c.loss)))
         what = " ".join(v for v in (algo, comp, extra.get("privacy"),
                                     "faults" if "faults" in extra else None)
                         if v)
+        rel = _card_equals_cpu(what, g, c)
         log(f"reference {what}: card == cpu (participation, bits, "
             f"survivors {c.n_survived.tolist()}, drops "
             f"{c.n_dropped.tolist()}, retransmissions "
             f"{c.retransmissions.tolist()}); loss max rel diff {rel:.3g}; "
             f"epsilon {c.epsilon.tolist()}")
+    check_sweep_and_host_against_cpu(dev, w_star, d, n, seed)
+
+
+def _card_equals_cpu(what, g, c) -> float:
+    """Logs of the card against the CPU's: counts, participation and bits
+    equal, loss within rtol 1e-4, latency and epsilon within rtol 1e-5.
+    Returns the loss's largest relative difference."""
+    for f in ("participation", "n_scheduled", "uplink_bits", "n_survived",
+              "n_dropped", "retransmissions", "mask_bits"):
+        np.testing.assert_array_equal(getattr(g, f), getattr(c, f),
+                                      err_msg=f"{what} {f}")
+    for f, rtol in (("loss", 1e-4), ("latency_s", 1e-5), ("epsilon", 1e-5)):
+        np.testing.assert_allclose(getattr(g, f), getattr(c, f), rtol=rtol,
+                                   err_msg=f"{what} {f}")
+    return float(np.max(np.abs(np.asarray(g.loss) - c.loss)
+                        / np.abs(c.loss)))
+
+
+def check_sweep_and_host_against_cpu(dev, w_star, d, n, seed) -> None:
+    """A sweep (seeds x policies in mixture mode x a dropout grid x privacy
+    none and dp) and the host loop with an opaque eval_fn, each on the
+    card against the CPU."""
+    from repro_torch import random as trandom
+    from repro_torch.core import faults, privacy
+    from repro_torch.core.algorithms import registry as algos
+    from repro_torch.data import make_linear_datagen
+    from repro_torch.fl import runtime as rt
+    datagen = make_linear_datagen(w_star)
+    cfg = rt.SimConfig(n_devices=n, n_scheduled=64, rounds=2, local_steps=2,
+                       compression="topk", chunk_size=1024, seed=seed,
+                       algo_params=algos.algo_params(lr=0.1),
+                       datagen=datagen)
+    params0 = {"w": np.zeros(d, np.float32)}
+    sweeps = [rt.run_sweep(
+        cfg, _loss, params0, None, seeds=(0, 1),
+        policies=("random", "best_channel"),
+        fparams_grid=[faults.fault_params(drop_prob=p) for p in (0.1, 0.4)],
+        privacies=("none", "dp"),
+        pparams_grid=[privacy.privacy_params(**PRIVACY)], device=device)
+        for device in (dev, "cpu")]
+    for key, c in sweeps[1].items():
+        rel = _card_equals_cpu(f"sweep {key}", sweeps[0][key], c)
+        log(f"reference sweep {key} {c.loss.shape[0]} variants: card == "
+            f"cpu; loss max rel diff {rel:.3g}; survivors "
+            f"{c.n_survived.sum(axis=1).tolist()}")
+    eval_cpu = datagen(trandom.PRNGKey(999), torch.arange(64))
+    hosts = []
+    for device in (dev, "cpu"):
+        eval_batch = {k: v.to(device) for k, v in eval_cpu.items()}
+        hosts.append(rt.run_simulation(
+            cfg, _loss, params0, None,
+            eval_fn=lambda p, b=eval_batch: float(_loss(p, b)[0]),
+            engine="host", device=device))
+    g, c = ({f: np.array([getattr(r, f) for r in logs])
+             for f in ("participation", "n_scheduled", "uplink_bits",
+                       "n_survived", "n_dropped", "retransmissions",
+                       "mask_bits", "loss", "latency_s", "epsilon")}
+            for logs in hosts)
+    rel = _card_equals_cpu("host", SimpleNamespace(**g),
+                           SimpleNamespace(**c))
+    log(f"reference host loop (opaque eval_fn): card == cpu; loss "
+        f"{c['loss'].tolist()}, max rel diff {rel:.3g}")
 
 
 def _fleet_run(dev, datagen, rounds, full_schedule=True, **kw):
@@ -628,10 +718,7 @@ def _fleet_run(dev, datagen, rounds, full_schedule=True, **kw):
     asks only for at most that many."""
     from repro_torch.core.algorithms import registry as algos
     from repro_torch.fl import runtime as rt
-    from repro_torch.kernels import qsgd, sign_ef, topk_mask
-    counters = {"topk_rows": topk_mask.topk_rows,
-                "qsgd_rows": qsgd.qsgd_rows,
-                "sign_ef_rows": sign_ef.sign_ef_rows}
+    counters = _row_counters()
 
     def cfg(r):
         return rt.SimConfig(rounds=r, datagen=datagen,
@@ -772,6 +859,187 @@ def run_privacy(dev, smi: str) -> None:
         f"{[round(t, 6) for t in times]}) on {smi}")
 
 
+def _row_counters() -> dict:
+    from repro_torch.kernels import qsgd, sign_ef, topk_mask
+    return {"topk_rows": topk_mask.topk_rows, "qsgd_rows": qsgd.qsgd_rows,
+            "sign_ef_rows": sign_ef.sign_ef_rows}
+
+
+def _tile_counters() -> dict:
+    from repro_torch.kernels import qsgd, sign_ef, topk_mask
+    return {"block_topk_tiles": topk_mask.block_topk_tiles,
+            "qsgd_tiles": qsgd.qsgd_tiles,
+            "sign_ef_tiles": sign_ef.sign_ef_tiles}
+
+
+def _sweep_batches(rounds: int) -> dict:
+    """``benchmarks/common.make_linear_problem``'s client batches at
+    d = 32, H = 2, B = 8 for SWEEP_N clients, stacked over ``rounds``; w*
+    is the port's ``normal(PRNGKey(42), (32,))``."""
+    from repro_torch import random as trandom
+    from repro_torch.fl import runtime as rt
+    w_star = trandom.normal(trandom.PRNGKey(42), (D_FLEET,)).numpy()
+
+    def make_batches(t, n):
+        rng = np.random.default_rng(t)
+        x = rng.normal(size=(n, 2, BATCH, D_FLEET)).astype(np.float32)
+        y = x @ w_star + 0.01 * rng.normal(size=(n, 2, BATCH))
+        return {"x": x, "y": y.astype(np.float32)}
+    return rt.stack_batches(make_batches, rounds, SWEEP_N)
+
+
+def run_sweep(dev, smi: str, base_rates: dict) -> dict:
+    """Phase 11: bench_sweep.py's grids and tuner call, then the fleet
+    configuration swept. Returns every kernel's launches in (d)."""
+    from repro_torch.core import scheduling
+    from repro_torch.core.algorithms import registry as algos
+    from repro_torch.fl import runtime as rt
+    from repro_torch.fl import tune
+    policies = scheduling.policy_names()
+    params0 = {"w": np.zeros(D_FLEET, np.float32)}
+
+    def cfg(rounds):
+        return rt.SimConfig(n_devices=SWEEP_N, n_scheduled=4, rounds=rounds,
+                            compression="topk")
+
+    # (a) the full grid in mixture mode
+    batches = _sweep_batches(SWEEP_ROUNDS)
+    aps = [algos.algo_params(lr=lr) for lr in SWEEP_LRS]
+    out, dt = wall_s(lambda: rt.run_sweep(
+        cfg(SWEEP_ROUNDS), _loss, params0, batches, seeds=SWEEP_SEEDS,
+        policies=policies, aparams_grid=aps, device=dev))
+    n_var = len(policies) * len(SWEEP_SEEDS) * len(aps)
+    loss = np.stack([out[p].loss for p in policies])
+    if (loss.shape != (len(policies), n_var // len(policies), SWEEP_ROUNDS)
+            or not np.all(np.isfinite(loss))
+            or not loss[..., -1].mean() < loss[..., 0].mean()):
+        raise AssertionError(f"sweep: losses misshapen, not finite or not "
+                             f"falling: {loss.shape}")
+    log(f"sweep bench_sweep grid: {n_var} variants x {SWEEP_ROUNDS} rounds "
+        f"(N={SWEEP_N}, top-k, mixture) in {dt:.3f} s = "
+        f"{n_var / dt:.3f} variants/s, {n_var * SWEEP_ROUNDS / dt:.2f} "
+        f"variant-rounds/s on {smi}; mean loss {loss[..., 0].mean():.4f} "
+        f"-> {loss[..., -1].mean():.4f}")
+    # (b) the --fast grid in both modes, bitwise equal
+    fast = _sweep_batches(FAST_ROUNDS)
+    aps_fast = [algos.algo_params(lr=lr) for lr in FAST_LRS]
+    modes = {}
+    for mode in ("mixture", "loop"):
+        modes[mode], secs = wall_s(lambda: rt.run_sweep(
+            cfg(FAST_ROUNDS), _loss, params0, fast, seeds=FAST_SEEDS,
+            policies=policies, aparams_grid=aps_fast, policy_mode=mode,
+            device=dev))
+        n_fast = len(policies) * len(FAST_SEEDS) * len(FAST_LRS)
+        log(f"sweep fast grid {mode}: {n_fast} variants x {FAST_ROUNDS} "
+            f"rounds in {secs:.3f} s = {n_fast / secs:.3f} variants/s")
+    for pol in policies:
+        for f in rt._LOG_FIELDS:
+            if not np.array_equal(getattr(modes["mixture"][pol], f),
+                                  getattr(modes["loop"][pol], f)):
+                raise AssertionError(f"sweep fast grid {pol} {f}: mixture "
+                                     "differs from loop")
+    log("sweep fast grid: mixture bitwise equal to loop in every field")
+    # (c) bench_sweep.py's tuner call
+    traces0 = rt.ENGINE_STATS["traces"]
+    res, secs = wall_s(lambda: tune.tune(
+        cfg(SWEEP_ROUNDS), _loss, params0, batches, seeds=SWEEP_SEEDS,
+        lr_grid=SWEEP_LRS, device=dev, **TUNE))
+    if not (np.isfinite(res.best_score) and res.best in res.scores
+            and res.n_traces == rt.ENGINE_STATS["traces"] - traces0):
+        raise AssertionError(f"tune: bad result {res.best} "
+                             f"{res.best_score}")
+    log(f"tune: {secs:.3f} s, {res.n_variants} variants "
+        f"({secs / res.n_variants * 1e6:.1f} us a variant), "
+        f"{len(res.history)} rungs, n_traces {res.n_traces}, best "
+        f"{res.best} score {res.best_score:.6f}")
+    # (d) the fleet configuration swept
+    return _fleet_sweep(dev, smi, base_rates)
+
+
+def _fleet_sweep(dev, smi: str, base_rates: dict) -> dict:
+    from repro_torch.core.algorithms import registry as algos
+    from repro_torch.fl import runtime as rt
+    counters = dict(_row_counters(), **_tile_counters())
+    blocks = -(-FLEET["n_devices"] // FLEET["chunk_size"])
+    params0 = {"w": np.zeros(D_FLEET, np.float32)}
+    cfg = rt.SimConfig(rounds=FLEET_SWEEP_ROUNDS, datagen=_datagen(),
+                       algo_params=algos.algo_params(lr=0.05),
+                       compression="topk", **FLEET)
+    launches = dict.fromkeys(counters, 0)
+    for comps, pols, seeds in ((("topk",), FLEET_POLICIES, FLEET_SEEDS),
+                               (("qsgd", "scaled_sign"), ("random",), (0,))):
+        for fn in counters.values():
+            fn.launches = 0
+        out, dt = wall_s(lambda: rt.run_sweep(
+            cfg, _loss, params0, None, seeds=seeds, policies=pols,
+            compressions=comps, device=dev))
+        counts = {n: fn.launches for n, fn in counters.items()}
+        for n, c in counts.items():
+            launches[n] += c
+        n_vr = len(pols) * len(seeds) * FLEET_SWEEP_ROUNDS
+        for comp in comps:
+            kname = KERNEL_OF[comp]
+            if counts[kname] != blocks * n_vr:
+                raise AssertionError(
+                    f"fleet sweep {comp}: {kname} launched {counts[kname]} "
+                    f"times, expected {blocks} a variant-round")
+        for key, logs in out.items():
+            if not (np.all(np.isfinite(logs.loss))
+                    and np.all(logs.loss[:, -1] < logs.loss[:, 0])
+                    and np.all(logs.n_scheduled == FLEET["n_scheduled"])):
+                raise AssertionError(f"fleet sweep {key}: loss not finite "
+                                     f"or not falling: {logs.loss}")
+        log(f"sweep fleet {'/'.join(comps)}: {len(pols)} policies x "
+            f"{len(seeds)} seeds x {FLEET_SWEEP_ROUNDS} rounds at N="
+            f"{FLEET['n_devices']} in {dt:.3f} s = "
+            f"{n_vr * len(comps) / dt:.4f} variant-rounds/s (the single "
+            f"run: {base_rates[comps[0]]:.4f} "
+            f"rounds/s, phase 7) on {smi}; launches {counts}; loss "
+            f"{ {str(k): v.loss.tolist() for k, v in out.items()} }")
+    return launches
+
+
+def run_host(dev, smi: str, base_rates: dict) -> None:
+    """Phase 12: the fleet configuration through the host loop with an
+    opaque eval_fn, against the scan with the same eval batch."""
+    from repro_torch import random as trandom
+    from repro_torch.core.algorithms import registry as algos
+    from repro_torch.fl import runtime as rt
+    counters = _row_counters()
+    blocks = -(-FLEET["n_devices"] // FLEET["chunk_size"])
+    datagen = _datagen()
+    eval_batch = datagen(trandom.PRNGKey(999, dev),
+                         torch.arange(64, device=dev))
+    cfg = rt.SimConfig(rounds=HOST_ROUNDS, datagen=datagen,
+                       algo_params=algos.algo_params(lr=0.05),
+                       compression="topk", **FLEET)
+    params0 = {"w": np.zeros(D_FLEET, np.float32)}
+    for fn in counters.values():
+        fn.launches = 0
+    host, dt = wall_s(lambda: rt.run_simulation(
+        cfg, _loss, params0, None,
+        eval_fn=lambda p: float(_loss(p, eval_batch)[0]), engine="host",
+        device=dev))
+    counts = {n: fn.launches for n, fn in counters.items()}
+    _, scan = rt.run_simulation_scan(cfg, _loss, params0,
+                                     eval_batch=eval_batch, device=dev)
+    for t, r in enumerate(host):
+        if not (np.array_equal(r.participation, scan.participation[t])
+                and r.uplink_bits == float(scan.uplink_bits[t])
+                and r.loss == float(scan.loss[t])):
+            raise AssertionError(f"host round {t} differs from the scan")
+    losses = [r.loss for r in host]
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"host: loss not finite or falling: {losses}")
+    if counts["topk_rows"] != blocks * HOST_ROUNDS:
+        raise AssertionError(f"host: topk_rows launched "
+                             f"{counts['topk_rows']} times")
+    log(f"host loop (opaque eval_fn): {HOST_ROUNDS / dt:.4f} rounds/s at N="
+        f"{FLEET['n_devices']} (the scan: {base_rates['topk']:.4f} rounds/s, "
+        f"phase 7) on {smi}; participation, uplink bits and eval loss "
+        f"equal to the scan's; launches {counts}; eval loss {losses}")
+
+
 def main() -> int:
     t0 = time.perf_counter()
     smi = card()
@@ -788,7 +1056,9 @@ def main() -> int:
               ("engine", lambda: run_engine(dev, smi)),
               ("algorithms", lambda: run_algorithms(dev, smi)),
               ("faults", lambda: run_faults(dev, smi, out["engine"][1])),
-              ("privacy", lambda: run_privacy(dev, smi))]
+              ("privacy", lambda: run_privacy(dev, smi)),
+              ("sweep", lambda: run_sweep(dev, smi, out["engine"][1])),
+              ("host", lambda: run_host(dev, smi, out["engine"][1]))]
     out = {}
     log(f"phase card: {time.perf_counter() - t0:.2f} s")
     for name, fn in phases:
@@ -803,6 +1073,7 @@ def main() -> int:
         r = table[name]
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[name],
+                     "sweep_launches": out["sweep"][name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "device_ms": r["device_ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

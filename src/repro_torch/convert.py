@@ -1,7 +1,7 @@
 """Carry JAX-side values into the port, as numpy arrays: parameter dicts,
-PRNG keys, a whole round state, and fault and privacy parameters. The port never imports JAX; callers hand
-over JAX objects, which are read through ``np.asarray`` and their field
-names."""
+PRNG keys, a whole round state, and the channel, compression, algorithm,
+fault and privacy parameters. The port never imports JAX; callers hand over
+JAX objects, which are read through ``np.asarray`` and their field names."""
 from __future__ import annotations
 
 from typing import Dict
@@ -10,9 +10,12 @@ import numpy as np
 import torch
 
 from repro_torch.core import aggregation as agg
+from repro_torch.core.algorithms.registry import AlgoParams
+from repro_torch.core.compression.registry import CompressionParams
 from repro_torch.core.compression.error_feedback import SparseEF
 from repro_torch.core.faults import FaultParams
 from repro_torch.core.privacy.registry import PrivacyParams
+from repro_torch.core.wireless import ChannelParams
 from repro_torch.fl.server import FLState
 
 
@@ -70,13 +73,27 @@ def fl_state_from_jax(state, device=None):
                    _tree(state.ctrl, device), int(state.round))
 
 
+def _named(cls, p, device):
+    """One of the reference's parameter NamedTuples -> the port's ``cls``,
+    field by field (stacked variant axes carry over)."""
+    return cls(*(_tensor(getattr(p, f), device) for f in cls._fields))
+
+
 def fault_params_from_jax(fp, device=None) -> FaultParams:
-    """The reference's ``FaultParams`` -> the port's, field by field."""
-    return FaultParams(*(_tensor(getattr(fp, f), device)
-                         for f in FaultParams._fields))
+    return _named(FaultParams, fp, device)
 
 
 def privacy_params_from_jax(pp, device=None) -> PrivacyParams:
-    """The reference's ``PrivacyParams`` -> the port's, field by field."""
-    return PrivacyParams(*(_tensor(getattr(pp, f), device)
-                           for f in PrivacyParams._fields))
+    return _named(PrivacyParams, pp, device)
+
+
+def compression_params_from_jax(cp, device=None) -> CompressionParams:
+    return _named(CompressionParams, cp, device)
+
+
+def algo_params_from_jax(ap, device=None) -> AlgoParams:
+    return _named(AlgoParams, ap, device)
+
+
+def channel_params_from_jax(cp, device=None) -> ChannelParams:
+    return _named(ChannelParams, cp, device)

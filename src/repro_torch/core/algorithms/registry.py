@@ -68,6 +68,13 @@ def default_algo_params(device=None) -> AlgoParams:
     return algo_params(device=device)
 
 
+def stack_algo_params(ps) -> AlgoParams:
+    """Stack params along a leading variant axis."""
+    ps = list(ps)
+    return AlgoParams(*(torch.stack([getattr(p, f) for p in ps])
+                        for f in AlgoParams._fields))
+
+
 # ---------------------------------------------------------------------------
 # Flat message-space helpers
 # ---------------------------------------------------------------------------

@@ -24,6 +24,7 @@ from repro_torch.core.compression.coding import sparse_bits_jax
 
 LOG2_3 = 1.584962500721156  # ternary alphabet cost, log2(3)
 SCALE_BITS = 32.0           # one fp32 scale / norm per message
+_INV_LN2 = 1.4426950216293335  # float32(1 / ln 2)
 
 
 class CompressionParams(NamedTuple):
@@ -50,6 +51,13 @@ def default_compression_params(d: int, device=None) -> CompressionParams:
     """1% top-k, 8-bit QSGD, block min(4096, d)."""
     return compression_params(k=max(1, d // 100), levels=256.0,
                               block=min(4096.0, float(d)), device=device)
+
+
+def stack_compression_params(ps) -> CompressionParams:
+    """Stack params along a leading variant axis."""
+    ps = list(ps)
+    return CompressionParams(*(torch.stack([getattr(p, f) for p in ps])
+                               for f in CompressionParams._fields))
 
 
 RowsFn = Callable[[CompressionParams, torch.Tensor, torch.Tensor],
@@ -244,8 +252,12 @@ def uplink_bits_jax(name: str, cp: CompressionParams, d: int) -> torch.Tensor:
         return (torch.tensor(LOG2_3 * d, dtype=torch.float32, device=dev)
                 + SCALE_BITS)
     if name == "qsgd":
+        # as the reference's compiled programs price it: log2 as log times
+        # float32(1 / ln 2), both multiply-adds contracted into FMAs (each
+        # product is exact in float64, so only the final rounding remains)
         levels = torch.clamp_min(cp.levels, 1.0)
-        return (torch.log2(levels + 1.0) + 1.0) * d + SCALE_BITS
+        rate = (torch.log(levels + 1.0).double() * _INV_LN2 + 1.0).float()
+        return (rate.double() * d + SCALE_BITS).float()
     if name in ("topk", "randk", "rtopk"):
         return sparse_bits_jax(d, _nnz(cp.k, d))
     raise ValueError(f"unknown compressor {name!r}; "

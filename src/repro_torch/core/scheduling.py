@@ -213,6 +213,41 @@ def policy_names() -> Tuple[str, ...]:
     return tuple(_POLICIES)
 
 
+MixtureFn = Callable[[PolicyConfig, RoundState, torch.Tensor], torch.Tensor]
+
+
+def get_policy_mixture(names: Tuple[str, ...]) -> MixtureFn:
+    """One-hot policy mixture over the enabled set ``names``:
+    ``mixture(pcfg, st, w) -> (N,) bool`` evaluates every enabled policy's
+    mask and selects by the float32 weights ``w`` of shape ``(len(names),)``
+    through ``einsum("p,pn->n", w, masks) > 0.5``. A one-hot ``w`` gives
+    exactly ``get_policy(names[p])(pcfg, st)``."""
+    names = tuple(names)
+    if len(names) != len(set(names)):
+        raise ValueError(f"duplicate policy names in mixture: {names}")
+    fns = tuple(get_policy(n) for n in names)
+
+    def mixture(pcfg: PolicyConfig, st: RoundState, w: torch.Tensor
+                ) -> torch.Tensor:
+        masks = torch.stack([fn(pcfg, st) for fn in fns])  # (P, N) bool
+        sel = torch.einsum("p,pn->n", w.to(torch.float32),
+                           masks.to(torch.float32))
+        return sel > 0.5
+
+    return mixture
+
+
+def policy_onehot(name: str, names: Tuple[str, ...],
+                  device=None) -> torch.Tensor:
+    """float32 one-hot weights selecting ``name`` out of ``names``."""
+    names = tuple(names)
+    if name not in names:
+        raise ValueError(f"policy {name!r} not in enabled set {names}")
+    w = torch.zeros(len(names), dtype=torch.float32, device=device)
+    w[names.index(name)] = 1.0
+    return w
+
+
 def update_ages_jax(ages: torch.Tensor, scheduled: torch.Tensor
                     ) -> torch.Tensor:
     """Age recursion: 0 if scheduled else age + 1."""

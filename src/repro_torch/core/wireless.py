@@ -46,6 +46,14 @@ def channel_params(cfg: WirelessConfig, device=None) -> ChannelParams:
                      device=device) for f in ChannelParams._fields))
 
 
+def stack_channel_params(cfgs, device=None) -> ChannelParams:
+    """Several WirelessConfigs as one ChannelParams with a leading variant
+    axis, as the reference's sweep batches its variants."""
+    ps = [channel_params(c, device) for c in cfgs]
+    return ChannelParams(*(torch.stack([getattr(p, f) for p in ps])
+                           for f in ChannelParams._fields))
+
+
 def sample_positions_jax(key: torch.Tensor, cp: ChannelParams,
                          n_devices: int) -> torch.Tensor:
     """Distances to the BS, uniform in the disk of radius R (>= 1 m)."""

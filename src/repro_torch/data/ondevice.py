@@ -38,3 +38,30 @@ def make_linear_datagen(w_star, *, local_steps: int = 2, batch: int = 8,
         return {"x": x, "y": y}
 
     return datagen
+
+
+def make_token_datagen(vocab: int, *, local_steps: int = 2, batch: int = 16,
+                       seq: int = 16, n_classes: int = 4,
+                       seed: Optional[int] = None) -> Callable:
+    """Uniform-token LM batches, ``tokens`` and ``labels`` (n, H, B, S)
+    int32, where client class ``id mod n_classes`` draws half its tokens
+    from its own band ``[c * vocab / n_classes, ...)`` of width ``vocab //
+    n_classes``; labels are the tokens shifted one left (next-token
+    targets, wrapping). Returns ``datagen(key, ids)``."""
+    shape = (local_steps, batch, seq)
+    band = vocab // n_classes
+
+    def datagen(key: torch.Tensor, ids: torch.Tensor
+                ) -> Dict[str, torch.Tensor]:
+        if seed is not None:
+            key = trandom.fold_in(key, seed)
+        ks = trandom.split(chunking.client_keys(key, ids))  # (n, 2, 2)
+        cids = torch.as_tensor(ids, device=key.device).to(
+            torch.int64) % n_classes
+        lo = ((cids * vocab) // n_classes).view(-1, 1, 1, 1)
+        in_band = trandom.bernoulli(ks[:, 1], 0.5, shape)
+        toks = trandom.randint(ks[:, 0], shape, 0, vocab).to(torch.int64)
+        toks = torch.where(in_band, lo + toks % band, toks).to(torch.int32)
+        return {"tokens": toks, "labels": torch.roll(toks, -1, dims=-1)}
+
+    return datagen

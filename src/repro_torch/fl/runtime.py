@@ -10,6 +10,26 @@ the round key ``fold_in(k_rounds, t)`` split into the same five streams
 (fading, compute, policy, norms, compression), so every draw matches the
 reference bit for bit.
 
+One round is :meth:`_Engine.step`, shared by the three entry points:
+
+* :func:`run_simulation_scan` steps ``cfg.rounds`` rounds over pre-stacked
+  batches (or ``SimConfig.datagen``) and returns stacked :class:`SimLogs`;
+* the host loop, ``run_simulation(engine="host")`` or an opaque
+  ``eval_fn``, samples each round's batches as it goes and logs
+  ``eval_fn(params)`` as the loss;
+* :func:`run_sweep` runs a seed x channel x compression x algorithm x fault
+  x privacy x policy grid, one variant after another, each with its own
+  parameters, and returns ``(variants, rounds)`` logs. The reference's
+  ``policy_mode="mixture"`` shares one compiled program across policies;
+  eager PyTorch compiles nothing, so here both modes run each policy's
+  variants through that policy alone, and differ only in what they count
+  as traced.
+
+The static half of a run (what the reference's compiled program specializes
+on) is an :class:`_Engine`, built per run; ``ENGINE_STATS["traces"]``
+counts what the reference would trace: each new (static key, argument
+shapes) pair a scan or sweep runs, with the reference's bounded cache.
+
 Entry points run on the CUDA device unless ``device=`` says otherwise, and
 raise when CUDA is absent: they never fall back to the CPU.
 
@@ -24,15 +44,17 @@ retransmissions; ``SimConfig.privacy`` (``core/privacy``) adds secure
 aggregation and DP with a Renyi accountant. Both draw from streams folded
 under their own tags, so with them off every stream is the legacy one.
 
-Not in this slice: sweeps, the host loop, the hierarchical engine and
-gossip.
+Not in this slice: the hierarchical engine (with ``run_sweep(hcfg=,
+hcfgs=)``), gossip, and sharding a sweep over several cards.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
 import warnings
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -50,6 +72,11 @@ from repro_torch.core.privacy.registry import PrivacyParams
 from repro_torch.fl import server as fl_server
 
 Params = Dict[str, torch.Tensor]
+
+# the reference's trace counter: bumped once per new (engine, argument
+# shapes) pair that a scan or a sweep runs, so tests and the tuner can count
+# what the reference would compile
+ENGINE_STATS = {"traces": 0}
 
 # domain-separation tag of the on-device data stream: the datagen key is a
 # fold_in of the round key under it, so it never shifts another stream
@@ -77,7 +104,9 @@ def datagen_round_key(seed: int, t: int, device=None) -> torch.Tensor:
 @dataclasses.dataclass
 class SimConfig:
     n_devices: int = 40
-    n_scheduled: int = 8
+    # one global budget on the flat engine; a per-cluster tuple is the
+    # hierarchical engine's (not ported), and the flat engine rejects it
+    n_scheduled: Any = 8
     rounds: int = 100
     local_steps: int = 1
     algorithm: str = "fedavg"
@@ -113,6 +142,8 @@ class SimConfig:
     server: Optional[str] = None
 
     def __post_init__(self):
+        if isinstance(self.n_scheduled, list):
+            self.n_scheduled = tuple(self.n_scheduled)
         if self.chunk_size is not None and not chunking.is_pow2(
                 self.chunk_size):
             raise ValueError(f"SimConfig.chunk_size must be a power of two "
@@ -195,45 +226,69 @@ class RoundLog:
 
 @dataclasses.dataclass
 class SimLogs:
-    """Stacked per-round logs, each with a leading ``(rounds,)`` axis.
-    Without faults ``n_survived`` is ``n_scheduled`` and ``n_dropped``,
-    ``retransmissions`` and ``staleness_mean`` are 0; without DP
-    ``epsilon`` is +inf and ``delta`` 1.0; without masks ``mask_bits`` is
-    0."""
+    """Stacked per-round logs, each with a leading ``(rounds,)`` axis, or
+    ``(variants, rounds)`` from :func:`run_sweep`. Without faults
+    ``n_survived`` is ``n_scheduled`` and ``n_dropped``, ``retransmissions``
+    and ``staleness_mean`` are 0; without DP ``epsilon`` is +inf and
+    ``delta`` 1.0; without masks ``mask_bits`` is 0. The fields after
+    ``comp_s`` may be ``None`` (logs built positionally from seven fields,
+    as persisted tuning studies are)."""
     loss: np.ndarray
     latency_s: np.ndarray
     n_scheduled: np.ndarray
-    participation: np.ndarray  # (rounds, n_devices) bool
+    participation: np.ndarray  # (..., rounds, n_devices) bool
     uplink_bits: np.ndarray
     comm_s: np.ndarray
     comp_s: np.ndarray
-    downlink_bits: np.ndarray
-    n_survived: np.ndarray
-    n_dropped: np.ndarray
-    retransmissions: np.ndarray
-    staleness_mean: np.ndarray
-    epsilon: np.ndarray        # cumulative, non-decreasing
-    delta: np.ndarray
-    mask_bits: np.ndarray
+    downlink_bits: Optional[np.ndarray] = None
+    n_survived: Optional[np.ndarray] = None
+    n_dropped: Optional[np.ndarray] = None
+    retransmissions: Optional[np.ndarray] = None
+    staleness_mean: Optional[np.ndarray] = None
+    epsilon: Optional[np.ndarray] = None       # cumulative, non-decreasing
+    delta: Optional[np.ndarray] = None
+    mask_bits: Optional[np.ndarray] = None
 
     def to_round_logs(self) -> List[RoundLog]:
+        if self.loss.ndim != 1:
+            raise ValueError("to_round_logs needs unbatched (rounds,) logs")
+
+        def opt(field, t, cast, default=0):
+            return cast(field[t]) if field is not None else cast(default)
         return [RoundLog(t, float(self.latency_s[t]), float(self.loss[t]),
                          int(self.n_scheduled[t]), self.participation[t],
                          float(self.uplink_bits[t]), float(self.comm_s[t]),
-                         float(self.comp_s[t]), float(self.downlink_bits[t]),
-                         int(self.n_survived[t]), int(self.n_dropped[t]),
-                         float(self.retransmissions[t]),
-                         float(self.staleness_mean[t]),
-                         float(self.epsilon[t]), float(self.delta[t]),
-                         float(self.mask_bits[t]))
+                         float(self.comp_s[t]),
+                         opt(self.downlink_bits, t, float),
+                         opt(self.n_survived, t, int),
+                         opt(self.n_dropped, t, int),
+                         opt(self.retransmissions, t, float),
+                         opt(self.staleness_mean, t, float),
+                         opt(self.epsilon, t, float, float("inf")),
+                         opt(self.delta, t, float, 1.0),
+                         opt(self.mask_bits, t, float))
                 for t in range(self.loss.shape[0])]
 
 
-# the SimLogs fields of one round, in the order the engine emits them
+# the SimLogs fields of one round, in the order the engine emits them, and
+# their types (the reference's)
 _LOG_FIELDS = ("loss", "latency_s", "participation", "n_scheduled",
                "uplink_bits", "comm_s", "comp_s", "downlink_bits",
                "n_survived", "n_dropped", "retransmissions", "staleness_mean",
                "epsilon", "delta", "mask_bits")
+_LOG_INT32 = ("n_scheduled", "n_survived", "n_dropped")
+
+
+def _log_columns(outs: List[Tuple], n: int) -> Dict[str, np.ndarray]:
+    """One run's per-round outputs -> ``{field: (rounds, ...) array}``; no
+    rounds give ``(0,)`` columns and ``(0, n)`` participation."""
+    if not outs:
+        return {f: np.zeros((0, n) if f == "participation" else (0,),
+                            bool if f == "participation" else
+                            np.int32 if f in _LOG_INT32 else np.float32)
+                for f in _LOG_FIELDS}
+    return {f: torch.stack(c).cpu().numpy()
+            for f, c in zip(_LOG_FIELDS, zip(*outs))}
 
 
 def stack_batches(sample_client_batches: Callable[[int, int], Dict],
@@ -285,6 +340,388 @@ def _policy_cfg(cfg: SimConfig, wcfg: wireless.WirelessConfig
         n_subchannels=wcfg.n_subchannels)
 
 
+def _resolve_cparams(cfg: SimConfig, params: Params,
+                     dev: torch.device) -> CompressionParams:
+    if cfg.compression_params is not None:
+        return cfg.compression_params.to(dev)
+    return compression.default_compression_params(fl_server.flat_dim(params),
+                                                  dev)
+
+
+def _resolve_aparams(cfg: SimConfig, dev: torch.device) -> AlgoParams:
+    return (cfg.algo_params.to(dev) if cfg.algo_params is not None
+            else algo_registry.default_algo_params(dev))
+
+
+def _resolve_pparams(cfg: SimConfig, dev: torch.device) -> PrivacyParams:
+    return (cfg.privacy_params if cfg.privacy_params is not None
+            else privacy_lib.default_privacy_params()).to(dev)
+
+
+class _Variant(NamedTuple):
+    """One run's traced inputs (the reference's per-variant arguments) and
+    what the engine derives from them once per run."""
+    chan: wireless.ChannelParams
+    cparams: CompressionParams
+    aparams: AlgoParams
+    fparams: Optional[FaultParams]
+    pparams: Optional[PrivacyParams]
+    dist: torch.Tensor              # (N,) device distances to the BS
+    k_rounds: torch.Tensor          # the round-key root
+    bits_dev: torch.Tensor          # one client's priced uplink bits
+    dl_bits: torch.Tensor           # the broadcast's bits
+    mask_over: torch.Tensor         # secagg key-agreement bits a client
+    payload_scale: float
+    zero: torch.Tensor              # constants on the run's device, made
+    no_dp: Tuple[torch.Tensor, torch.Tensor]  # once: (epsilon, delta)
+    dp_delta: torch.Tensor          # without DP, and DP's delta
+
+
+@dataclasses.dataclass
+class _Carry:
+    """The round state: the reference's scan carry."""
+    state: fl_server.FLState
+    clock: torch.Tensor
+    ages: torch.Tensor
+    norms: torch.Tensor
+    avg_snr: torch.Tensor
+    avail: Optional[torch.Tensor] = None   # churn availability (faults)
+    fad: Optional[torch.Tensor] = None     # Gauss-Markov fading (faults)
+    stal: Optional[torch.Tensor] = None    # per-client staleness (faults)
+    rdp: Optional[torch.Tensor] = None     # the Renyi ledger (DP)
+
+
+class _Engine:
+    """The static half of a run, the counterpart of the reference's
+    ``_make_sim_fns``: the policy, the algorithm, the compressor,
+    chunking, state types and the fault and privacy switches. The policy's static bandwidth comes from ``wcfg``; the
+    rate's from each variant's ``ChannelParams``."""
+
+    def __init__(self, cfg: SimConfig, wcfg: wireless.WirelessConfig,
+                 loss_fn, has_eval: bool):
+        if isinstance(cfg.n_scheduled, tuple):
+            raise ValueError(
+                "per-cluster n_scheduled tuples are a hierarchical-engine "
+                "feature (run_hfl); the flat engine takes one global budget")
+        n = self.n = cfg.n_devices
+        self.cfg, self.loss_fn, self.has_eval = cfg, loss_fn, has_eval
+        self.pcfg = _policy_cfg(cfg, wcfg)
+        self.policy_fn = scheduling.get_policy(cfg.policy)
+        self.algo = algo_registry.get_algorithm(cfg.algorithm)
+        self.comp_active = cfg.compression != "none"
+        self.faults_on = cfg.faults is not None
+        self.priv_on = cfg.privacy != "none"
+        self.priv = (privacy_lib.get_privacy(cfg.privacy) if self.priv_on
+                     else None)
+        self.dp_on = self.priv_on and self.priv.uses_dp
+        # chunk >= N is the unchunked pass; EF rows pad to the chunk multiple
+        self.chunk = (cfg.chunk_size if cfg.chunk_size is not None
+                      and cfg.chunk_size < n else None)
+        self.n_rows = (chunking.n_blocks(n, self.chunk) * self.chunk
+                       if self.chunk else n)
+        self.state_dt = (torch.bfloat16 if cfg.state_dtype == "bfloat16"
+                         else torch.float32)
+        self.round_fn = functools.partial(
+            fl_server.fl_round, loss_fn=loss_fn, algo=self.algo,
+            compression_name=(cfg.compression if self.comp_active else None),
+            chunk_size=self.chunk, n_clients=n, privacy=self.priv)
+
+    def variant(self, key: torch.Tensor, chan: wireless.ChannelParams,
+                cparams: CompressionParams, aparams: AlgoParams,
+                fparams: Optional[FaultParams],
+                pparams: Optional[PrivacyParams], d_model: int) -> _Variant:
+        """A run's inputs, with its positions, round-key root and prices."""
+        cfg, priv, dev = self.cfg, self.priv, key.device
+        k_pos, k_rounds = trandom.split(key)
+        dist = wireless.sample_positions_jax(k_pos, chan, self.n)
+        payload_scale = cfg.model_bits / (32.0 * d_model)
+        uf = self.algo.uplink_factor
+        if self.comp_active:
+            bits_dev = message_bits_jax(cfg.compression, cparams,
+                                        cfg.model_bits, d_model) * uf
+            dl_bits = (payload_scale * compression.uplink_bits_jax(
+                cfg.compression, cparams, d_model) if cfg.double_ef
+                else torch.tensor(float(cfg.model_bits), device=dev))
+        else:
+            bits_dev = torch.tensor(cfg.model_bits * uf, dtype=torch.float32,
+                                    device=dev)
+            dl_bits = torch.tensor(float(cfg.model_bits), device=dev)
+        mask_over = torch.zeros((), device=dev)
+        if self.priv_on:
+            # field modes send dense field_bits a coordinate (a masked
+            # message is incompressible); the pairwise key agreement adds
+            # raw bits
+            if priv.uses_field:
+                bits_dev = payload_scale * privacy_lib.uplink_bits_jax(
+                    cfg.privacy, pparams, d_model, 0.0) * uf
+            if priv.uses_masks:
+                mask_over = privacy_lib.mask_bits_jax(cfg.privacy,
+                                                      self.n - 1, dev)
+                bits_dev = bits_dev + mask_over
+        return _Variant(chan, cparams, aparams, fparams, pparams, dist, k_rounds, bits_dev, dl_bits, mask_over,
+                        payload_scale, torch.zeros((), device=dev),
+                        (torch.tensor(torch.inf, device=dev),
+                         torch.tensor(1.0, device=dev)),
+                        torch.tensor(privacy_lib.DELTA, dtype=torch.float32,
+                                     device=dev))
+
+    def init(self, params: Params) -> _Carry:
+        """The round state before round 0, around a copy of ``params``."""
+        cfg, n = self.cfg, self.n
+        params = {k: v.clone() for k, v in params.items()}
+        dev = next(iter(params.values())).device
+        state = fl_server.init_fl_state(
+            params, n, algo=self.algo, use_ef=self.comp_active,
+            double_ef=self.comp_active and cfg.double_ef,
+            ef_mode=cfg.ef_mode, ef_slots=cfg.ef_slots,
+            state_dtype=self.state_dt, n_rows=self.n_rows)
+        zeros = torch.zeros(n, dtype=torch.float32, device=dev)
+        carry = _Carry(state, torch.zeros((), dtype=torch.float32,
+                                          device=dev),
+                       zeros, torch.ones_like(zeros), zeros)
+        if self.faults_on:
+            # everyone starts online, with zero fading state and staleness
+            carry.avail = torch.ones(n, dtype=torch.bool, device=dev)
+            carry.fad = torch.zeros((n, 2), dtype=torch.float32, device=dev)
+            carry.stal = zeros
+        if self.dp_on:  # one slot per order in ALPHAS
+            carry.rdp = torch.zeros(len(privacy_lib.ALPHAS),
+                                    dtype=torch.float32, device=dev)
+        return carry
+
+    def step(self, t: int, carry: _Carry, v: _Variant,
+             batches: Optional[Params], eval_batch: Optional[Params]
+             ) -> Tuple[_Carry, Tuple]:
+        """Round ``t``: the new round state and the round's log values in
+        ``_LOG_FIELDS`` order. ``batches`` are the round's (N, H, ...)
+        tensors, or ``None`` with ``SimConfig.datagen``."""
+        cfg, n, priv, chan = self.cfg, self.n, self.priv, v.chan
+        faults_on, fparams = self.faults_on, v.fparams
+        zero = v.zero
+        state, clock, ages, norms = (carry.state, carry.clock, carry.ages,
+                                     carry.norms)
+        avail, fad, stal, rdp = carry.avail, carry.fad, carry.stal, carry.rdp
+
+        kt = trandom.fold_in(v.k_rounds, t)
+        kf, kc, kp, kn, kz = trandom.split(kt, 5)
+        if cfg.datagen is not None:
+            batches = functools.partial(
+                cfg.datagen, trandom.fold_in(kt, DATAGEN_FOLD))
+
+        if faults_on:
+            # correlated fading replaces the i.i.d. draw
+            fad, fading = faults_lib.gauss_markov_fading(fparams, kt, fad, t)
+        else:
+            fading = wireless.sample_fading_jax(kf, n)
+        snr_lin = wireless.snr_jax(v.dist, fading, chan)
+        rates = wireless.shannon_rate_jax(
+            snr_lin, chan.bandwidth_hz / cfg.n_scheduled)
+        comp_lat = cfg.comp_latency_s * trandom.exponential(kc, (n,))
+        if faults_on:
+            comp_lat = comp_lat * faults_lib.straggler_multiplier(
+                fparams, kt, n)
+        comm_lat = wireless.comm_latency_jax(v.bits_dev, rates)
+        # per-device time-averaged SNR (PF's denominator), seeded with the
+        # first observation
+        avg_snr = (snr_lin if t == 0
+                   else 0.9 * carry.avg_snr + 0.1 * snr_lin)
+
+        rstate = scheduling.RoundState(
+            t=t, key=kp, snr_lin=snr_lin, avg_snr=avg_snr, rates=rates,
+            comm_lat=comm_lat, comp_lat=comp_lat, ages=ages,
+            update_norms=norms)
+        if faults_on:
+            # churn after pricing: offline devices are invisible to the
+            # policy, and index-based policies are intersected with avail
+            avail = faults_lib.churn_step(fparams, kt, avail)
+            rstate = scheduling.masked_round_state(rstate, avail)
+        mask = self.policy_fn(self.pcfg, rstate)
+        if faults_on:
+            mask = mask & avail
+        # staleness before this round's resets: fedbuff's discount reads the
+        # true per-client staleness under faults, else the scheduling age
+        stal_pre = stal if faults_on else ages
+        ages = scheduling.update_ages_jax(ages, mask)
+        n_sched = mask.sum().to(torch.int32)
+
+        if faults_on:
+            # dropout, then decode failure with up to max_retries re-priced
+            # retransmissions, each on a fresh channel draw
+            dropped = faults_lib.dropout_draw(fparams, kt, n) & mask
+            ok = snr_lin >= fparams.snr_min
+            comm_eff = comm_lat
+            n_retx = torch.zeros_like(snr_lin)
+            for r in range(1, cfg.max_retries + 1):
+                snr_r = wireless.snr_jax(
+                    v.dist, faults_lib.retry_fading(kt, r, n), chan)
+                lat_r = wireless.comm_latency_jax(
+                    v.bits_dev, wireless.shannon_rate_jax(
+                        snr_r, chan.bandwidth_hz / cfg.n_scheduled))
+                need = ~ok
+                comm_eff = comm_eff + torch.where(need, lat_r, 0.0)
+                n_retx = n_retx + need.to(torch.float32)
+                ok = ok | (snr_r >= fparams.snr_min)
+            survived = mask & ~dropped & ok
+            sent = mask & ~dropped
+            part = survived.to(torch.float32)
+        else:
+            part = mask.to(torch.float32)
+        sw = (faults_lib.staleness_weights(v.aparams, stal_pre)
+              if self.algo.uses_staleness else None)
+        kw = dict(aparams=v.aparams, participation=part,
+                  staleness_weights=sw)
+        if faults_on:
+            kw.update(gate_ef=True, guard_empty=True)
+        if self.priv_on:
+            kw.update(pparams=v.pparams,
+                      privacy_key=trandom.fold_in(kt,
+                                                  privacy_lib.PRIVACY_FOLD))
+        if self.comp_active:
+            state, metrics = self.round_fn(state, batches, cparams=v.cparams,
+                                           key=kz, **kw)
+            ubits = v.payload_scale * metrics["uplink_bits"]
+            if self.priv_on and priv.uses_masks:
+                # key agreement for every scheduled client (it precedes the
+                # transmission that may fail)
+                ubits = _fma(v.mask_over, n_sched, ubits)
+            if faults_on:
+                # undecoded attempts' airtime: the retries, plus the final
+                # failed payload of clients never decoded
+                ubits = _fma(v.bits_dev, torch.where(
+                    sent, n_retx + (~ok).to(torch.float32), 0.0).sum(),
+                    ubits)
+        else:
+            state, metrics = self.round_fn(state, batches, **kw)
+            ubits = (v.bits_dev * torch.where(sent, 1.0 + n_retx, 0.0).sum()
+                     if faults_on else v.bits_dev * n_sched)
+
+        # downlink: the broadcast opens the round at BS power over the full
+        # band with its own fading; the slowest scheduled device gates it
+        dl_rate = wireless.shannon_rate_jax(
+            wireless.downlink_snr_jax(
+                v.dist, faults_lib.downlink_fading(kt, n), chan),
+            chan.bandwidth_hz)
+        dl_lat = wireless.comm_latency_jax(v.dl_bits, dl_rate)
+        any_sched = mask.any()
+        dl_s = torch.where(mask, dl_lat, zero).amax()
+        dl_bits_out = torch.where(any_sched, v.dl_bits, zero)
+
+        # wall clock: synchronous round = slowest scheduled device; a
+        # dropped client stops consuming the round, a decode-failed one
+        # still burns its airtime
+        if faults_on:
+            comm_c = torch.where(dropped, 0.0, comm_eff)
+            comp_c = torch.where(dropped, 0.0, comp_lat)
+        else:
+            comm_c, comp_c = comm_lat, comp_lat
+        total = comm_c + comp_c
+        slowest = torch.argmax(torch.where(mask, total, -torch.inf))
+        comm_s = torch.where(any_sched, comm_c[slowest], zero)
+        comp_s = torch.where(any_sched, comp_c[slowest], zero)
+        clock = clock + dl_s + comm_s + comp_s
+
+        if faults_on:
+            fault_log = (survived.sum().to(torch.int32),
+                         (mask & ~survived).sum().to(torch.int32),
+                         torch.where(sent, n_retx, 0.0).sum(),
+                         stal_pre.mean())
+            stal = torch.where(survived, 0.0, stal + 1.0)
+        else:
+            fault_log = (n_sched, torch.zeros_like(n_sched), zero, zero)
+        if self.dp_on:
+            # one subsampled-Gaussian round at sampling fraction
+            # survivors / N; local field noise aggregates to an effective
+            # multiplier sigma * sqrt(survivors)
+            n_surv_f = part.sum()
+            z_eff = (v.pparams.sigma * torch.sqrt(torch.clamp_min(n_surv_f,
+                                                                  1.0))
+                     if priv.dp_local else v.pparams.sigma)
+            rdp = rdp + privacy_lib.rdp_increment(n_surv_f / n, z_eff)
+            dp_log = (privacy_lib.epsilon_of(rdp), v.dp_delta)
+        else:
+            dp_log = v.no_dp
+
+        loss = metrics["loss"]
+        if self.has_eval:
+            loss = self.loss_fn(state.params, eval_batch)[0]
+        # update-aware policies observe last-round delta norms (proxy)
+        norms = 0.9 * norms + 0.1 * trandom.exponential(kn, (n,))
+        carry = _Carry(state, clock, ages, norms, avg_snr, avail, fad, stal,
+                       rdp)
+        return carry, ((loss, clock, mask, n_sched, ubits, comm_s, comp_s,
+                        dl_bits_out) + fault_log + dp_log
+                       + (v.mask_over * n_sched,))
+
+    def run(self, v: _Variant, params: Params, batches: Optional[Params],
+            eval_batch: Optional[Params]) -> Tuple[Params, List[Tuple]]:
+        """``cfg.rounds`` steps from ``params``: the final params and each
+        round's log values."""
+        carry, outs = self.init(params), []
+        for t in range(self.cfg.rounds):
+            bt = (None if batches is None
+                  else {k: x[t] for k, x in batches.items()})
+            carry, out = self.step(t, carry, v, bt, eval_batch)
+            outs.append(out)
+        return carry.state.params, outs
+
+
+def _engine_key(cfg: SimConfig, wcfg: wireless.WirelessConfig, loss_fn,
+                has_eval: bool, tag: str,
+                policy_axis: Optional[Tuple[str, ...]] = None) -> Tuple:
+    """Everything an engine specializes on (the reference's
+    ``_engine_key``): continuous channel, compression, algorithm, fault and
+    privacy parameters are per-variant inputs and stay out."""
+    return (tag,
+            ("mix",) + tuple(policy_axis) if policy_axis is not None
+            else cfg.policy,
+            cfg.rounds, cfg.n_devices, cfg.n_scheduled,
+            cfg.model_bits, cfg.comp_latency_s, cfg.deadline_s,
+            cfg.age_alpha, cfg.algorithm, cfg.compression, cfg.double_ef,
+            cfg.chunk_size, cfg.ef_mode, cfg.ef_slots, cfg.state_dtype,
+            cfg.datagen, cfg.faults is not None, cfg.max_retries,
+            cfg.privacy,
+            wcfg.n_subchannels, wcfg.bandwidth_hz, loss_fn, has_eval)
+
+
+# engine key -> the argument shapes the reference would have traced it at;
+# a FIFO with the reference's bound on its compiled engines, so an evicted
+# key counts its traces again
+_ENGINE_CACHE: Dict[Tuple, set] = {}
+_ENGINE_CACHE_MAX = 64
+
+
+def _shapes(*trees: Optional[Params]) -> Tuple:
+    return tuple(None if tree is None else
+                 tuple((k, tuple(v.shape), str(v.dtype))
+                       for k, v in sorted(tree.items()))
+                 for tree in trees)
+
+
+def _count_trace(key: Tuple, shapes: Tuple) -> None:
+    """Bump ``ENGINE_STATS["traces"]`` the first time the static ``key``
+    meets these argument ``shapes``, as the reference's compile would."""
+    seen = _ENGINE_CACHE.get(key)
+    if seen is None:
+        while len(_ENGINE_CACHE) >= _ENGINE_CACHE_MAX:
+            _ENGINE_CACHE.pop(next(iter(_ENGINE_CACHE)))
+        seen = _ENGINE_CACHE[key] = set()
+    if shapes not in seen:
+        seen.add(shapes)
+        ENGINE_STATS["traces"] += 1
+
+
+def _single_variant(engine: _Engine, cfg: SimConfig,
+                    wcfg: wireless.WirelessConfig, params: Params,
+                    dev: torch.device) -> _Variant:
+    """The variant of a single run: ``cfg``'s seed and parameters."""
+    return engine.variant(
+        trandom.PRNGKey(cfg.seed, dev), wireless.channel_params(wcfg, dev),
+        _resolve_cparams(cfg, params, dev), _resolve_aparams(cfg, dev),
+        cfg.faults.to(dev) if cfg.faults is not None else None,
+        _resolve_pparams(cfg, dev) if cfg.privacy != "none" else None,
+        fl_server.flat_dim(params))
+
+
 def run_simulation_scan(cfg: SimConfig, loss_fn, init_params: Params,
                         batches: Optional[Params] = None, *,
                         eval_batch: Optional[Params] = None,
@@ -303,239 +740,15 @@ def run_simulation_scan(cfg: SimConfig, loss_fn, init_params: Params,
                          "or a SimConfig.datagen")
     dev = resolve_device(device)
     wcfg = wcfg or wireless.WirelessConfig(n_devices=cfg.n_devices)
-    n = cfg.n_devices
-    pcfg = _policy_cfg(cfg, wcfg)
-    policy_fn = scheduling.get_policy(cfg.policy)
-    algo = algo_registry.get_algorithm(cfg.algorithm)
-    comp_active = cfg.compression != "none"
-    faults_on = cfg.faults is not None
-    priv_on = cfg.privacy != "none"
-    priv = privacy_lib.get_privacy(cfg.privacy) if priv_on else None
-    dp_on = priv_on and priv.uses_dp
-    # chunk >= N is the unchunked pass; EF rows pad to the chunk multiple
-    chunk = (cfg.chunk_size
-             if cfg.chunk_size is not None and cfg.chunk_size < n else None)
-    n_rows = chunking.n_blocks(n, chunk) * chunk if chunk else n
-    state_dt = (torch.bfloat16 if cfg.state_dtype == "bfloat16"
-                else torch.float32)
-
-    params = {k: v.clone() for k, v in _on(init_params, dev).items()}
-    batches = _on(batches, dev)
-    eval_batch = _on(eval_batch, dev)
-    d_model = fl_server.flat_dim(params)
-    chan = wireless.channel_params(wcfg, dev)
-    cparams = (cfg.compression_params.to(dev)
-               if cfg.compression_params is not None
-               else compression.default_compression_params(d_model, dev))
-    aparams = (cfg.algo_params.to(dev) if cfg.algo_params is not None
-               else algo_registry.default_algo_params(dev))
-    fparams = cfg.faults.to(dev) if faults_on else None
-    pparams = ((cfg.privacy_params if cfg.privacy_params is not None
-                else privacy_lib.default_privacy_params()).to(dev)
-               if priv_on else None)
-    round_fn = functools.partial(
-        fl_server.fl_round, loss_fn=loss_fn, algo=algo, aparams=aparams,
-        compression_name=(cfg.compression if comp_active else None),
-        chunk_size=chunk, n_clients=n, privacy=priv)
-
-    state = fl_server.init_fl_state(
-        params, n, algo=algo, use_ef=comp_active,
-        double_ef=comp_active and cfg.double_ef, ef_mode=cfg.ef_mode,
-        ef_slots=cfg.ef_slots, state_dtype=state_dt, n_rows=n_rows)
-    zeros = torch.zeros(n, dtype=torch.float32, device=dev)
-    clock = torch.zeros((), dtype=torch.float32, device=dev)
-    ages, norms, avg_snr = zeros, torch.ones_like(zeros), zeros
-    if faults_on:
-        # churn availability (everyone starts online), the Gauss-Markov
-        # fading state and per-client staleness
-        avail = torch.ones(n, dtype=torch.bool, device=dev)
-        fad = torch.zeros((n, 2), dtype=torch.float32, device=dev)
-        stal = zeros
-    if dp_on:  # the Renyi ledger, one slot per order in ALPHAS
-        rdp = torch.zeros(len(privacy_lib.ALPHAS), dtype=torch.float32,
-                          device=dev)
-
-    k_pos, k_rounds = trandom.split(trandom.PRNGKey(cfg.seed, dev))
-    dist = wireless.sample_positions_jax(k_pos, chan, n)
-    payload_scale = cfg.model_bits / (32.0 * d_model)
-    if comp_active:
-        bits_dev = message_bits_jax(cfg.compression, cparams, cfg.model_bits,
-                                    d_model) * algo.uplink_factor
-        dl_bits = (payload_scale * compression.uplink_bits_jax(
-            cfg.compression, cparams, d_model) if cfg.double_ef
-            else torch.tensor(float(cfg.model_bits), device=dev))
-    else:
-        bits_dev = torch.tensor(cfg.model_bits * algo.uplink_factor,
-                                dtype=torch.float32, device=dev)
-        dl_bits = torch.tensor(float(cfg.model_bits), device=dev)
-    neg_inf = torch.tensor(-torch.inf, device=dev)
-    zero = torch.zeros((), device=dev)
-    mask_over = zero
-    if priv_on:
-        # field modes send dense field_bits a coordinate (a masked message
-        # is incompressible); the pairwise key agreement adds raw bits
-        if priv.uses_field:
-            bits_dev = payload_scale * privacy_lib.uplink_bits_jax(
-                cfg.privacy, pparams, d_model, 0.0) * algo.uplink_factor
-        if priv.uses_masks:
-            mask_over = privacy_lib.mask_bits_jax(cfg.privacy, n - 1, dev)
-            bits_dev = bits_dev + mask_over
-    no_dp = (torch.tensor(torch.inf, device=dev),
-             torch.tensor(1.0, device=dev))
-    dp_delta = torch.tensor(privacy_lib.DELTA, dtype=torch.float32,
-                            device=dev)
-
-    outs = []
-    for t in range(cfg.rounds):
-        kt = trandom.fold_in(k_rounds, t)
-        kf, kc, kp, kn, kz = trandom.split(kt, 5)
-        if cfg.datagen is not None:
-            round_batches = functools.partial(
-                cfg.datagen, trandom.fold_in(kt, DATAGEN_FOLD))
-        else:
-            round_batches = {k: v[t] for k, v in batches.items()}
-
-        if faults_on:
-            # correlated fading replaces the i.i.d. draw
-            fad, fading = faults_lib.gauss_markov_fading(fparams, kt, fad, t)
-        else:
-            fading = wireless.sample_fading_jax(kf, n)
-        snr_lin = wireless.snr_jax(dist, fading, chan)
-        rates = wireless.shannon_rate_jax(
-            snr_lin, chan.bandwidth_hz / cfg.n_scheduled)
-        comp_lat = cfg.comp_latency_s * trandom.exponential(kc, (n,))
-        if faults_on:
-            comp_lat = comp_lat * faults_lib.straggler_multiplier(
-                fparams, kt, n)
-        comm_lat = wireless.comm_latency_jax(bits_dev, rates)
-        # per-device time-averaged SNR (PF's denominator), seeded with the
-        # first observation
-        avg_snr = snr_lin if t == 0 else 0.9 * avg_snr + 0.1 * snr_lin
-
-        rstate = scheduling.RoundState(
-            t=t, key=kp, snr_lin=snr_lin, avg_snr=avg_snr, rates=rates,
-            comm_lat=comm_lat, comp_lat=comp_lat, ages=ages,
-            update_norms=norms)
-        if faults_on:
-            # churn after pricing: offline devices are invisible to the
-            # policy, and index-based policies are intersected with avail
-            avail = faults_lib.churn_step(fparams, kt, avail)
-            mask = policy_fn(
-                pcfg, scheduling.masked_round_state(rstate, avail)) & avail
-        else:
-            mask = policy_fn(pcfg, rstate)
-        # staleness before this round's resets: fedbuff's discount reads the
-        # true per-client staleness under faults, else the scheduling age
-        stal_pre = stal if faults_on else ages
-        ages = scheduling.update_ages_jax(ages, mask)
-
-        if faults_on:
-            # dropout, then decode failure with up to max_retries re-priced
-            # retransmissions, each on a fresh channel draw
-            dropped = faults_lib.dropout_draw(fparams, kt, n) & mask
-            ok = snr_lin >= fparams.snr_min
-            comm_eff = comm_lat
-            n_retx = zeros
-            for r in range(1, cfg.max_retries + 1):
-                snr_r = wireless.snr_jax(
-                    dist, faults_lib.retry_fading(kt, r, n), chan)
-                lat_r = wireless.comm_latency_jax(
-                    bits_dev, wireless.shannon_rate_jax(
-                        snr_r, chan.bandwidth_hz / cfg.n_scheduled))
-                need = ~ok
-                comm_eff = comm_eff + torch.where(need, lat_r, 0.0)
-                n_retx = n_retx + need.to(torch.float32)
-                ok = ok | (snr_r >= fparams.snr_min)
-            survived = mask & ~dropped & ok
-            sent = mask & ~dropped
-            part = survived.to(torch.float32)
-        else:
-            part = mask.to(torch.float32)
-        sw = (faults_lib.staleness_weights(aparams, stal_pre)
-              if algo.uses_staleness else None)
-        kw = dict(participation=part, staleness_weights=sw)
-        if faults_on:
-            kw.update(gate_ef=True, guard_empty=True)
-        if priv_on:
-            kw.update(pparams=pparams,
-                      privacy_key=trandom.fold_in(kt,
-                                                  privacy_lib.PRIVACY_FOLD))
-        if comp_active:
-            state, metrics = round_fn(state, round_batches, cparams=cparams,
-                                      key=kz, **kw)
-            ubits = payload_scale * metrics["uplink_bits"]
-            if priv_on and priv.uses_masks:
-                # key agreement for every scheduled client (it precedes the
-                # transmission that may fail)
-                ubits = _fma(mask_over, mask.sum(), ubits)
-            if faults_on:
-                # undecoded attempts' airtime: the retries, plus the final
-                # failed payload of clients never decoded
-                ubits = _fma(bits_dev, torch.where(
-                    sent, n_retx + (~ok).to(torch.float32), 0.0).sum(),
-                    ubits)
-        else:
-            state, metrics = round_fn(state, round_batches, **kw)
-            ubits = (bits_dev * torch.where(sent, 1.0 + n_retx, 0.0).sum()
-                     if faults_on else bits_dev * mask.sum())
-
-        # downlink: the broadcast opens the round at BS power over the full
-        # band with its own fading; the slowest scheduled device gates it
-        dl_rate = wireless.shannon_rate_jax(
-            wireless.downlink_snr_jax(
-                dist, faults_lib.downlink_fading(kt, n), chan),
-            chan.bandwidth_hz)
-        dl_lat = wireless.comm_latency_jax(dl_bits, dl_rate)
-        any_sched = mask.any()
-        dl_s = torch.where(mask, dl_lat, zero).amax()
-        dl_bits_out = torch.where(any_sched, dl_bits, zero)
-
-        # wall clock: synchronous round = slowest scheduled device; a
-        # dropped client stops consuming the round, a decode-failed one
-        # still burns its airtime
-        if faults_on:
-            comm_c = torch.where(dropped, 0.0, comm_eff)
-            comp_c = torch.where(dropped, 0.0, comp_lat)
-        else:
-            comm_c, comp_c = comm_lat, comp_lat
-        total = comm_c + comp_c
-        slowest = torch.argmax(torch.where(mask, total, neg_inf))
-        comm_s = torch.where(any_sched, comm_c[slowest], zero)
-        comp_s = torch.where(any_sched, comp_c[slowest], zero)
-        clock = clock + dl_s + comm_s + comp_s
-
-        if faults_on:
-            fault_log = (survived.sum(), (mask & ~survived).sum(),
-                         torch.where(sent, n_retx, 0.0).sum(),
-                         stal_pre.mean())
-            stal = torch.where(survived, 0.0, stal + 1.0)
-        else:
-            fault_log = (mask.sum(), torch.zeros_like(mask.sum()), zero,
-                         zero)
-        if dp_on:
-            # one subsampled-Gaussian round at sampling fraction
-            # survivors / N; local field noise aggregates to an effective
-            # multiplier sigma * sqrt(survivors)
-            n_surv_f = part.sum()
-            z_eff = (pparams.sigma * torch.sqrt(torch.clamp_min(n_surv_f,
-                                                                1.0))
-                     if priv.dp_local else pparams.sigma)
-            rdp = rdp + privacy_lib.rdp_increment(n_surv_f / n, z_eff)
-            dp_log = (privacy_lib.epsilon_of(rdp), dp_delta)
-        else:
-            dp_log = no_dp
-
-        loss = metrics["loss"]
-        if eval_batch is not None:
-            loss = loss_fn(state.params, eval_batch)[0]
-        # update-aware policies observe last-round delta norms (proxy)
-        norms = 0.9 * norms + 0.1 * trandom.exponential(kn, (n,))
-        outs.append((loss, clock, mask, mask.sum(), ubits, comm_s, comp_s,
-                     dl_bits_out) + fault_log + dp_log
-                    + (mask_over * mask.sum(),))
-
-    cols = [torch.stack(c).cpu().numpy() for c in zip(*outs)]
-    return state.params, SimLogs(**dict(zip(_LOG_FIELDS, cols)))
+    params = _on(init_params, dev)
+    batches, eval_batch = _on(batches, dev), _on(eval_batch, dev)
+    has_eval = eval_batch is not None
+    _count_trace(_engine_key(cfg, wcfg, loss_fn, has_eval, "single"),
+                 _shapes(params, batches, eval_batch))
+    engine = _Engine(cfg, wcfg, loss_fn, has_eval)
+    v = _single_variant(engine, cfg, wcfg, params, dev)
+    params, outs = engine.run(v, params, batches, eval_batch)
+    return params, SimLogs(**_log_columns(outs, cfg.n_devices))
 
 
 def run_simulation(cfg: SimConfig, loss_fn, init_params: Params,
@@ -544,23 +757,31 @@ def run_simulation(cfg: SimConfig, loss_fn, init_params: Params,
                    wcfg: Optional[wireless.WirelessConfig] = None,
                    engine: Optional[str] = None,
                    device="cuda") -> List[RoundLog]:
-    """Per-round ``RoundLog`` entry point over :func:`run_simulation_scan`.
+    """Per-round ``RoundLog`` entry point.
 
-    ``engine`` may be ``None`` or ``"scan"``. An ``eval_fn`` must carry an
-    ``eval_batch`` attribute (the logged loss becomes ``loss_fn(params,
-    eval_batch)``); the reference's host loop for opaque ``eval_fn``s is not
-    ported.
+    ``engine=None`` picks :func:`run_simulation_scan`, or the host loop for
+    an opaque ``eval_fn``; ``"scan"`` / ``"host"`` force one. An ``eval_fn``
+    with an ``eval_batch`` attribute makes the logged loss ``loss_fn(params,
+    eval_batch)`` without calling it; without one the host loop logs
+    ``eval_fn(params)``. The host loop samples each round's batches as it
+    goes instead of stacking them all first.
     """
-    if engine not in (None, "scan"):
-        raise NotImplementedError(f"engine={engine!r}: only the scan engine "
-                                  "is ported to PyTorch")
+    if engine not in (None, "scan", "host"):
+        raise ValueError(f"unknown engine {engine!r}; use 'scan' or 'host'")
     if cfg.rounds == 0:
         return []
+    wcfg = wcfg or wireless.WirelessConfig(n_devices=cfg.n_devices)
     eval_batch = getattr(eval_fn, "eval_batch", None) if eval_fn else None
-    if eval_fn is not None and eval_batch is None:
-        raise NotImplementedError(
-            "an eval_fn without an eval_batch attribute needs the host loop, "
-            "which is not ported to PyTorch")
+    opaque_eval = eval_fn is not None and eval_batch is None
+    if engine == "scan" and opaque_eval:
+        raise ValueError(
+            "engine='scan' needs an in-program eval: attach eval_fn."
+            "eval_batch (logged loss becomes loss_fn(params, eval_batch)) "
+            "or drop engine= to let the host loop serve the opaque eval_fn")
+    if engine == "host" or opaque_eval:
+        return _run_simulation_host(cfg, loss_fn, init_params,
+                                    sample_client_batches, eval_fn,
+                                    eval_batch, wcfg, device)
     batches = (None if cfg.datagen is not None else
                stack_batches(sample_client_batches, cfg.rounds,
                              cfg.n_devices))
@@ -568,3 +789,243 @@ def run_simulation(cfg: SimConfig, loss_fn, init_params: Params,
                                   eval_batch=eval_batch, wcfg=wcfg,
                                   device=device)
     return logs.to_round_logs()
+
+
+def _run_simulation_host(cfg: SimConfig, loss_fn, init_params: Params,
+                         sample_client_batches, eval_fn, eval_batch,
+                         wcfg: wireless.WirelessConfig,
+                         device) -> List[RoundLog]:
+    """Round-by-round loop over the scan's own step, with each round's
+    batches sampled when it starts and its log read back at once."""
+    dev = resolve_device(device)
+    has_eval = eval_batch is not None
+    params, eval_batch = _on(init_params, dev), _on(eval_batch, dev)
+    engine = _Engine(cfg, wcfg, loss_fn, has_eval)
+    v = _single_variant(engine, cfg, wcfg, params, dev)
+    carry = engine.init(params)
+    logs: List[RoundLog] = []
+    for t in range(cfg.rounds):
+        bt = (None if cfg.datagen is not None
+              else _on(sample_client_batches(t, cfg.n_devices), dev))
+        carry, (loss, clock, mask, nsched, ubits, comm_s, comp_s, dl_bits,
+                n_surv, n_drop, retx, stal, eps, dlt, mbits) = engine.step(
+            t, carry, v, bt, eval_batch)
+        lv = float(loss)
+        if eval_fn is not None and not has_eval:
+            lv = eval_fn(carry.state.params)
+        logs.append(RoundLog(t, float(clock), lv, int(nsched),
+                             mask.cpu().numpy(), float(ubits), float(comm_s),
+                             float(comp_s), float(dl_bits), int(n_surv),
+                             int(n_drop), float(retx), float(stal),
+                             float(eps), float(dlt), float(mbits)))
+    return logs
+
+
+# ---------------------------------------------------------------------------
+# Sweeps: seed x channel x compression x algorithm x fault x privacy x
+# policy variants, one after another on one device
+# ---------------------------------------------------------------------------
+# Policies whose decision reads the static per-subchannel bandwidth
+# (PolicyConfig.sub_bw) or whose latency/deadline math specializes on the
+# cell's static bandwidth: a bandwidth grid cannot vary under them.
+_BW_STATIC_POLICIES = ("age", "deadline", "bn2", "bn2_c")
+
+
+def _validate_sweep_wcfgs(wcfgs: Sequence[wireless.WirelessConfig],
+                          policies: Sequence[str]) -> None:
+    """Static fields must match across every entry, and latency-sensitive
+    policies also pin ``bandwidth_hz``."""
+    ref = wcfgs[0]
+    bw_pols = sorted(set(policies) & set(_BW_STATIC_POLICIES))
+    for i, w in enumerate(wcfgs):
+        if (w.n_devices, w.n_subchannels) != (ref.n_devices,
+                                              ref.n_subchannels):
+            raise ValueError(
+                f"sweep wcfgs must share static fields (n_devices, "
+                f"n_subchannels): wcfgs[{i}] has "
+                f"({w.n_devices}, {w.n_subchannels}), wcfgs[0] has "
+                f"({ref.n_devices}, {ref.n_subchannels})")
+        if bw_pols and w.bandwidth_hz != ref.bandwidth_hz:
+            raise ValueError(
+                f"sweep wcfgs must share static bandwidth_hz for the "
+                f"latency-sensitive policies {bw_pols} (their sub-band "
+                f"bandwidth / deadline pricing compiles in statically): "
+                f"wcfgs[{i}].bandwidth_hz={w.bandwidth_hz} != "
+                f"wcfgs[0].bandwidth_hz={ref.bandwidth_hz}")
+
+
+_NOT_SHARDED = ("multi-card sharding of the sweep is not ported; the port "
+                "runs every variant on one card")
+
+
+def _check_sweep_devices(devices, mesh) -> None:
+    """``devices=`` / ``mesh=``: the port runs a sweep on one card, so only
+    ``None``, ``1``, ``"auto"`` on one card and a one-device sequence
+    apply; more devices than there are raise as in the reference."""
+    if devices is not None and mesh is not None:
+        raise ValueError("pass devices= or mesh=, not both")
+    if mesh is not None:
+        raise ValueError(f"run_sweep(mesh=...): {_NOT_SHARDED}")
+    if devices is None:
+        return
+    avail = max(1, torch.cuda.device_count())
+    if devices == "auto":
+        count = avail
+    elif isinstance(devices, int):
+        if devices > avail:
+            raise ValueError(f"devices={devices} but only {avail} local "
+                             "devices are available")
+        count = devices
+    else:
+        count = len(list(devices))
+    if count > 1:
+        raise ValueError(f"run_sweep(devices={devices!r}): {_NOT_SHARDED}")
+
+
+def run_sweep(cfg: SimConfig, loss_fn, init_params: Params, batches: Params,
+              *, seeds: Sequence[int],
+              wcfgs: Optional[Sequence[wireless.WirelessConfig]] = None,
+              policies: Optional[Sequence[str]] = None,
+              compressions: Optional[Sequence[str]] = None,
+              cparams_grid: Optional[Sequence[CompressionParams]] = None,
+              algorithms: Optional[Sequence[str]] = None,
+              aparams_grid: Optional[Sequence[AlgoParams]] = None,
+              fparams_grid: Optional[Sequence[FaultParams]] = None,
+              privacies: Optional[Sequence[str]] = None,
+              pparams_grid: Optional[Sequence[PrivacyParams]] = None,
+              eval_batch: Optional[Params] = None,
+              hcfg=None, hcfgs=None, policy_mode: str = "mixture",
+              devices=None, mesh=None, device="cuda"
+              ) -> Dict[Any, SimLogs]:
+    """Sweep policies x compressor names x algorithm names x privacy names
+    x seeds x channels x compression levels x algorithm hyperparameters x
+    fault and privacy parameters, on ``device``.
+
+    Returns ``{policy: SimLogs}``, the key growing to ``(policy,
+    compression)``, ``(policy, algorithm)``, ``(policy, privacy)`` and their
+    combinations (in that order) when the ``compressions`` / ``algorithms``
+    / ``privacies`` name axes are given. Arrays have shape ``(variants,
+    rounds, ...)``, variants ordered ``itertools.product(seeds, wcfgs,
+    cparams_grid, aparams_grid, fparams_grid, pparams_grid)``.
+
+    ``policy_mode="mixture"`` (with more than one policy) counts one trace
+    for the whole policy set, as the reference compiles one program for it;
+    ``"loop"`` counts one per policy. Both run each policy's variants
+    through that policy alone, so the results are bitwise equal.
+    ``fparams_grid`` makes the fault model an axis (omitted, ``cfg.faults``
+    is the one point, or there are no faults); ``pparams_grid`` the privacy
+    parameters, passed only to mechanisms other than ``"none"``. All ``wcfgs`` share ``n_devices`` and
+    ``n_subchannels`` (and ``bandwidth_hz`` under ``_BW_STATIC_POLICIES``);
+    the policy's static sub-band comes from ``wcfgs[0]``, each variant's
+    rate from its own channel.
+
+    ``hcfg`` / ``hcfgs`` (the hierarchical engine) are not ported, and the
+    port runs on one card: ``devices`` / ``mesh`` asking for more raise.
+    """
+    dev = resolve_device(device)
+    params = _on(init_params, dev)
+    wcfgs = list(wcfgs) if wcfgs else [
+        wireless.WirelessConfig(n_devices=cfg.n_devices)]
+    policies = list(policies) if policies else [cfg.policy]
+    comp_names = list(compressions) if compressions is not None else None
+    algo_names = list(algorithms) if algorithms is not None else None
+    cparams_list = (list(cparams_grid) if cparams_grid
+                    else [_resolve_cparams(cfg, params, dev)])
+    aparams_list = (list(aparams_grid) if aparams_grid
+                    else [_resolve_aparams(cfg, dev)])
+    if policy_mode not in ("mixture", "loop"):
+        raise ValueError(f"unknown policy_mode {policy_mode!r}; "
+                         "use 'mixture' or 'loop'")
+    _validate_sweep_wcfgs(wcfgs, policies)
+    if hcfg is not None or hcfgs is not None:
+        raise NotImplementedError(
+            "run_sweep(hcfg=, hcfgs=) needs the hierarchical engine, which "
+            "is not ported yet (ROADMAP queue A item 3)")
+    _check_sweep_devices(devices, mesh)
+    fparams_list = (list(fparams_grid) if fparams_grid is not None
+                    else ([cfg.faults] if cfg.faults is not None else None))
+    faults_on = fparams_list is not None
+    if faults_on and not fparams_list:
+        raise ValueError("fparams_grid= needs at least one FaultParams")
+    priv_iter = list(privacies) if privacies is not None else [cfg.privacy]
+    if not priv_iter:
+        raise ValueError("privacies= needs at least one mechanism name")
+    any_priv = any(p != "none" for p in priv_iter)
+    # the pparams axis stays in the grid even when "none" rides along
+    # (uniform variant counts across the name axis); its params are only
+    # passed to privacy-enabled engines
+    pparams_list = (list(pparams_grid) if pparams_grid is not None
+                    else ([_resolve_pparams(cfg, dev)] if any_priv
+                          else None))
+    if pparams_list is not None and not pparams_list:
+        raise ValueError("pparams_grid= needs at least one PrivacyParams")
+
+    grid = list(itertools.product(
+        seeds, wcfgs, cparams_list, aparams_list,
+        fparams_list if faults_on else [None],
+        pparams_list if pparams_list is not None else [None]))
+    if not grid:
+        raise ValueError("run_sweep needs at least one "
+                         "(seed, wcfg, cparams, aparams) variant")
+    batches, eval_batch = _on(batches, dev), _on(eval_batch, dev)
+    has_eval = eval_batch is not None
+    d_model = fl_server.flat_dim(params)
+    comp_iter = comp_names if comp_names is not None else [cfg.compression]
+    algo_iter = algo_names if algo_names is not None else [cfg.algorithm]
+
+    def result_key(pol, comp, alg, priv):
+        parts = ((pol,)
+                 + ((comp,) if comp_names is not None else ())
+                 + ((alg,) if algo_names is not None else ())
+                 + ((priv,) if privacies is not None else ()))
+        return parts[0] if len(parts) == 1 else parts
+
+    def cfg_variant(pol, comp, alg, priv) -> SimConfig:
+        return dataclasses.replace(
+            cfg, policy=pol, compression=comp, algorithm=alg,
+            faults=fparams_list[0] if faults_on else cfg.faults,
+            privacy=priv,
+            privacy_params=(pparams_list[0] if priv != "none"
+                            and pparams_list is not None
+                            else cfg.privacy_params))
+
+    def run_grid(pol, comp, alg, priv) -> SimLogs:
+        """Every variant of the base grid under one name combination."""
+        engine = _Engine(cfg_variant(pol, comp, alg, priv), wcfgs[0],
+                         loss_fn, has_eval)
+        cols = []
+        for seed, w, cp, ap, fp, pp in grid:
+            v = engine.variant(
+                trandom.PRNGKey(seed, dev), wireless.channel_params(w, dev),
+                cp.to(dev), ap.to(dev), fp.to(dev) if faults_on else None,
+                pp.to(dev) if priv != "none" else None, d_model)
+            cols.append(_log_columns(
+                engine.run(v, params, batches, eval_batch)[1],
+                cfg.n_devices))
+        return SimLogs(**{f: np.stack([c[f] for c in cols])
+                          for f in _LOG_FIELDS})
+
+    shapes = _shapes(params, batches, eval_batch)
+    combos = list(itertools.product(comp_iter, algo_iter, priv_iter))
+    results: Dict[Any, SimLogs] = {}
+    if policy_mode == "mixture" and len(policies) > 1:
+        # the reference compiles one program a name combination for the
+        # whole policy set, the grid tiled policy-major
+        for comp, alg, priv in combos:
+            _count_trace(_engine_key(
+                cfg_variant(policies[0], comp, alg, priv), wcfgs[0], loss_fn,
+                has_eval, "sweep", tuple(policies)),
+                (len(grid) * len(policies),) + shapes)
+            for pol in policies:
+                results[result_key(pol, comp, alg, priv)] = run_grid(
+                    pol, comp, alg, priv)
+        return results
+
+    for pol in policies:
+        for comp, alg, priv in combos:
+            _count_trace(_engine_key(cfg_variant(pol, comp, alg, priv),
+                                     wcfgs[0], loss_fn, has_eval, "sweep"),
+                         (len(grid),) + shapes)
+            results[result_key(pol, comp, alg, priv)] = run_grid(
+                pol, comp, alg, priv)
+    return results

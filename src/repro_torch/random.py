@@ -157,3 +157,31 @@ def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
         order = torch.argsort(bits(sub, (n,)), stable=True)
         x = x[order]
     return x
+
+
+def randint(key: torch.Tensor, shape: Shape, minval: int,
+            maxval: int) -> torch.Tensor:
+    """int32 integers in ``[minval, maxval)`` (``jax.random.randint`` with
+    the default int32 type), bit for bit: two 32-bit draws from
+    ``split(key)``, combined modulo the span in wrapping uint32 arithmetic
+    (the multiplier ``(2^16 mod span)^2`` wraps to 0 for spans past 2^16,
+    as it does in JAX). An empty range returns ``minval``."""
+    shape = _shape(shape)
+    lo, hi = int(minval), int(maxval)
+    ks = split(key)
+    higher, lower = bits(ks[..., 0, :], shape), bits(ks[..., 1, :], shape)
+    span = (hi - lo) & MASK if hi > lo else 1
+    mult = ((((1 << 16) % span) ** 2) & MASK) % span
+    off = ((((higher % span) * mult) & MASK) + lower % span) & MASK
+    off = off % span
+    out = (off + lo) & MASK
+    return torch.where(out >= (1 << 31), out - (1 << 32), out).to(
+        torch.int32)
+
+
+def bernoulli(key: torch.Tensor, p: float = 0.5,
+              shape: Shape = ()) -> torch.Tensor:
+    """``jax.random.bernoulli`` (mode "low") at a float32 ``p``: a uniform
+    draw below ``p``."""
+    return uniform(key, shape) < torch.tensor(p, dtype=torch.float32,
+                                              device=key.device)

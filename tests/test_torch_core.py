@@ -356,3 +356,97 @@ def test_linear_datagen_matches_reference():
     gen = tdatagen(w, local_steps=2, batch=4)
     sub = gen(tk, torch.as_tensor(ids[3:7]))
     assert torch.equal(sub["x"], gen(tk, torch.as_tensor(ids))["x"][3:7])
+
+
+def test_qsgd_pricing_matches_compiled_reference():
+    """QSGD's bits against the reference's compiled program, which takes
+    log2 as log times float32(1 / ln 2) and contracts both multiply-adds;
+    pricing with plain log2 was an ulp off for about one level in five
+    (levels 8 at d = 16, say). Levels where XLA's CPU log itself is an ulp
+    off PyTorch's stay out of the comparison."""
+    levels = np.arange(1, 257, dtype=np.float32)
+    jlog = np.asarray(jax.jit(jnp.log)(jnp.asarray(levels + 1.0)))
+    same_log = jlog == torch.log(torch.from_numpy(levels + 1.0)).numpy()
+    assert same_log.sum() > 240
+    for d in (16, 33, 256):
+        price = jax.jit(jax.vmap(lambda lv: jcomp.uplink_bits_jax(
+            "qsgd", jcomp.compression_params(levels=1.0)._replace(
+                levels=lv), d)))
+        want = np.asarray(price(jnp.asarray(levels)))
+        got = np.array([float(tcomp.uplink_bits_jax(
+            "qsgd", tcomp.compression_params(levels=float(lv)), d))
+            for lv in levels], np.float32)
+        np.testing.assert_array_equal(got[same_log], want[same_log])
+
+
+def test_stack_params_and_converters_match_reference():
+    from repro.core import privacy as jpriv
+    from repro_torch import convert
+    from repro_torch.core import privacy as tpriv
+
+    jw_cfgs = [jw.WirelessConfig(n_devices=4, tx_power_dbm=p,
+                                 bandwidth_hz=b)
+               for p, b in ((10.0, 2e7), (-3.5, 1e7), (23.0, 5e6))]
+    tw_cfgs = [tw.WirelessConfig(**vars(c)) for c in jw_cfgs]
+    pairs = [
+        (jw.stack_channel_params(jw_cfgs), tw.stack_channel_params(tw_cfgs),
+         convert.channel_params_from_jax),
+        (jcomp.stack_compression_params(
+            [jcomp.compression_params(k=k, levels=lv) for k, lv in
+             ((2.0, 4.0), (8.5, 256.0))]),
+         tcomp.stack_compression_params(
+             [tcomp.compression_params(k=k, levels=lv) for k, lv in
+              ((2.0, 4.0), (8.5, 256.0))]),
+         convert.compression_params_from_jax),
+        (jalg.stack_algo_params([jalg.algo_params(lr=lr, momentum=0.5)
+                                 for lr in (0.02, 0.1, 0.3)]),
+         talg.stack_algo_params([talg.algo_params(lr=lr, momentum=0.5)
+                                 for lr in (0.02, 0.1, 0.3)]),
+         convert.algo_params_from_jax),
+        (jpriv.stack_privacy_params([jpriv.privacy_params(clip=c)
+                                     for c in (0.5, 1.5)]),
+         tpriv.stack_privacy_params([tpriv.privacy_params(clip=c)
+                                     for c in (0.5, 1.5)]),
+         convert.privacy_params_from_jax)]
+    for jp, tp, conv in pairs:
+        assert type(tp)._fields == type(jp)._fields
+        for f in type(tp)._fields:
+            j, t = np.asarray(getattr(jp, f)), getattr(tp, f)
+            assert t.dtype == torch.float32 and t.shape == j.shape
+            np.testing.assert_array_equal(t.numpy(), j)
+            np.testing.assert_array_equal(getattr(conv(jp), f).numpy(), j)
+
+
+def test_policy_mixture_and_onehot_match_reference():
+    names = ("random", "pf", "age", "deadline", "bn2")
+    for bad in (("random", "pf", "random"),):
+        with pytest.raises(ValueError, match="duplicate"):
+            jsched.get_policy_mixture(bad)
+        with pytest.raises(ValueError, match="duplicate"):
+            tsched.get_policy_mixture(bad)
+    for mod in (jsched, tsched):
+        with pytest.raises(ValueError, match="not in enabled set"):
+            mod.policy_onehot("latency", names)
+    jmix, tmix = (jsched.get_policy_mixture(names),
+                  tsched.get_policy_mixture(names))
+    n, rng = 12, np.random.default_rng(3)
+    f32 = lambda *s: rng.exponential(size=s).astype(np.float32)  # noqa: E731
+    fields = dict(snr_lin=f32(n), avg_snr=f32(n), rates=1e6 * f32(n),
+                  comm_lat=f32(n), comp_lat=0.1 * f32(n), ages=f32(n),
+                  update_norms=f32(n))
+    key = jax.random.PRNGKey(5)
+    jst = jsched.RoundState(t=1, key=key, **{k: jnp.asarray(v)
+                                             for k, v in fields.items()})
+    tst = tsched.RoundState(t=1, key=key_from_jax(key),
+                            **{k: torch.from_numpy(v)
+                               for k, v in fields.items()})
+    jcfg = jsched.PolicyConfig(n_devices=n, n_scheduled=4)
+    tcfg = tsched.PolicyConfig(n_devices=n, n_scheduled=4)
+    for name in names:
+        jw_, tw_ = (jsched.policy_onehot(name, names),
+                    tsched.policy_onehot(name, names))
+        np.testing.assert_array_equal(tw_.numpy(), np.asarray(jw_))
+        got = tmix(tcfg, tst, tw_).numpy()
+        np.testing.assert_array_equal(got, np.asarray(jmix(jcfg, jst, jw_)))
+        np.testing.assert_array_equal(
+            got, tsched.get_policy(name)(tcfg, tst).numpy())

@@ -1,6 +1,7 @@
 """The port's threefry generator against ``jax.random``: key derivation,
-bits, uniforms and permutations bitwise; normals and exponentials within a
-stated ulp bound (their ``log1p`` is PyTorch's, not XLA's)."""
+bits, uniforms, permutations, integers and Bernoulli draws bitwise; normals
+and exponentials within a stated ulp bound (their ``log1p`` is PyTorch's,
+not XLA's). Also the on-device token generator, bitwise."""
 import numpy as np
 import pytest
 
@@ -92,3 +93,52 @@ def test_permutation_bitwise(n):
     jk, tk = _keys()[2]
     np.testing.assert_array_equal(trandom.permutation(tk, n).numpy(),
                                   np.asarray(jax.random.permutation(jk, n)))
+
+
+# spans: 1 (an empty or unit range), powers of two, spans past 2^16 (where
+# JAX's multiplier wraps to 0), a vocabulary that is no power of two, the
+# whole int32 range, and negative bounds
+RANDINT_RANGES = [(0, 1), (3, 3), (5, 2), (0, 64), (0, 1 << 16),
+                  (0, (1 << 16) + 1), (0, 1000), (0, 50257), (-5, 7),
+                  (7, 1 << 20), (-(1 << 31), (1 << 31) - 1)]
+
+
+@pytest.mark.parametrize("lo,hi", RANDINT_RANGES)
+def test_randint_bitwise(lo, hi):
+    for jk, tk in _keys():
+        want = np.asarray(jax.random.randint(jk, (3, 5, 4), lo, hi))
+        got = trandom.randint(tk, (3, 5, 4), lo, hi).numpy()
+        assert got.dtype == want.dtype == np.int32
+        np.testing.assert_array_equal(got, want)
+    keys = jax.random.split(jax.random.PRNGKey(1), 6)
+    np.testing.assert_array_equal(
+        trandom.randint(key_from_jax(keys), (2, 3), lo, hi).numpy(),
+        np.asarray(jax.vmap(lambda k: jax.random.randint(k, (2, 3), lo,
+                                                         hi))(keys)))
+
+
+@pytest.mark.parametrize("p", [0.0, 0.3, 0.5, 1.0])
+def test_bernoulli_bitwise(p):
+    for jk, tk in _keys():
+        np.testing.assert_array_equal(
+            trandom.bernoulli(tk, p, (4, 33)).numpy(),
+            np.asarray(jax.random.bernoulli(jk, p, (4, 33))))
+
+
+@pytest.mark.parametrize("vocab,n_classes,seed", [(64, 4, None),
+                                                  (1000, 3, 7),
+                                                  (50257, 5, None),
+                                                  (6, 4, 2)])
+def test_token_datagen_bitwise(vocab, n_classes, seed):
+    from repro.data.ondevice import make_token_datagen as jgen
+    from repro_torch.data import make_token_datagen as tgen
+
+    kw = dict(local_steps=2, batch=3, seq=5, n_classes=n_classes, seed=seed)
+    key = jax.random.PRNGKey(11)
+    want = jgen(vocab, **kw)(key, jnp.arange(10, 17))
+    got = tgen(vocab, **kw)(key_from_jax(key), torch.arange(10, 17))
+    assert want.keys() == got.keys()
+    for k in want:
+        w = np.asarray(want[k])
+        assert got[k].shape == w.shape and got[k].numpy().dtype == w.dtype
+        np.testing.assert_array_equal(got[k].numpy(), w)
