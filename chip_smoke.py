@@ -45,8 +45,9 @@ Phases (any failure exits non-zero):
    (whose plain versions the test suite holds against the JAX reference) at
    N = 4096, d = 256, the kernel-dispatch threshold, for each kernel-backed
    compressor under fedavg and for scaffold, fedadam and fedbuff under
-   top-k: participation and uplink bits equal, loss within rtol 1e-4; then
-   with ``benchmarks/bench_faults.py``'s faults (``max_retries=2``) under
+   top-k: participation, uplink and downlink bits equal, loss within rtol
+   1e-4; then with ``benchmarks/bench_faults.py``'s faults
+   (``max_retries=2``) under
    fedavg x each kernel-backed compressor and fedbuff x top-k, and with
    privacy (clip 0.5, sigma 0.3, as ``benchmarks/bench_privacy.py``)
    secagg x QSGD, secagg_dp x scaled sign and dp x top-k: participation,
@@ -96,7 +97,25 @@ Phases (any failure exits non-zero):
 12. host: the fleet configuration through the host loop with an opaque
    ``eval_fn`` for 3 rounds: participation and uplink bits equal to the
    scan's, its loss equal to the scan's ``eval_batch`` loss, 25 ``topk_rows``
-   launches a round; rounds/s beside phase 7's.
+   launches a round; rounds/s beside phase 7's;
+13. hfl: ``benchmarks/bench_hfl.py``'s cell, the hierarchical engine at its
+   full width (N = 21 devices in 7 hex clusters, the LM problem of
+   ``benchmarks/common.py``, D = 5120, top-k at 1%, 1e8 model bits, random
+   scheduling of 21 a cluster, lr 1.0, 2 local steps of batch 16), with
+   every kernel counter set to 0 at its start: (a) H = 2 with
+   ``examples/hierarchical_fl.py``'s per-cluster cells for HFL_CHECK_ROUNDS
+   rounds, the card against the CPU (participation, schedule sizes,
+   uplink and downlink bits equal, latency within rtol 1e-5, loss within
+   rtol 1e-4) and the host loop on the card bitwise the scan; (b) the
+   bench at its 80 rounds on the card: flat FL in one 1500 m cell, then
+   HFL at H = 2, 4, 6, each with rounds/s, its final loss, the simulated
+   wall-clock speed-up over flat FL and the loss ratio at equal wall clock
+   (as ``bench_hfl.py`` computes it); (c) at (a)'s cell for
+   HFL_CASE_ROUNDS rounds, card against CPU: ``bench_faults.py``'s faults,
+   secagg x QSGD (bitwise its unmasked oracle on the card), dp x top-k and
+   a sweep over 2 backhaul rates x 2 seeds x 3 policies, with the trace
+   counts; (d) the six kernels' counters read at the end must be 0: the
+   reference's HFL reaches no kernel (``hfl_launches`` in the kernels line).
 
 Every phase prints its wall time. The last two lines of output are the
 kernel table as JSON and the result.
@@ -171,6 +190,12 @@ TUNE = dict(policies=("random", "best_channel", "latency", "pf"),
 FLEET_POLICIES, FLEET_SEEDS, FLEET_SWEEP_ROUNDS = (
     ("random", "best_channel", "pf"), (0, 1), 2)
 HOST_ROUNDS = 3
+# benchmarks/bench_hfl.py: N = 21 devices in 7 hex clusters,
+# benchmarks/common.make_lm_problem(n_clients=21, alpha=0.3) (vocabulary 64,
+# sequence 16, hidden 32: D = 5120), top-k at 1%, 1e8 model bits, 80 rounds
+HFL_N, HFL_ROUNDS, HFL_PERIODS = 21, 80, (2, 4, 6)
+HFL_CHECK_ROUNDS, HFL_CASE_ROUNDS = 10, 4
+LM_VOCAB, LM_SEQ, LM_HID = 64, 16, 32
 ROWS_SRC = "src/repro_torch/kernels/csrc/rows.cu"
 TILES_SRC = "src/repro_torch/kernels/csrc/tiles.cu"
 
@@ -654,8 +679,8 @@ def _card_equals_cpu(what, g, c) -> float:
     """Logs of the card against the CPU's: counts, participation and bits
     equal, loss within rtol 1e-4, latency and epsilon within rtol 1e-5.
     Returns the loss's largest relative difference."""
-    for f in ("participation", "n_scheduled", "uplink_bits", "n_survived",
-              "n_dropped", "retransmissions", "mask_bits"):
+    for f in ("participation", "n_scheduled", "uplink_bits", "downlink_bits",
+              "n_survived", "n_dropped", "retransmissions", "mask_bits"):
         np.testing.assert_array_equal(getattr(g, f), getattr(c, f),
                                       err_msg=f"{what} {f}")
     for f, rtol in (("loss", 1e-4), ("latency_s", 1e-5), ("epsilon", 1e-5)):
@@ -702,8 +727,9 @@ def check_sweep_and_host_against_cpu(dev, w_star, d, n, seed) -> None:
             engine="host", device=device))
     g, c = ({f: np.array([getattr(r, f) for r in logs])
              for f in ("participation", "n_scheduled", "uplink_bits",
-                       "n_survived", "n_dropped", "retransmissions",
-                       "mask_bits", "loss", "latency_s", "epsilon")}
+                       "downlink_bits", "n_survived", "n_dropped",
+                       "retransmissions", "mask_bits", "loss", "latency_s",
+                       "epsilon")}
             for logs in hosts)
     rel = _card_equals_cpu("host", SimpleNamespace(**g),
                            SimpleNamespace(**c))
@@ -1040,6 +1066,254 @@ def run_host(dev, smi: str, base_rates: dict) -> None:
         f"equal to the scan's; launches {counts}; eval loss {losses}")
 
 
+def _lm_problem(dev):
+    """``benchmarks/common.make_lm_problem(n_clients=HFL_N, alpha=0.3)`` in
+    PyTorch: the same numpy data from the port's copies of the synthetic
+    source and the Dirichlet partition, the weights from the port's
+    threefry ``normal`` on ``PRNGKey(0)`` split three ways at the same
+    scales. Returns ``(params, loss_fn, sample_batches, eval_fn)``; the
+    eval_fn carries ``eval_batch``, so the scan serves it."""
+    from repro_torch import random as trandom
+    from repro_torch.data import SyntheticLMDataset, dirichlet_partition
+    ds = SyntheticLMDataset(LM_VOCAB, LM_SEQ, 2048, n_classes=4, seed=0,
+                            branching=2)
+    parts = dirichlet_partition(ds.class_of(np.arange(len(ds))), HFL_N,
+                                alpha=0.3, seed=0, min_per_client=16)
+    k1, k2, k3 = trandom.split(trandom.PRNGKey(0), 3)
+    params = {"emb": trandom.normal(k1, (LM_VOCAB, LM_HID)) * 0.1,
+              "w1": trandom.normal(k2, (LM_HID, LM_HID)) * LM_HID ** -0.5,
+              "w2": trandom.normal(k3, (LM_HID, LM_VOCAB)) * LM_HID ** -0.5}
+    rng = np.random.default_rng(0)
+
+    def sample_batches(t, n, h=2, b=16):
+        outs = {"tokens": [], "labels": []}
+        for ci in parts[:n]:
+            got = ds.get(rng.choice(ci, size=(h, b)).reshape(-1))
+            for k in outs:
+                outs[k].append(got[k].reshape(h, b, -1))
+        return {k: np.stack(v) for k, v in outs.items()}
+
+    eval_batch = {k: torch.tensor(v, device=dev)
+                  for k, v in ds.get(np.arange(256)).items()}
+
+    def eval_fn(p):
+        return float(_lm_loss(p, eval_batch)[0])
+    eval_fn.eval_batch = eval_batch
+    return params, _lm_loss, sample_batches, eval_fn
+
+
+def _lm_loss(p, b):
+    h = torch.relu(p["emb"][b["tokens"].long()] @ p["w1"])
+    logits = h @ p["w2"]
+    gold = torch.gather(logits, -1, b["labels"][..., None].long())[..., 0]
+    return (torch.logsumexp(logits, -1) - gold).mean(), {}
+
+
+def _hfl_cfg(rounds, **kw):
+    from repro_torch.core.algorithms import registry as algos
+    from repro_torch.core.compression import registry as comp
+    from repro_torch.fl import runtime as rt
+    d = LM_VOCAB * LM_HID + LM_HID * LM_HID + LM_HID * LM_VOCAB
+    kw.setdefault("compression", "topk")
+    return rt.SimConfig(
+        n_devices=HFL_N, n_scheduled=HFL_N, rounds=rounds,
+        algo_params=algos.algo_params(lr=1.0), local_steps=2,
+        policy="random", model_bits=1e8,
+        compression_params=comp.compression_params(k=max(1, int(d * 0.01))),
+        **kw)
+
+
+def _cells():
+    """examples/hierarchical_fl.py's cells: 10 dBm in the centre, 15 dBm
+    outside."""
+    from repro_torch.core import wireless
+    return [wireless.WirelessConfig(n_devices=HFL_N,
+                                    tx_power_dbm=10.0 if c == 0 else 15.0)
+            for c in range(7)]
+
+
+def _logs_of(round_logs) -> SimpleNamespace:
+    return SimpleNamespace(**{f: np.array([getattr(r, f) for r in round_logs])
+                              for f in ("participation", "n_scheduled",
+                                        "uplink_bits", "downlink_bits",
+                                        "n_survived", "n_dropped",
+                                        "retransmissions", "mask_bits",
+                                        "loss", "latency_s", "epsilon")})
+
+
+def _hfl_snr_margin(cfg, hcfg, cells) -> float:
+    """The smallest ``|snr / snr_min - 1|`` an HFL fault run meets on the
+    CPU: each round's Gauss-Markov draw and every retry draw, every device
+    against its own SBS."""
+    from repro_torch import random as trandom
+    from repro_torch.core import faults, hierarchy, wireless
+    fp = cfg.faults
+    k_geo, k_rounds = trandom.split(trandom.PRNGKey(cfg.seed))
+    ids, dist, _, _ = hierarchy.hfl_geometry_jax(k_geo, hcfg, cfg.n_devices)
+    chan = wireless.gather_channel_params(
+        wireless.stack_channel_params(cells), ids)
+    fad = torch.zeros(cfg.n_devices, 2)
+    worst = float("inf")
+    for t in range(cfg.rounds):
+        kt = trandom.fold_in(k_rounds, t)
+        fad, power = faults.gauss_markov_fading(fp, kt, fad, t)
+        for p in [power] + [faults.retry_fading(kt, r, cfg.n_devices)
+                            for r in range(1, cfg.max_retries + 1)]:
+            snr = wireless.snr_jax(dist, p, chan)
+            worst = min(worst, float((snr / fp.snr_min - 1.0).abs().min()))
+    return worst
+
+
+def run_hfl(dev, smi: str) -> dict:
+    """Phase 13: bench_hfl.py's cell on the hierarchical engine. Returns
+    each kernel's launches across the phase (all must be 0)."""
+    import bisect
+    import dataclasses
+    from repro_torch.core import faults, privacy, wireless
+    from repro_torch.core.hierarchy import HFLConfig
+    from repro_torch.fl import runtime as rt
+    counters = dict(_row_counters(), **_tile_counters())
+    for fn in counters.values():
+        fn.launches = 0
+    cells = _cells()
+    h2 = HFLConfig(n_clusters=7, inter_cluster_period=2)
+
+    # (a) the card against the CPU, and the host loop against the scan
+    runs = {}
+    for device, engine in ((dev, None), ("cpu", None), (dev, "host")):
+        params, loss_fn, sample, eval_fn = _lm_problem(device)
+        runs[device, engine], secs = wall_s(lambda: rt.run_hfl(
+            _hfl_cfg(HFL_CHECK_ROUNDS), h2, loss_fn, params, sample,
+            eval_fn=eval_fn, cluster_wcfgs=cells, engine=engine,
+            device=device))
+        log(f"hfl (a) {device} {engine or 'scan'}: {HFL_CHECK_ROUNDS} "
+            f"rounds in {secs:.3f} s")
+    g, c = (_logs_of(runs[dv, None]) for dv in (dev, "cpu"))
+    rel = _card_equals_cpu("hfl (a)", g, c)
+    host = _logs_of(runs[dev, "host"])
+    for f in vars(g):
+        if not np.array_equal(getattr(host, f), getattr(g, f)):
+            raise AssertionError(f"hfl (a) host loop differs from the scan "
+                                 f"in {f}")
+    log(f"hfl (a) H=2, per-cluster cells: card == cpu (participation, "
+        f"schedule, uplink and downlink bits; loss max rel diff {rel:.3g}); "
+        f"host loop == scan on the card bitwise; loss {g.loss.tolist()}")
+
+    # (b) bench_hfl.py at its 80 rounds on the card
+    params, loss_fn, sample, eval_fn = _lm_problem(dev)
+    init_loss = eval_fn({k: v.to(dev) for k, v in params.items()})
+    fl_logs, secs = wall_s(lambda: rt.run_simulation(
+        _hfl_cfg(HFL_ROUNDS), loss_fn, params, sample, eval_fn=eval_fn,
+        wcfg=wireless.WirelessConfig(n_devices=HFL_N, cell_radius_m=1500.0),
+        device=dev))
+    fl_clock = [r.latency_s for r in fl_logs]
+    log(f"hfl (b) flat FL: {HFL_ROUNDS / secs:.4f} rounds/s on {smi}; "
+        f"final loss {fl_logs[-1].loss:.6f}; simulated wall clock "
+        f"{fl_clock[-1]:.3f} s")
+    bench = {"fl": fl_logs}
+    for h in HFL_PERIODS:
+        params, loss_fn, sample, eval_fn = _lm_problem(dev)
+        logs, secs = wall_s(lambda: rt.run_hfl(
+            _hfl_cfg(HFL_ROUNDS), HFLConfig(n_clusters=7,
+                                            inter_cluster_period=h),
+            loss_fn, params, sample, eval_fn=eval_fn, device=dev))
+        bench[h] = logs
+        clock = logs[-1].latency_s
+        i = min(bisect.bisect_right(fl_clock, clock) - 1, HFL_ROUNDS - 1)
+        fl_at_t = fl_logs[i].loss if i >= 0 else init_loss
+        log(f"hfl (b) H={h}: {HFL_ROUNDS / secs:.4f} rounds/s on {smi}; "
+            f"final loss {logs[-1].loss:.6f}; simulated wall clock "
+            f"{clock:.3f} s, speed-up over flat FL "
+            f"{fl_clock[-1] / clock:.4f}x; loss at equal wall clock "
+            f"{logs[-1].loss:.6f} vs flat FL {fl_at_t:.6f}, ratio "
+            f"{logs[-1].loss / fl_at_t:.4f}")
+    for key, logs in bench.items():
+        losses = [r.loss for r in logs]
+        if len(logs) != HFL_ROUNDS or not np.all(np.isfinite(losses)):
+            raise AssertionError(f"hfl (b) {key}: {len(logs)} rounds, "
+                                 f"losses {losses}")
+
+    # (c) faults, privacy and the sweep at (a)'s cell, card against CPU
+    fp = faults.fault_params(**FAULTS)
+    pp = privacy.privacy_params(**PRIVACY)
+    cases = {"faults": dict(faults=fp, max_retries=MAX_RETRIES),
+             "secagg x qsgd": dict(privacy="secagg", compression="qsgd",
+                                   privacy_params=pp),
+             "dp x topk": dict(privacy="dp", privacy_params=pp)}
+    margin = _hfl_snr_margin(_hfl_cfg(HFL_CASE_ROUNDS, **cases["faults"]),
+                             h2, cells)
+    if margin <= SNR_MARGIN:
+        raise AssertionError(f"hfl (c): an SNR lies within {margin:.3g} of "
+                             "the decode threshold; pick another seed")
+    finals = {}
+    for what, kw in cases.items():
+        out = {}
+        for device in (dev, "cpu"):
+            params, loss_fn, sample, eval_fn = _lm_problem(device)
+            cfg = _hfl_cfg(HFL_CASE_ROUNDS, **kw)
+            d = torch.device(device)
+            wstat, chan = rt._resolve_hfl_channel(cfg, h2, None, cells, d)
+            out[device] = rt._run_hfl_scan(
+                cfg, h2, loss_fn, params,
+                rt.stack_batches(sample, HFL_CASE_ROUNDS, HFL_N),
+                eval_fn.eval_batch, chan, wstat, d)
+        rel = _card_equals_cpu(f"hfl (c) {what}", out[dev][1],
+                                   out["cpu"][1])
+        finals[what] = out[dev]
+        c = out["cpu"][1]
+        log(f"hfl (c) {what}: card == cpu; loss max rel diff {rel:.3g}; "
+            f"survivors {c.n_survived.tolist()}, retransmissions "
+            f"{c.retransmissions.tolist()}, mask bits {c.mask_bits.tolist()}"
+            f", epsilon {c.epsilon.tolist()}")
+    params, loss_fn, sample, eval_fn = _lm_problem(dev)
+    cfg = _hfl_cfg(HFL_CASE_ROUNDS, **dict(cases["secagg x qsgd"],
+                                           privacy="_secagg_unmasked"))
+    wstat, chan = rt._resolve_hfl_channel(cfg, h2, None, cells, dev)
+    oracle = rt._run_hfl_scan(cfg, h2, loss_fn, params,
+                              rt.stack_batches(sample, HFL_CASE_ROUNDS,
+                                               HFL_N),
+                              eval_fn.eval_batch, chan, wstat, dev)
+    masked = finals["secagg x qsgd"]
+    if not (all(torch.equal(masked[0][k], oracle[0][k]) for k in oracle[0])
+            and np.array_equal(masked[1].loss, oracle[1].loss)):
+        raise AssertionError("hfl (c) secagg differs from its unmasked "
+                             "oracle on the card")
+    log("hfl (c) secagg x qsgd: final params and losses bit for bit those "
+        "of the unmasked oracle on the card")
+    sweeps, traces = {}, {}
+    for device in (dev, "cpu"):
+        params, loss_fn, sample, eval_fn = _lm_problem(device)
+        t0 = rt.ENGINE_STATS["traces"]
+        rt._ENGINE_CACHE.clear()
+        sweeps[device], secs = wall_s(lambda: rt.run_sweep(
+            _hfl_cfg(HFL_CASE_ROUNDS), loss_fn, params,
+            rt.stack_batches(sample, HFL_CASE_ROUNDS, HFL_N),
+            seeds=[0, 1], policies=["random", "best_channel", "pf"],
+            eval_batch=eval_fn.eval_batch,
+            hcfgs=[dataclasses.replace(h2, backhaul_rate_bps=r)
+                   for r in (1e5, 1e9)], device=device))
+        traces[device] = rt.ENGINE_STATS["traces"] - t0
+        log(f"hfl (c) sweep on {device}: 3 policies x 2 seeds x 2 backhaul "
+            f"rates x {HFL_CASE_ROUNDS} rounds in {secs:.3f} s, "
+            f"{traces[device]} traces")
+    for key, c in sweeps["cpu"].items():
+        rel = _card_equals_cpu(f"hfl (c) sweep {key}",
+                                   sweeps[dev][key], c)
+        log(f"hfl (c) sweep {key} {c.loss.shape[0]} variants: card == cpu; "
+            f"loss max rel diff {rel:.3g}; final clock "
+            f"{c.latency_s[:, -1].tolist()}")
+    if traces[dev] != 3 or traces["cpu"] != 3:
+        raise AssertionError(f"hfl (c) sweep traces {traces}, expected 3")
+
+    # (d) the HFL path reaches no kernel
+    launches = {n: fn.launches for n, fn in counters.items()}
+    log(f"hfl (d) kernel launches across phase 13: {launches}")
+    if any(launches.values()):
+        raise AssertionError(f"hfl: a kernel launched on the HFL path: "
+                             f"{launches}")
+    return launches
+
+
 def main() -> int:
     t0 = time.perf_counter()
     smi = card()
@@ -1058,7 +1332,8 @@ def main() -> int:
               ("faults", lambda: run_faults(dev, smi, out["engine"][1])),
               ("privacy", lambda: run_privacy(dev, smi)),
               ("sweep", lambda: run_sweep(dev, smi, out["engine"][1])),
-              ("host", lambda: run_host(dev, smi, out["engine"][1]))]
+              ("host", lambda: run_host(dev, smi, out["engine"][1])),
+              ("hfl", lambda: run_hfl(dev, smi))]
     out = {}
     log(f"phase card: {time.perf_counter() - t0:.2f} s")
     for name, fn in phases:
@@ -1074,6 +1349,7 @@ def main() -> int:
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[name],
                      "sweep_launches": out["sweep"][name],
+                     "hfl_launches": out["hfl"][name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "device_ms": r["device_ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

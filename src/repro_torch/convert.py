@@ -1,9 +1,10 @@
 """Carry JAX-side values into the port, as numpy arrays: parameter dicts,
-PRNG keys, a whole round state, and the channel, compression, algorithm,
-fault and privacy parameters. The port never imports JAX; callers hand over
+PRNG keys, a whole round state, the channel, compression, algorithm, fault
+and privacy parameters, and the hierarchical engine's configuration. The port never imports JAX; callers hand over
 JAX objects, which are read through ``np.asarray`` and their field names."""
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict
 
 import numpy as np
@@ -14,6 +15,7 @@ from repro_torch.core.algorithms.registry import AlgoParams
 from repro_torch.core.compression.registry import CompressionParams
 from repro_torch.core.compression.error_feedback import SparseEF
 from repro_torch.core.faults import FaultParams
+from repro_torch.core.hierarchy import HFLConfig
 from repro_torch.core.privacy.registry import PrivacyParams
 from repro_torch.core.wireless import ChannelParams
 from repro_torch.fl.server import FLState
@@ -97,3 +99,9 @@ def algo_params_from_jax(ap, device=None) -> AlgoParams:
 
 def channel_params_from_jax(cp, device=None) -> ChannelParams:
     return _named(ChannelParams, cp, device)
+
+
+def hfl_config_from_jax(h) -> HFLConfig:
+    """The reference's ``HFLConfig`` -> the port's, field by field."""
+    return HFLConfig(**{f.name: getattr(h, f.name)
+                        for f in dataclasses.fields(HFLConfig)})

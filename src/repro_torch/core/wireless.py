@@ -54,6 +54,16 @@ def stack_channel_params(cfgs, device=None) -> ChannelParams:
                            for f in ChannelParams._fields))
 
 
+def gather_channel_params(cp: ChannelParams,
+                          idx: torch.Tensor) -> ChannelParams:
+    """Per-group ChannelParams -> per-device ChannelParams: fields with a
+    leading group axis (one entry per HFL cluster) are gathered through
+    ``idx`` (the device -> group assignment); scalar fields, one cell
+    configuration shared by every group, pass through untouched."""
+    ids = idx.to(torch.int64)
+    return ChannelParams(*(f[ids] if f.dim() >= 1 else f for f in cp))
+
+
 def sample_positions_jax(key: torch.Tensor, cp: ChannelParams,
                          n_devices: int) -> torch.Tensor:
     """Distances to the BS, uniform in the disk of radius R (>= 1 m)."""

@@ -1,4 +1,9 @@
-"""On-device data generation of the port."""
+"""Data of the port: on-device synthetic batch generators for the fleet
+engine, and numpy copies of the reference's synthetic LM source and its
+federated partitions."""
 from repro_torch.data.ondevice import make_linear_datagen, make_token_datagen
+from repro_torch.data.partition import dirichlet_partition, shard_partition
+from repro_torch.data.synthetic import SyntheticLMDataset
 
-__all__ = ["make_linear_datagen", "make_token_datagen"]
+__all__ = ["make_linear_datagen", "make_token_datagen", "SyntheticLMDataset",
+           "dirichlet_partition", "shard_partition"]

@@ -19,7 +19,8 @@ One round is :meth:`_Engine.step`, shared by the three entry points:
   ``eval_fn(params)`` as the loss;
 * :func:`run_sweep` runs a seed x channel x compression x algorithm x fault
   x privacy x policy grid, one variant after another, each with its own
-  parameters, and returns ``(variants, rounds)`` logs. The reference's
+  parameters, and returns ``(variants, rounds)`` logs (with ``hcfg=`` the
+  hierarchical engine's). The reference's
   ``policy_mode="mixture"`` shares one compiled program across policies;
   eager PyTorch compiles nothing, so here both modes run each policy's
   variants through that policy alone, and differ only in what they count
@@ -44,8 +45,13 @@ retransmissions; ``SimConfig.privacy`` (``core/privacy``) adds secure
 aggregation and DP with a Renyi accountant. Both draw from streams folded
 under their own tags, so with them off every stream is the legacy one.
 
-Not in this slice: the hierarchical engine (with ``run_sweep(hcfg=,
-hcfgs=)``), gossip, and sharding a sweep over several cards.
+:func:`run_hfl` is the hierarchical engine (Alg. 9): devices in clusters
+around small-cell base stations, cluster models averaged every round and
+synced through the macro BS every H rounds. Its round is
+:meth:`_HFLEngine.step`, shared by its scan, its host loop and
+``run_sweep(hcfg=, hcfgs=)``.
+
+Not in this slice: gossip and fog, and sharding a sweep over several cards.
 """
 from __future__ import annotations
 
@@ -61,10 +67,11 @@ import torch
 
 from repro_torch import random as trandom
 from repro_torch.core import chunking, faults as faults_lib
-from repro_torch.core import scheduling, wireless
+from repro_torch.core import hierarchy, scheduling, wireless
 from repro_torch.core.algorithms import registry as algo_registry
 from repro_torch.core.algorithms.registry import AlgoParams
 from repro_torch.core.compression import registry as compression
+from repro_torch.core.compression.coding import FIELD_MASK
 from repro_torch.core.compression.registry import CompressionParams
 from repro_torch.core.faults import FaultParams
 from repro_torch.core.privacy import registry as privacy_lib
@@ -105,7 +112,7 @@ def datagen_round_key(seed: int, t: int, device=None) -> torch.Tensor:
 class SimConfig:
     n_devices: int = 40
     # one global budget on the flat engine; a per-cluster tuple is the
-    # hierarchical engine's (not ported), and the flat engine rejects it
+    # hierarchical engine's (run_hfl), and the flat engine rejects it
     n_scheduled: Any = 8
     rounds: int = 100
     local_steps: int = 1
@@ -358,6 +365,68 @@ def _resolve_pparams(cfg: SimConfig, dev: torch.device) -> PrivacyParams:
             else privacy_lib.default_privacy_params()).to(dev)
 
 
+class _Decode(NamedTuple):
+    """A fault round's uplink outcome per device."""
+    dropped: torch.Tensor     # scheduled and gone mid-round
+    ok: torch.Tensor          # decoded on the first try or a retry
+    comm_eff: torch.Tensor    # upload time with every retry's airtime
+    n_retx: torch.Tensor      # retries
+    survived: torch.Tensor    # scheduled, not dropped, decoded
+    sent: torch.Tensor        # scheduled, not dropped
+
+
+def _decode_with_retries(fparams: FaultParams, kt: torch.Tensor,
+                         mask: torch.Tensor, snr_lin: torch.Tensor,
+                         comm_lat: torch.Tensor, dist: torch.Tensor,
+                         chan: wireless.ChannelParams, bits_dev,
+                         rate_fn: Callable, max_retries: int) -> _Decode:
+    """Dropout, then decode failure with up to ``max_retries`` re-priced
+    retransmissions, each on a fresh channel draw."""
+    n = mask.shape[0]
+    dropped = faults_lib.dropout_draw(fparams, kt, n) & mask
+    ok = snr_lin >= fparams.snr_min
+    comm_eff = comm_lat
+    n_retx = torch.zeros_like(snr_lin)
+    for r in range(1, max_retries + 1):
+        snr_r = wireless.snr_jax(dist, faults_lib.retry_fading(kt, r, n),
+                                 chan)
+        lat_r = wireless.comm_latency_jax(bits_dev, rate_fn(snr_r))
+        need = ~ok
+        comm_eff = comm_eff + torch.where(need, lat_r, 0.0)
+        n_retx = n_retx + need.to(torch.float32)
+        ok = ok | (snr_r >= fparams.snr_min)
+    return _Decode(dropped, ok, comm_eff, n_retx, mask & ~dropped & ok,
+                   mask & ~dropped)
+
+
+def _slowest(mask: torch.Tensor, comm_lat: torch.Tensor,
+             comp_lat: torch.Tensor, dec: Optional[_Decode],
+             zero: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The synchronous round's ``(comm_s, comp_s)``: the slowest scheduled
+    device's; a dropped client stops consuming the round, a decode-failed
+    one still burns its airtime."""
+    if dec is not None:
+        comm_c = torch.where(dec.dropped, 0.0, dec.comm_eff)
+        comp_c = torch.where(dec.dropped, 0.0, comp_lat)
+    else:
+        comm_c, comp_c = comm_lat, comp_lat
+    slowest = torch.argmax(torch.where(mask, comm_c + comp_c, -torch.inf))
+    any_sched = mask.any()
+    return (torch.where(any_sched, comm_c[slowest], zero),
+            torch.where(any_sched, comp_c[slowest], zero))
+
+
+def _fault_log(mask: torch.Tensor, n_sched: torch.Tensor,
+               dec: Optional[_Decode], stal_pre: Optional[torch.Tensor],
+               zero: torch.Tensor) -> Tuple:
+    """``(n_survived, n_dropped, retransmissions, staleness_mean)``."""
+    if dec is None:
+        return (n_sched, torch.zeros_like(n_sched), zero, zero)
+    return (dec.survived.sum().to(torch.int32),
+            (mask & ~dec.survived).sum().to(torch.int32),
+            torch.where(dec.sent, dec.n_retx, 0.0).sum(), stal_pre.mean())
+
+
 class _Variant(NamedTuple):
     """One run's traced inputs (the reference's per-variant arguments) and
     what the engine derives from them once per run."""
@@ -544,28 +613,12 @@ class _Engine:
         ages = scheduling.update_ages_jax(ages, mask)
         n_sched = mask.sum().to(torch.int32)
 
-        if faults_on:
-            # dropout, then decode failure with up to max_retries re-priced
-            # retransmissions, each on a fresh channel draw
-            dropped = faults_lib.dropout_draw(fparams, kt, n) & mask
-            ok = snr_lin >= fparams.snr_min
-            comm_eff = comm_lat
-            n_retx = torch.zeros_like(snr_lin)
-            for r in range(1, cfg.max_retries + 1):
-                snr_r = wireless.snr_jax(
-                    v.dist, faults_lib.retry_fading(kt, r, n), chan)
-                lat_r = wireless.comm_latency_jax(
-                    v.bits_dev, wireless.shannon_rate_jax(
-                        snr_r, chan.bandwidth_hz / cfg.n_scheduled))
-                need = ~ok
-                comm_eff = comm_eff + torch.where(need, lat_r, 0.0)
-                n_retx = n_retx + need.to(torch.float32)
-                ok = ok | (snr_r >= fparams.snr_min)
-            survived = mask & ~dropped & ok
-            sent = mask & ~dropped
-            part = survived.to(torch.float32)
-        else:
-            part = mask.to(torch.float32)
+        dec = (_decode_with_retries(
+            fparams, kt, mask, snr_lin, comm_lat, v.dist, chan, v.bits_dev,
+            lambda snr: wireless.shannon_rate_jax(
+                snr, chan.bandwidth_hz / cfg.n_scheduled), cfg.max_retries)
+            if faults_on else None)
+        part = (dec.survived if faults_on else mask).to(torch.float32)
         sw = (faults_lib.staleness_weights(v.aparams, stal_pre)
               if self.algo.uses_staleness else None)
         kw = dict(aparams=v.aparams, participation=part,
@@ -588,11 +641,12 @@ class _Engine:
                 # undecoded attempts' airtime: the retries, plus the final
                 # failed payload of clients never decoded
                 ubits = _fma(v.bits_dev, torch.where(
-                    sent, n_retx + (~ok).to(torch.float32), 0.0).sum(),
-                    ubits)
+                    dec.sent, dec.n_retx + (~dec.ok).to(torch.float32),
+                    0.0).sum(), ubits)
         else:
             state, metrics = self.round_fn(state, batches, **kw)
-            ubits = (v.bits_dev * torch.where(sent, 1.0 + n_retx, 0.0).sum()
+            ubits = (v.bits_dev * torch.where(dec.sent, 1.0 + dec.n_retx,
+                                              0.0).sum()
                      if faults_on else v.bits_dev * n_sched)
 
         # downlink: the broadcast opens the round at BS power over the full
@@ -602,32 +656,15 @@ class _Engine:
                 v.dist, faults_lib.downlink_fading(kt, n), chan),
             chan.bandwidth_hz)
         dl_lat = wireless.comm_latency_jax(v.dl_bits, dl_rate)
-        any_sched = mask.any()
         dl_s = torch.where(mask, dl_lat, zero).amax()
-        dl_bits_out = torch.where(any_sched, v.dl_bits, zero)
+        dl_bits_out = torch.where(mask.any(), v.dl_bits, zero)
 
-        # wall clock: synchronous round = slowest scheduled device; a
-        # dropped client stops consuming the round, a decode-failed one
-        # still burns its airtime
-        if faults_on:
-            comm_c = torch.where(dropped, 0.0, comm_eff)
-            comp_c = torch.where(dropped, 0.0, comp_lat)
-        else:
-            comm_c, comp_c = comm_lat, comp_lat
-        total = comm_c + comp_c
-        slowest = torch.argmax(torch.where(mask, total, -torch.inf))
-        comm_s = torch.where(any_sched, comm_c[slowest], zero)
-        comp_s = torch.where(any_sched, comp_c[slowest], zero)
+        comm_s, comp_s = _slowest(mask, comm_lat, comp_lat, dec, zero)
         clock = clock + dl_s + comm_s + comp_s
 
+        fault_log = _fault_log(mask, n_sched, dec, stal_pre, zero)
         if faults_on:
-            fault_log = (survived.sum().to(torch.int32),
-                         (mask & ~survived).sum().to(torch.int32),
-                         torch.where(sent, n_retx, 0.0).sum(),
-                         stal_pre.mean())
-            stal = torch.where(survived, 0.0, stal + 1.0)
-        else:
-            fault_log = (n_sched, torch.zeros_like(n_sched), zero, zero)
+            stal = torch.where(dec.survived, 0.0, stal + 1.0)
         if self.dp_on:
             # one subsampled-Gaussian round at sampling fraction
             # survivors / N; local field noise aggregates to an effective
@@ -919,8 +956,14 @@ def run_sweep(cfg: SimConfig, loss_fn, init_params: Params, batches: Params,
     the policy's static sub-band comes from ``wcfgs[0]``, each variant's
     rate from its own channel.
 
-    ``hcfg`` / ``hcfgs`` (the hierarchical engine) are not ported, and the
-    port runs on one card: ``devices`` / ``mesh`` asking for more raise.
+    ``hcfg`` switches the sweep onto the hierarchical engine: every variant
+    runs :func:`run_hfl`'s engine (per-cluster scheduling, compressed
+    intra-cluster and backhaul pricing; each seed deploys its own geometry),
+    one trace counted per (policy, compression, algorithm, privacy) name
+    combination; HFL never uses mixture mode. ``hcfgs`` makes the backhaul
+    rate a trailing product axis: every entry shares the static fields
+    (``HFLConfig.static_key()``), and each variant runs at its own rate.
+    The port runs on one card: ``devices`` / ``mesh`` asking for more raise.
     """
     dev = resolve_device(device)
     params = _on(init_params, dev)
@@ -937,10 +980,20 @@ def run_sweep(cfg: SimConfig, loss_fn, init_params: Params, batches: Params,
         raise ValueError(f"unknown policy_mode {policy_mode!r}; "
                          "use 'mixture' or 'loop'")
     _validate_sweep_wcfgs(wcfgs, policies)
-    if hcfg is not None or hcfgs is not None:
-        raise NotImplementedError(
-            "run_sweep(hcfg=, hcfgs=) needs the hierarchical engine, which "
-            "is not ported yet (ROADMAP queue A item 3)")
+    if hcfg is not None and hcfgs is not None:
+        raise ValueError("pass hcfg= or hcfgs=, not both")
+    hlist = (list(hcfgs) if hcfgs is not None
+             else ([hcfg] if hcfg is not None else None))
+    if hlist is not None:
+        if not hlist:
+            raise ValueError("hcfgs= needs at least one HFLConfig")
+        ref = hlist[0].static_key()
+        for i, h in enumerate(hlist):
+            if h.static_key() != ref:
+                raise ValueError(
+                    f"sweep hcfgs must share static fields (everything but "
+                    f"the per-variant backhaul_rate_bps): hcfgs[{i}] differs "
+                    "from hcfgs[0]")
     _check_sweep_devices(devices, mesh)
     fparams_list = (list(fparams_grid) if fparams_grid is not None
                     else ([cfg.faults] if cfg.faults is not None else None))
@@ -963,7 +1016,8 @@ def run_sweep(cfg: SimConfig, loss_fn, init_params: Params, batches: Params,
     grid = list(itertools.product(
         seeds, wcfgs, cparams_list, aparams_list,
         fparams_list if faults_on else [None],
-        pparams_list if pparams_list is not None else [None]))
+        pparams_list if pparams_list is not None else [None],
+        hlist if hlist is not None else [None]))
     if not grid:
         raise ValueError("run_sweep needs at least one "
                          "(seed, wcfg, cparams, aparams) variant")
@@ -991,14 +1045,19 @@ def run_sweep(cfg: SimConfig, loss_fn, init_params: Params, batches: Params,
 
     def run_grid(pol, comp, alg, priv) -> SimLogs:
         """Every variant of the base grid under one name combination."""
-        engine = _Engine(cfg_variant(pol, comp, alg, priv), wcfgs[0],
-                         loss_fn, has_eval)
+        cfg_v = cfg_variant(pol, comp, alg, priv)
+        engine = (_HFLEngine(cfg_v, hlist[0], wcfgs[0], loss_fn, has_eval)
+                  if hlist is not None
+                  else _Engine(cfg_v, wcfgs[0], loss_fn, has_eval))
         cols = []
-        for seed, w, cp, ap, fp, pp in grid:
-            v = engine.variant(
-                trandom.PRNGKey(seed, dev), wireless.channel_params(w, dev),
-                cp.to(dev), ap.to(dev), fp.to(dev) if faults_on else None,
-                pp.to(dev) if priv != "none" else None, d_model)
+        for seed, w, cp, ap, fp, pp, h in grid:
+            args = (trandom.PRNGKey(seed, dev),
+                    wireless.channel_params(w, dev), cp.to(dev), ap.to(dev))
+            if h is not None:
+                args += (h.backhaul_rate_bps,)
+            v = engine.variant(*args, fp.to(dev) if faults_on else None,
+                               pp.to(dev) if priv != "none" else None,
+                               d_model)
             cols.append(_log_columns(
                 engine.run(v, params, batches, eval_batch)[1],
                 cfg.n_devices))
@@ -1008,7 +1067,7 @@ def run_sweep(cfg: SimConfig, loss_fn, init_params: Params, batches: Params,
     shapes = _shapes(params, batches, eval_batch)
     combos = list(itertools.product(comp_iter, algo_iter, priv_iter))
     results: Dict[Any, SimLogs] = {}
-    if policy_mode == "mixture" and len(policies) > 1:
+    if hlist is None and policy_mode == "mixture" and len(policies) > 1:
         # the reference compiles one program a name combination for the
         # whole policy set, the grid tiled policy-major
         for comp, alg, priv in combos:
@@ -1023,9 +1082,703 @@ def run_sweep(cfg: SimConfig, loss_fn, init_params: Params, batches: Params,
 
     for pol in policies:
         for comp, alg, priv in combos:
-            _count_trace(_engine_key(cfg_variant(pol, comp, alg, priv),
-                                     wcfgs[0], loss_fn, has_eval, "sweep"),
+            cfg_v = cfg_variant(pol, comp, alg, priv)
+            _count_trace(_engine_key(cfg_v, wcfgs[0], loss_fn, has_eval,
+                                     "sweep") if hlist is None else
+                         _hfl_engine_key(cfg_v, hlist[0], wcfgs[0], loss_fn,
+                                         has_eval, "hfl-sweep"),
                          (len(grid),) + shapes)
             results[result_key(pol, comp, alg, priv)] = run_grid(
                 pol, comp, alg, priv)
     return results
+
+
+# ---------------------------------------------------------------------------
+# Hierarchical FL simulation (Alg. 9): the wireless-aware cluster -> cloud
+# engine
+#
+# The same channel, compression and policy machinery as flat FL: every device
+# talks to its nearest SBS over the fading channel (per-cluster
+# ChannelParams gathered per device), each cluster runs the registry policy
+# over its own members, compressed intra-cluster payloads (with EF and
+# SCAFFOLD's control variates in the round state) price the device->SBS
+# uplink, and the periodic SBS->MBS sync ships a separately compressed and
+# priced backhaul payload over a fixed-rate fronthaul. Rows compress through
+# the registry's plain row operators, as the reference's vmapped compressor
+# does: no kernel is on this path.
+# ---------------------------------------------------------------------------
+_HFL_ALGOS = ("fedavg", "fedavg_m", "fedprox", "scaffold")
+
+
+def _check_hfl_config(cfg: SimConfig) -> None:
+    algo = algo_registry.get_algorithm(cfg.algorithm)
+    if algo.name not in _HFL_ALGOS:
+        raise ValueError(
+            f"run_hfl supports client-side algorithms "
+            f"({'/'.join(_HFL_ALGOS)}), not {algo.name!r}: Alg. 9 aggregates "
+            "raw cluster models, so server-side optimizer state (slowmo/"
+            "fedadam/fedyogi) has no SBS or MBS slot to live in. SCAFFOLD "
+            "is supported with cluster-level server control variates.")
+    if cfg.double_ef:
+        raise ValueError(
+            "run_hfl does not support double_ef: HFL has no single PS "
+            "downlink to carry server-side EF state — each SBS broadcasts "
+            "its raw cluster model. Drop double_ef (uplink EF still "
+            "applies) or use the flat engine.")
+    if (cfg.chunk_size is not None or cfg.datagen is not None
+            or cfg.ef_mode != "dense" or cfg.state_dtype != "float32"):
+        raise ValueError(
+            "run_hfl does not support the fleet-scale knobs (chunk_size/"
+            "datagen/ef_mode='sparse'/state_dtype='bfloat16'); they live on "
+            "the flat engine, whose N is the fleet-scale axis")
+
+
+def _fold_sum(x: torch.Tensor) -> torch.Tensor:
+    """float32 sum of a short vector in the reference's order: its compiled
+    reduction of up to 32 elements adds them one by one from 0 (longer
+    vectors take ``torch.sum``)."""
+    if x.shape[0] > 32:
+        return x.sum()
+    s = torch.zeros((), dtype=torch.float32, device=x.device)
+    for v in x.to(torch.float32):
+        s = s + v
+    return s
+
+
+class _HFLVariant(NamedTuple):
+    """One run's inputs and what the engine derives from them once."""
+    cparams: CompressionParams
+    aparams: AlgoParams
+    bh_rate: torch.Tensor           # SBS->MBS fronthaul rate, bits/s
+    fparams: Optional[FaultParams]
+    pparams: Optional[PrivacyParams]
+    chan_dev: wireless.ChannelParams  # each device's cell (gathered)
+    cluster_ids: torch.Tensor       # (N,) int64
+    dist: torch.Tensor              # (N,) distance to the own SBS
+    member: torch.Tensor            # (L, N) bool
+    cluster_sizes: torch.Tensor     # (L,) float32
+    w_cluster: torch.Tensor         # (L,) population weights
+    k_rounds: torch.Tensor
+    bits_dev: torch.Tensor          # priced uplink bits, () or (N,)
+    mask_over: torch.Tensor         # key-agreement bits, () or (N,)
+    payload_scale: float
+
+
+@dataclasses.dataclass
+class _HFLCarry:
+    """The round state: the reference's HFL scan carry."""
+    cm: Params                      # (L, ...) cluster models
+    gm: Params                      # the global model at the MBS
+    ef: Optional[torch.Tensor]      # (N, D) uplink EF
+    ctrl: Optional[torch.Tensor]    # (N, D) SCAFFOLD client variates
+    cc: Optional[torch.Tensor]      # (L, D) SCAFFOLD cluster variates
+    clock: torch.Tensor
+    ages: torch.Tensor
+    norms: torch.Tensor
+    avg_snr: torch.Tensor
+    avail: Optional[torch.Tensor] = None
+    fad: Optional[torch.Tensor] = None
+    stal: Optional[torch.Tensor] = None
+    rdp: Optional[torch.Tensor] = None
+
+
+class _HFLEngine:
+    """The static half of an HFL run, the counterpart of the reference's
+    ``_make_hfl_fns``. ``cfg.n_scheduled`` is the per-cluster budget: one
+    int shared by every cluster, or a tuple with one budget per cluster.
+
+    One round (Alg. 9 + §III wireless): every device draws fading against
+    its own SBS and prices its compressed payload; each cluster schedules
+    its members; scheduled clients' EF-compressed deltas average into their
+    cluster model; every ``inter_cluster_period`` rounds each SBS uplinks
+    its compressed cluster-model delta over the fronthaul and the MBS
+    averages (population-weighted) and broadcasts. The round's time is the
+    slowest scheduled device's plus the backhaul's on sync rounds."""
+
+    def __init__(self, cfg: SimConfig, hcfg, wcfg: wireless.WirelessConfig,
+                 loss_fn, has_eval: bool):
+        n = self.n = cfg.n_devices
+        self.n_clusters = hcfg.n_clusters
+        self.period = hcfg.inter_cluster_period
+        self.per_cluster_k = isinstance(cfg.n_scheduled, tuple)
+        if self.per_cluster_k and len(cfg.n_scheduled) != self.n_clusters:
+            raise ValueError(
+                f"per-cluster n_scheduled needs one budget per cluster "
+                f"({self.n_clusters}), got {len(cfg.n_scheduled)}")
+        self.ks = (tuple(cfg.n_scheduled) if self.per_cluster_k
+                   else (cfg.n_scheduled,) * self.n_clusters)
+        self.pcfg = dataclasses.replace(_policy_cfg(cfg, wcfg),
+                                        n_scheduled=self.ks[0])
+        self.policy_fn = scheduling.get_policy(cfg.policy)
+        _check_hfl_config(cfg)
+        self.cfg, self.hcfg, self.loss_fn, self.has_eval = (
+            cfg, hcfg, loss_fn, has_eval)
+        self.algo = algo_registry.get_algorithm(cfg.algorithm)
+        self.comp_active = cfg.compression != "none"
+        # the registry's plain row operator (no kernel dispatch)
+        self.compress = (compression.rows_compressor(cfg.compression)
+                         if self.comp_active else None)
+        self.faults_on = cfg.faults is not None
+        # masks cancel within each cluster: the SBS is the aggregator, so
+        # pairwise keys (and their wire overhead) are scoped to cluster
+        # peers, and the per-cluster modular sum unmasks exactly
+        self.priv_on = cfg.privacy != "none"
+        self.priv = (privacy_lib.get_privacy(cfg.privacy) if self.priv_on
+                     else None)
+        self.dp_on = self.priv_on and self.priv.uses_dp
+        self.masks_on = self.priv_on and self.priv.uses_masks
+        self.field_on = self.priv_on and self.priv.uses_field
+
+    def variant(self, key: torch.Tensor, chan: wireless.ChannelParams,
+                cparams: CompressionParams, aparams: AlgoParams,
+                bh_rate: float, fparams: Optional[FaultParams],
+                pparams: Optional[PrivacyParams], d_model: int
+                ) -> _HFLVariant:
+        """A run's inputs with its deployment (from the seed's ``k_geo``),
+        round-key root and prices."""
+        cfg, dev = self.cfg, key.device
+        k_geo, k_rounds = trandom.split(key)
+        cluster_ids, dist, member, sizes = hierarchy.hfl_geometry_jax(
+            k_geo, self.hcfg, self.n)
+        ids = cluster_ids.to(torch.int64)
+        payload_scale = cfg.model_bits / (32.0 * d_model)
+        msg_bits = message_bits_jax(cfg.compression, cparams, cfg.model_bits,
+                                    d_model)
+        if self.field_on:
+            # a masked message is incompressible: dense field_bits per
+            # coordinate replaces the compressor's rate on the wire
+            msg_bits = payload_scale * privacy_lib.uplink_bits_jax(
+                cfg.privacy, pparams, d_model, 0.0)
+        bits_dev = msg_bits * self.algo.uplink_factor
+        mask_over = torch.zeros((), device=dev)
+        if self.masks_on:
+            # key agreement with cluster peers only: a device's overhead
+            # follows its cell's population, so bits_dev becomes (N,)
+            mask_over = privacy_lib.mask_bits_jax(
+                cfg.privacy, torch.clamp_min(sizes[ids] - 1.0, 0.0), dev)
+            bits_dev = bits_dev + mask_over
+        return _HFLVariant(
+            cparams, aparams,
+            torch.as_tensor(bh_rate, dtype=torch.float32, device=dev),
+            fparams, pparams, wireless.gather_channel_params(chan, ids), ids,
+            dist, member, sizes, sizes / torch.clamp_min(sizes.sum(), 1.0),
+            k_rounds, bits_dev, mask_over, payload_scale)
+
+    def init(self, params: Params) -> _HFLCarry:
+        """The round state before round 0: every cluster model and the
+        global model at ``params``."""
+        n, L = self.n, self.n_clusters
+        dev = next(iter(params.values())).device
+        d = fl_server.flat_dim(params)
+        zeros = torch.zeros(n, dtype=torch.float32, device=dev)
+        mat = (lambda rows: torch.zeros((rows, d), dtype=torch.float32,
+                                        device=dev))
+        carry = _HFLCarry(
+            {k: v[None].expand((L,) + tuple(v.shape)).clone()
+             for k, v in params.items()},
+            {k: v.clone() for k, v in params.items()},
+            mat(n) if self.comp_active else None,
+            mat(n) if self.algo.uses_ctrl else None,
+            mat(L) if self.algo.uses_ctrl else None,
+            torch.zeros((), dtype=torch.float32, device=dev),
+            zeros, torch.ones_like(zeros), zeros)
+        if self.faults_on:
+            carry.avail = torch.ones(n, dtype=torch.bool, device=dev)
+            carry.fad = torch.zeros((n, 2), dtype=torch.float32, device=dev)
+            carry.stal = zeros
+        if self.dp_on:
+            carry.rdp = torch.zeros(len(privacy_lib.ALPHAS),
+                                    dtype=torch.float32, device=dev)
+        return carry
+
+    def _rate(self, v: _HFLVariant, snr: torch.Tensor) -> torch.Tensor:
+        """Each device shares its own cell's uplink budget. The reference's
+        compiled program divides by a constant budget as a multiply by its
+        float32 reciprocal."""
+        bw = v.chan_dev.bandwidth_hz
+        if self.per_cluster_k:
+            ks = torch.tensor(self.ks, dtype=torch.float32,
+                              device=snr.device)[v.cluster_ids]
+            return wireless.shannon_rate_jax(snr, bw / ks)
+        return wireless.shannon_rate_jax(snr, bw * (1.0 / self.cfg.n_scheduled))
+
+    def _schedule(self, t: int, rstate: scheduling.RoundState,
+                  member_eff: torch.Tensor, keys_l: torch.Tensor,
+                  v: _HFLVariant) -> torch.Tensor:
+        """(L, N) per-cluster masks, each cluster with its own static budget.
+        ``random`` and ``round_robin`` are cluster-aware twins of the
+        policies (a random member k-subset; a rotation over each cluster's
+        static member ranks); the score policies see an intra-cluster view
+        of the round state, so their top-k picks at most the members."""
+        pol, n = self.cfg.policy, self.n
+        if pol == "random":
+            score = torch.where(member_eff, trandom.uniform(keys_l, (n,)),
+                                -torch.inf)
+        elif pol == "round_robin":
+            rank = torch.cumsum(v.member.to(torch.float32), dim=1) - 1.0
+            t_f = torch.tensor(float(t), device=rank.device)
+        masks = []
+        for l, k_l in enumerate(self.ks):
+            m = member_eff[l]
+            if pol == "random":
+                masks.append(scheduling.topk_mask_jax(score[l], k_l) & m)
+            elif pol == "round_robin":
+                # floor(|C_l| / k) groups, the division as the reference's
+                # multiply by the constant's reciprocal
+                g_l = torch.clamp_min(torch.floor(
+                    v.cluster_sizes[l] * (1.0 / k_l)), 1.0)
+                g = torch.remainder(t_f, g_l)
+                masks.append(m & (rank[l] >= g * k_l)
+                             & (rank[l] < (g + 1) * k_l))
+            else:
+                stl = scheduling.masked_round_state(rstate, m, keys_l[l])
+                pcfg = dataclasses.replace(self.pcfg, n_scheduled=k_l)
+                masks.append(self.policy_fn(pcfg, stl) & m)
+        return torch.stack(masks)
+
+    def step(self, t: int, carry: _HFLCarry, v: _HFLVariant,
+             batches: Params, eval_batch: Optional[Params]
+             ) -> Tuple[_HFLCarry, Tuple]:
+        """Round ``t``: the new round state and the round's log values in
+        ``_LOG_FIELDS`` order. ``batches`` are the round's (N, H, ...)
+        tensors."""
+        cfg, n, L, priv = self.cfg, self.n, self.n_clusters, self.priv
+        algo, fparams, pparams = self.algo, v.fparams, v.pparams
+        faults_on, chan = self.faults_on, v.chan_dev
+        cm, gm, ef, ctrl, cc = carry.cm, carry.gm, carry.ef, carry.ctrl, \
+            carry.cc
+        avail, fad, stal, rdp = carry.avail, carry.fad, carry.stal, carry.rdp
+        dev = v.dist.device
+        zero = torch.zeros((), device=dev)
+
+        kt = trandom.fold_in(v.k_rounds, t)
+        kf, kc, kp, kn, kz = trandom.split(kt, 5)
+        if self.priv_on:
+            k_priv = trandom.fold_in(kt, privacy_lib.PRIVACY_FOLD)
+
+        # --- channel draw + intra-cluster uplink pricing ------------------
+        if faults_on:
+            fad, fading = faults_lib.gauss_markov_fading(fparams, kt, fad, t)
+        else:
+            fading = wireless.sample_fading_jax(kf, n)
+        snr_lin = wireless.snr_jax(v.dist, fading, chan)
+        rates = self._rate(v, snr_lin)
+        comp_lat = cfg.comp_latency_s * trandom.exponential(kc, (n,))
+        if faults_on:
+            comp_lat = comp_lat * faults_lib.straggler_multiplier(fparams,
+                                                                  kt, n)
+        d_model = fl_server.flat_dim(gm)
+        bits_dev, mask_over = v.bits_dev, v.mask_over
+
+        def bill(w_):
+            # per-device bits_dev (mask overhead on) sums its products;
+            # otherwise a scalar price times the count
+            return (_fold_sum(bits_dev * w_) if self.masks_on
+                    else bits_dev * w_.sum())
+
+        comm_lat = wireless.comm_latency_jax(bits_dev, rates)
+        avg_snr = (snr_lin if t == 0
+                   else 0.9 * carry.avg_snr + 0.1 * snr_lin)
+
+        # --- per-cluster scheduling (registry policy) ---------------------
+        if faults_on:
+            # churned-off devices disappear from their cluster's view
+            avail = faults_lib.churn_step(fparams, kt, avail)
+            member_eff = v.member & avail[None, :]
+        else:
+            member_eff = v.member
+        rstate = scheduling.RoundState(
+            t=t, key=kp, snr_lin=snr_lin, avg_snr=avg_snr, rates=rates,
+            comm_lat=comm_lat, comp_lat=comp_lat, ages=carry.ages,
+            update_norms=carry.norms)
+        masks_l = self._schedule(t, rstate, member_eff,
+                                 trandom.split(kp, L), v)
+        mask = masks_l.any(dim=0)
+        stal_pre = stal
+        ages = scheduling.update_ages_jax(carry.ages, mask)
+        mask_f = mask.to(torch.float32)
+
+        # --- mid-round dropout + decode failure + retransmissions ---------
+        dec = (_decode_with_retries(
+            fparams, kt, mask, snr_lin, comm_lat, v.dist, chan, bits_dev,
+            lambda snr: self._rate(v, snr), cfg.max_retries)
+            if faults_on else None)
+        part_f = dec.survived.to(torch.float32) if faults_on else mask_f
+
+        # --- local updates from each device's cluster model ---------------
+        client_params = hierarchy.broadcast_to_clients(cm, v.cluster_ids)
+        if algo.uses_ctrl:
+            ci_tree = algo_registry.unflatten_rows(ctrl, gm)
+            cdev_tree = algo_registry.unflatten_rows(cc[v.cluster_ids], gm)
+            deltas, ctrl_deltas, losses = torch.func.vmap(
+                lambda p, b, ci, cd: algo.client_update(
+                    self.loss_fn, v.aparams, p, b, (ci, cd)))(
+                client_params, batches, ci_tree, cdev_tree)
+            ctrl_flat, _ = fl_server.flatten_clients(ctrl_deltas)
+        else:
+            def one(p, b):  # (delta, loss): vmap outputs no None
+                delta, _, loss = algo.client_update(self.loss_fn, v.aparams,
+                                                    p, b, None)
+                return delta, loss
+
+            deltas, losses = torch.func.vmap(one)(client_params, batches)
+            ctrl_flat = None
+
+        # --- client-side compression + EF in message space ----------------
+        flat, _ = fl_server.flatten_clients(deltas)               # (N, D)
+        ctrl_wire = ctrl_flat
+        if self.comp_active:
+            k_up, k_ctrl, k_bh = trandom.split(kz, 3)
+            flat = flat + ef
+            wire, bits = self.compress(v.cparams, trandom.split(k_up, n),
+                                       flat)
+            # every device compresses; under faults a lost client's
+            # residual carries forward untouched
+            ef = (torch.where(dec.survived[:, None], flat - wire, ef)
+                  if faults_on else flat - wire)
+            flat = wire
+            if ctrl_flat is not None:
+                ctrl_wire, cbits = self.compress(
+                    v.cparams, trandom.split(k_ctrl, n), ctrl_flat)
+                bits = bits + cbits
+            if self.field_on:
+                # the wire carries field elements, not compressor output
+                bits = (pparams.field_bits * float(d_model)).expand(
+                    bits.shape)
+            ubits_intra = v.payload_scale * _fold_sum(bits * part_f)
+            if self.masks_on:
+                # key agreement for every scheduled member (it precedes the
+                # transmission that may then fail)
+                ubits_intra = ubits_intra + _fold_sum(mask_over * mask_f)
+            if faults_on:
+                # undecoded attempts' airtime; the reference's compiled step
+                # contracts the scalar price's bill into a fused multiply-add
+                retry = torch.where(
+                    dec.sent, dec.n_retx + (~dec.ok).to(torch.float32), 0.0)
+                ubits_intra = (ubits_intra + bill(retry) if self.masks_on
+                               else _fma(bits_dev, retry.sum(), ubits_intra))
+        else:
+            k_bh = kz
+            ubits_intra = (bill(torch.where(dec.sent, 1.0 + dec.n_retx, 0.0))
+                           if faults_on else bill(mask_f))
+
+        # --- SBS aggregation: masked per-cluster delta mean ---------------
+        # (under faults only the survivors; a cluster whose every scheduled
+        # member failed keeps its model bitwise)
+        wgt = v.member.to(torch.float32) * part_f[None, :]         # (L, N)
+        cnt = wgt.sum(dim=1)                                       # (L,)
+        denom = torch.clamp_min(cnt, 1.0)[:, None]
+        if self.field_on:
+            # finite-field secure aggregation per cluster: encode every row,
+            # add pairwise masks scoped to cluster peers, sum each cluster
+            # mod 2^32, decode the centered representative
+            surv = part_f > 0.0
+            ids_all = torch.arange(n, device=dev)
+            q = priv.client_transform(pparams, k_priv, ids_all, flat)
+            if self.masks_on:
+                g = privacy_lib.mask_rows(k_priv, ids_all, d_model)
+                gsum_l = self._segment_sum(
+                    torch.where(surv[:, None], g, 0), v.cluster_ids)
+                cnt_l = self._segment_sum(surv.to(torch.int64),
+                                          v.cluster_ids)
+                q = (q + cnt_l[v.cluster_ids][:, None] * g
+                     - gsum_l[v.cluster_ids]) & FIELD_MASK
+            qsum_l = self._segment_sum(torch.where(surv[:, None], q, 0),
+                                       v.cluster_ids)
+            mean_delta = priv.server_transform(pparams, k_priv,
+                                               qsum_l) / denom
+        elif self.priv_on:
+            # central DP at each SBS: clip every row, then independent
+            # Gaussian noise per cluster aggregate
+            flat_c = priv.client_transform(
+                pparams, k_priv, torch.arange(n, device=dev), flat)
+            keys_l = chunking.client_keys(
+                trandom.fold_in(k_priv, privacy_lib.NOISE_FOLD),
+                torch.arange(L, device=dev))
+            noise = pparams.sigma * pparams.clip * trandom.normal(
+                keys_l, (d_model,))
+            mean_delta = (wgt @ flat_c + torch.where(
+                cnt[:, None] > 0.0, noise, 0.0)) / denom
+        else:
+            mean_delta = (wgt @ flat) / denom
+        delta_tree = algo_registry.unflatten_rows(mean_delta, gm)
+        cm_new = {k: (m_.to(torch.float32) + v.aparams.server_lr
+                      * delta_tree[k]).to(m_.dtype) for k, m_ in cm.items()}
+        if faults_on:
+            alive_l = cnt > 0.0
+            cm = {k: torch.where(alive_l.reshape((L,) + (1,) * (x.dim() - 1)),
+                                 x, cm[k]) for k, x in cm_new.items()}
+        else:
+            cm = cm_new
+
+        # --- SCAFFOLD: cluster-level server control variates --------------
+        # scheduled clients advance c_i by the transmitted ctrl delta, and
+        # the SBS integrates the same quantity scaled by 1/|C_l|
+        if algo.uses_ctrl:
+            ctrl = ctrl + ctrl_wire * part_f[:, None]
+            cc_upd = cc + ((wgt @ ctrl_wire) / torch.clamp_min(
+                v.cluster_sizes, 1.0)[:, None])
+            cc = (torch.where(alive_l[:, None], cc_upd, cc) if faults_on
+                  else cc_upd)
+
+        # --- periodic inter-cluster sync over the SBS->MBS backhaul -------
+        sync = (t + 1) % self.period == 0
+        if sync:
+            cm_flat, _ = fl_server.flatten_clients(cm)             # (L, D)
+            gm_flat = algo_registry.flatten_vec(gm)
+            bh_deltas = cm_flat - gm_flat[None, :]
+            if self.comp_active:
+                bh_wire, bh_bits = self.compress(
+                    v.cparams, trandom.split(k_bh, L), bh_deltas)
+                bh_bits_sbs = v.payload_scale * bh_bits            # (L,)
+            else:
+                bh_wire = bh_deltas
+                bh_bits_sbs = torch.full((L,), float(cfg.model_bits),
+                                         dtype=torch.float32, device=dev)
+            gm_vec = algo_registry.unflatten_vec(
+                gm_flat + v.w_cluster @ bh_wire, gm)
+            gm = {k: gm_vec[k].to(g.dtype) for k, g in gm.items()}
+            cm = {k: gm[k][None].expand(c.shape).to(c.dtype).clone()
+                  for k, c in cm.items()}
+            # parallel per-SBS fronthaul links, one transfer each; the price
+            # is data-independent, so every SBS's is the same and the
+            # reference's compiled sum of it is one product
+            bh_time = bh_bits_sbs.amax() / v.bh_rate
+            ubits_bh = bh_bits_sbs[0] * float(L)
+        else:
+            bh_time, ubits_bh = zero, zero
+        ubits = ubits_intra + ubits_bh
+
+        # --- downlink: each SBS broadcasts its cluster model to the members
+        # opening the round; on sync rounds the MBS also pushes the fresh
+        # global model over every SBS's fronthaul link
+        mb = torch.tensor(float(cfg.model_bits), dtype=torch.float32,
+                          device=dev)
+        dl_rate = wireless.shannon_rate_jax(
+            wireless.downlink_snr_jax(
+                v.dist, faults_lib.downlink_fading(kt, n), chan),
+            chan.bandwidth_hz)
+        dl_lat = wireless.comm_latency_jax(mb, dl_rate)
+        any_sched = mask.any()
+        dl_s = torch.where(mask, dl_lat, zero).amax()
+        sync_f = float(sync)
+        bh_time = bh_time + sync_f * (mb / v.bh_rate)
+        dl_bits_out = (torch.where(any_sched, mb * L, zero)
+                       + sync_f * mb * L)
+
+        # --- wall clock: slowest scheduled device + backhaul --------------
+        comm_s, comp_s = _slowest(mask, comm_lat, comp_lat, dec, zero)
+        clock = carry.clock + dl_s + comm_s + comp_s + bh_time
+
+        n_sched = mask.sum().to(torch.int32)
+        fault_log = _fault_log(mask, n_sched, dec, stal_pre, zero)
+        if faults_on:
+            stal = torch.where(dec.survived, 0.0, stal + 1.0)
+
+        # --- (epsilon, delta): clusters compose in parallel (disjoint
+        # populations), so the round's guarantee is the worst cell's. Local
+        # field noise aggregates to sigma * sqrt(m) in the smallest
+        # non-empty cluster; central dp adds sigma per cluster
+        if self.dp_on:
+            q_frac = part_f.sum() * (1.0 / n)
+            if priv.dp_local:
+                m_min = torch.where(cnt > 0.0, cnt, torch.inf).amin()
+                z_eff = pparams.sigma * torch.sqrt(torch.where(
+                    torch.isfinite(m_min), m_min, 1.0))
+            else:
+                z_eff = pparams.sigma
+            rdp = rdp + privacy_lib.rdp_increment(q_frac, z_eff)
+            dp_log = (privacy_lib.epsilon_of(rdp),
+                      torch.tensor(privacy_lib.DELTA, dtype=torch.float32,
+                                   device=dev))
+        else:
+            dp_log = (torch.tensor(torch.inf, device=dev),
+                      torch.tensor(1.0, device=dev))
+
+        loss = losses.mean()
+        if self.has_eval:
+            loss = self.loss_fn(hierarchy.inter_cluster_average(
+                cm, v.cluster_sizes), eval_batch)[0]
+        norms = 0.9 * carry.norms + 0.1 * trandom.exponential(kn, (n,))
+        carry = _HFLCarry(cm, gm, ef, ctrl, cc, clock, ages, norms, avg_snr,
+                          avail, fad, stal, rdp)
+        return carry, ((loss, clock, mask, n_sched, ubits, comm_s, comp_s,
+                        dl_bits_out) + fault_log + dp_log
+                       + (_fold_sum(mask_over * mask_f),))
+
+    def _segment_sum(self, x: torch.Tensor, ids: torch.Tensor
+                     ) -> torch.Tensor:
+        """Per-cluster sums of int64 field rows (or counts) mod 2^32."""
+        out = torch.zeros((self.n_clusters,) + tuple(x.shape[1:]),
+                          dtype=torch.int64, device=x.device)
+        return out.index_add_(0, ids, x) & FIELD_MASK
+
+    def final(self, carry: _HFLCarry, v: _HFLVariant,
+              params: Params) -> Params:
+        """The population-weighted global model, in ``params``' types."""
+        avg = hierarchy.inter_cluster_average(carry.cm, v.cluster_sizes)
+        return {k: avg[k].to(p.dtype) for k, p in params.items()}
+
+    def run(self, v: _HFLVariant, params: Params, batches: Params,
+            eval_batch: Optional[Params]) -> Tuple[Params, List[Tuple]]:
+        """``cfg.rounds`` steps from ``params``: the final global model and
+        each round's log values."""
+        carry, outs = self.init(params), []
+        for t in range(self.cfg.rounds):
+            carry, out = self.step(t, carry, v,
+                                   {k: x[t] for k, x in batches.items()},
+                                   eval_batch)
+            outs.append(out)
+        return self.final(carry, v, params), outs
+
+
+def _hfl_engine_key(cfg: SimConfig, hcfg, wcfg: wireless.WirelessConfig,
+                    loss_fn, has_eval: bool, tag: str) -> Tuple:
+    """The flat engine's key plus ``hcfg.static_key()``: the backhaul rate
+    is a per-run input, so a backhaul-rate grid shares one engine."""
+    return _engine_key(cfg, wcfg, loss_fn, has_eval, tag) + (
+        hcfg.static_key(),)
+
+
+def _resolve_hfl_channel(cfg: SimConfig, hcfg, wcfg, cluster_wcfgs, dev
+                         ) -> Tuple[wireless.WirelessConfig,
+                                    wireless.ChannelParams]:
+    """One cell configuration shared by every cluster (scalar ChannelParams
+    fields), or one WirelessConfig per cluster (fields with a leading (L,)
+    axis, gathered per device in the engine). Returns ``(static wcfg,
+    ChannelParams)``. Device placement, and so every device->SBS distance,
+    comes from the ``hcfg`` hex geometry, not from ``cell_radius_m``."""
+    if wcfg is not None and cluster_wcfgs is not None:
+        raise ValueError("pass wcfg= or cluster_wcfgs=, not both")
+    if cluster_wcfgs is not None:
+        ws = list(cluster_wcfgs)
+        if len(ws) != hcfg.n_clusters:
+            raise ValueError(
+                f"cluster_wcfgs needs one WirelessConfig per cluster "
+                f"({hcfg.n_clusters}), got {len(ws)}")
+        statics = (ws[0].n_devices, ws[0].n_subchannels)
+        for w in ws:
+            if (w.n_devices, w.n_subchannels) != statics:
+                raise ValueError("cluster_wcfgs must share static fields "
+                                 "(n_devices, n_subchannels)")
+            if cfg.policy == "age" and w.bandwidth_hz != ws[0].bandwidth_hz:
+                raise ValueError(
+                    "cluster_wcfgs must share static bandwidth_hz for the "
+                    "'age' policy (its sub-band bandwidth compiles in "
+                    "statically)")
+        return ws[0], wireless.stack_channel_params(ws, dev)
+    w = wcfg or wireless.WirelessConfig(n_devices=cfg.n_devices)
+    return w, wireless.channel_params(w, dev)
+
+
+def _hfl_single(cfg: SimConfig, hcfg, loss_fn, init_params: Params,
+                has_eval: bool, chan: wireless.ChannelParams,
+                wcfg_stat: wireless.WirelessConfig, dev: torch.device
+                ) -> Tuple[_HFLEngine, _HFLVariant, Params]:
+    """The engine and variant of a single HFL run, ``cfg``'s seed and
+    parameters, and the initial params on ``dev``."""
+    params = _on(init_params, dev)
+    engine = _HFLEngine(cfg, hcfg, wcfg_stat, loss_fn, has_eval)
+    v = engine.variant(
+        trandom.PRNGKey(cfg.seed, dev), chan,
+        _resolve_cparams(cfg, params, dev), _resolve_aparams(cfg, dev),
+        hcfg.backhaul_rate_bps,
+        cfg.faults.to(dev) if cfg.faults is not None else None,
+        _resolve_pparams(cfg, dev) if cfg.privacy != "none" else None,
+        fl_server.flat_dim(params))
+    return engine, v, params
+
+
+def _run_hfl_scan(cfg: SimConfig, hcfg, loss_fn, init_params: Params,
+                  batches: Params, eval_batch: Optional[Params],
+                  chan: wireless.ChannelParams,
+                  wcfg_stat: wireless.WirelessConfig, dev: torch.device
+                  ) -> Tuple[Params, SimLogs]:
+    """``cfg.rounds`` HFL rounds over pre-stacked ``batches`` (see
+    :func:`stack_batches`): the final population-weighted global model and
+    the stacked logs, what the reference's compiled HFL engine returns."""
+    batches, eval_batch = _on(batches, dev), _on(eval_batch, dev)
+    has_eval = eval_batch is not None
+    engine, v, params = _hfl_single(cfg, hcfg, loss_fn, init_params,
+                                    has_eval, chan, wcfg_stat, dev)
+    _count_trace(_hfl_engine_key(cfg, hcfg, wcfg_stat, loss_fn, has_eval,
+                                 "hfl-single"),
+                 (tuple(tuple(f.shape) for f in chan),)
+                 + _shapes(params, batches, eval_batch))
+    final, outs = engine.run(v, params, batches, eval_batch)
+    return final, SimLogs(**_log_columns(outs, cfg.n_devices))
+
+
+def run_hfl(cfg: SimConfig, hcfg, loss_fn, init_params: Params,
+            sample_client_batches: Callable[[int, int], Dict],
+            eval_fn: Optional[Callable] = None, *,
+            wcfg: Optional[wireless.WirelessConfig] = None,
+            cluster_wcfgs: Optional[Sequence[wireless.WirelessConfig]] = None,
+            engine: Optional[str] = None, device="cuda") -> List[RoundLog]:
+    """Wireless-aware HFL (Alg. 9) on ``device``: per-round ``RoundLog``
+    entries.
+
+    Intra-cluster averaging runs every round over the fading device->SBS
+    channel (per-cluster scheduling, compressed and priced uplinks);
+    inter-cluster sync every ``hcfg.inter_cluster_period`` rounds over the
+    ``hcfg.backhaul_rate_bps`` fronthaul. The eval and engine contract is
+    :func:`run_simulation`'s; an opaque ``eval_fn`` receives the
+    population-weighted global model. ``cluster_wcfgs`` gives each SBS its
+    own cell configuration (radiometric fields; distances come from the
+    ``hcfg`` hex geometry). ``cfg.n_scheduled`` is the per-cluster budget:
+    one int, or a tuple with one budget per cluster (each entry also sets
+    that cell's uplink bandwidth split).
+    """
+    if engine not in (None, "scan", "host"):
+        raise ValueError(f"unknown engine {engine!r}; use 'scan' or 'host'")
+    _check_hfl_config(cfg)
+    if cfg.rounds == 0:
+        return []
+    dev = resolve_device(device)
+    wcfg_stat, chan = _resolve_hfl_channel(cfg, hcfg, wcfg, cluster_wcfgs,
+                                           dev)
+    eval_batch = getattr(eval_fn, "eval_batch", None) if eval_fn else None
+    opaque_eval = eval_fn is not None and eval_batch is None
+    if engine == "scan" and opaque_eval:
+        raise ValueError(
+            "engine='scan' needs an in-program eval: attach eval_fn."
+            "eval_batch (logged loss becomes loss_fn(params, eval_batch)) "
+            "or drop engine= to let the host loop serve the opaque eval_fn")
+    if engine == "host" or opaque_eval:
+        return _run_hfl_host(cfg, hcfg, loss_fn, init_params,
+                             sample_client_batches, eval_fn, eval_batch,
+                             chan, wcfg_stat, dev)
+    batches = stack_batches(sample_client_batches, cfg.rounds, cfg.n_devices)
+    _, logs = _run_hfl_scan(cfg, hcfg, loss_fn, init_params, batches,
+                            eval_batch, chan, wcfg_stat, dev)
+    return logs.to_round_logs()
+
+
+def _run_hfl_host(cfg: SimConfig, hcfg, loss_fn, init_params: Params,
+                  sample_client_batches, eval_fn, eval_batch,
+                  chan: wireless.ChannelParams,
+                  wcfg_stat: wireless.WirelessConfig,
+                  dev: torch.device) -> List[RoundLog]:
+    """Round-by-round loop over the scan's own HFL step, each round's
+    batches sampled when it starts and its log read back at once."""
+    has_eval = eval_batch is not None
+    eval_batch = _on(eval_batch, dev)
+    engine, v, params = _hfl_single(cfg, hcfg, loss_fn, init_params,
+                                    has_eval, chan, wcfg_stat, dev)
+    carry = engine.init(params)
+    logs: List[RoundLog] = []
+    for t in range(cfg.rounds):
+        bt = _on(sample_client_batches(t, cfg.n_devices), dev)
+        carry, (loss, clock, mask, nsched, ubits, comm_s, comp_s, dl_bits,
+                n_surv, n_drop, retx, stal, eps, dlt, mbits) = engine.step(
+            t, carry, v, bt, eval_batch)
+        lv = float(loss)
+        if eval_fn is not None and not has_eval:
+            lv = eval_fn(hierarchy.inter_cluster_average(carry.cm,
+                                                         v.cluster_sizes))
+        logs.append(RoundLog(t, float(clock), lv, int(nsched),
+                             mask.cpu().numpy(), float(ubits), float(comm_s),
+                             float(comp_s), float(dl_bits), int(n_surv),
+                             int(n_drop), float(retx), float(stal),
+                             float(eps), float(dlt), float(mbits)))
+    return logs

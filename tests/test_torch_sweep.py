@@ -26,6 +26,7 @@ from repro.core.compression import compression_params  # noqa: E402
 from repro.fl import runtime as jrt  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import wireless as twl  # noqa: E402
+from repro_torch.core.hierarchy import HFLConfig  # noqa: E402
 from repro_torch.fl import runtime as trt  # noqa: E402
 from test_torch_engine import _loss_t  # noqa: E402
 
@@ -259,8 +260,10 @@ def test_sweep_devices_one_degrades_to_single_card():
         with pytest.raises(ValueError, match="sharding of the sweep is "
                            "not ported"):
             trt.run_sweep(cfg, _loss_t, prob[3], prob[4], **bad, **kw)
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
-        trt.run_sweep(cfg, _loss_t, prob[3], prob[4], hcfg=object(), **kw)
+    h = HFLConfig(n_clusters=3, inter_cluster_period=3)
+    with pytest.raises(ValueError, match="pass hcfg= or hcfgs=, not both"):
+        trt.run_sweep(cfg, _loss_t, prob[3], prob[4], hcfg=h, hcfgs=[h],
+                      **kw)
 
 
 def test_sweep_argument_errors_match_reference():
