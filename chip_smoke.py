@@ -56,8 +56,9 @@ Phases (any failure exits non-zero):
    margin to the decode threshold, ``|snr / snr_min - 1|``, must exceed
    1e-5 (an ulp of the fading draw could flip a decode closer than that);
    then a sweep (2 seeds x random and best_channel in mixture mode x 2
-   dropout probabilities x privacy none and dp, 2 rounds) and the host
-   loop with an opaque ``eval_fn``, each on the card against the CPU;
+   dropout probabilities x privacy none and dp) and the host loop with an
+   opaque ``eval_fn``, each on the card against the CPU; every run of the
+   phase takes REF_ROUNDS rounds;
 7. engine: the headline fleet configuration (N = 100000 clients, linear
    model d = 32, H = 2 local steps of batch 8, 4096-client blocks, on-device
    data, random scheduling of 256, 6 rounds) once per kernel-backed
@@ -116,6 +117,26 @@ Phases (any failure exits non-zero):
    a sweep over 2 backhaul rates x 2 seeds x 3 policies, with the trace
    counts; (d) the six kernels' counters read at the end must be 0: the
    reference's HFL reaches no kernel (``hfl_launches`` in the kernels line).
+14. gossip: ``benchmarks/bench_decentralized.py``'s cell (N = 64 nodes, the
+   8x8 torus's Laplacian mixing, the linear problem of phase 11, lr 0.1)
+   and the fog hybrid (7 hex clusters, sync every 4 rounds), with every
+   kernel counter set to 0 at its start: (a) GOSSIP_CHECK_ROUNDS rounds
+   under no compression, QSGD, top-k, sign x ``bench_faults.py``'s faults,
+   fog at k = 2 and fog x faults, the card against the CPU (bits, edges and
+   online counts equal, latency within rtol 1e-5, loss and drift within
+   rtol 1e-4, final params within 1e-5) and the host loop on the card
+   bitwise the scan; (b) the bench at its 40 rounds on the card: gossip
+   rounds/s (the better of two timed runs after a warm one, as the bench's
+   ``_timed``), the 4-topology frontier through one ``run_gossip_sweep``
+   (1 trace on a cold cache), fog rounds/s at k = 2 and the frontier at
+   k = 1, 2, 4 (final loss, simulated wall clock, backhaul bits, drift);
+   (c) the LM cells of ``examples/decentralized_gossip.py`` (N = 16, ring,
+   4x4 torus, ER(0.4), 40 rounds) and ``examples/fog_hybrid.py`` (N = 28,
+   k = 1, 2, 4, 24 rounds), QSGD, 1e6 model bits, lr 0.5, after
+   EX_CHECK_ROUNDS rounds of each on the card against the CPU; (d) one
+   40-round gossip run under ``torch.profiler`` (host ms, ``cudaLaunchKernel``
+   a round, the device's busy share); (e) the six kernels' counters read
+   0 (``gossip_launches`` in the kernels line).
 
 Every phase prints its wall time. The last two lines of output are the
 kernel table as JSON and the result.
@@ -175,6 +196,10 @@ PRIV_CASES = (("secagg", "qsgd"), ("secagg_dp", "scaled_sign"),
 KERNEL_OF = {"topk": "topk_rows", "qsgd": "qsgd_rows",
              "scaled_sign": "sign_ef_rows"}
 SNR_MARGIN = 1e-5
+# phase 6's depth: its N = 4096 runs on the CPU dominate the script, so they
+# take one round (they took two), which keeps the script well inside its
+# time limit; N and d are not cut
+REF_ROUNDS = 1
 # benchmarks/bench_sweep.py: N = 16 clients, 4 scheduled, top-k, the full
 # grid (10 policies x 4 seeds x 5 learning rates) and its --fast grid (2 x 2,
 # its rounds capped at 8), the linear problem of benchmarks/common.py at
@@ -196,6 +221,16 @@ HOST_ROUNDS = 3
 HFL_N, HFL_ROUNDS, HFL_PERIODS = 21, 80, (2, 4, 6)
 HFL_CHECK_ROUNDS, HFL_CASE_ROUNDS = 10, 4
 LM_VOCAB, LM_SEQ, LM_HID = 64, 16, 32
+# benchmarks/bench_decentralized.py: N = 64 nodes, the 8x8 torus's Laplacian
+# mixing, the linear problem (d = 32, H = 2, B = 8), lr 0.1, 40 rounds; the
+# fog hybrid in 7 hex clusters synced every 4 rounds at k = 1, 2, 4 gossip
+# steps. examples/decentralized_gossip.py (N = 16, 40 rounds) and
+# examples/fog_hybrid.py (N = 28, 24 rounds): the LM problem at alpha 0.5,
+# QSGD, 1e6 model bits, lr 0.5
+GOSSIP_N, GOSSIP_ROUNDS, GOSSIP_CHECK_ROUNDS = 64, 40, 5
+FOG_STEPS = (1, 2, 4)
+EX_GOSSIP_N, EX_GOSSIP_ROUNDS = 16, 40
+EX_FOG_N, EX_FOG_ROUNDS, EX_CHECK_ROUNDS = 28, 24, 4
 ROWS_SRC = "src/repro_torch/kernels/csrc/rows.cu"
 TILES_SRC = "src/repro_torch/kernels/csrc/tiles.cu"
 
@@ -632,7 +667,7 @@ def check_against_cpu(dev) -> None:
     from repro_torch.core.algorithms import registry as algos
     from repro_torch.data import make_linear_datagen
     from repro_torch.fl import runtime as rt
-    d, n, rounds, seed = 256, 4096, 2, 20
+    d, n, rounds, seed = 256, 4096, REF_ROUNDS, 20
     w_star = np.random.default_rng(42).standard_normal(d).astype(np.float32)
     fp = faults.fault_params(**FAULTS)
     pp = privacy.privacy_params(**PRIVACY)
@@ -700,8 +735,9 @@ def check_sweep_and_host_against_cpu(dev, w_star, d, n, seed) -> None:
     from repro_torch.data import make_linear_datagen
     from repro_torch.fl import runtime as rt
     datagen = make_linear_datagen(w_star)
-    cfg = rt.SimConfig(n_devices=n, n_scheduled=64, rounds=2, local_steps=2,
-                       compression="topk", chunk_size=1024, seed=seed,
+    cfg = rt.SimConfig(n_devices=n, n_scheduled=64, rounds=REF_ROUNDS,
+                       local_steps=2, compression="topk", chunk_size=1024,
+                       seed=seed,
                        algo_params=algos.algo_params(lr=0.1),
                        datagen=datagen)
     params0 = {"w": np.zeros(d, np.float32)}
@@ -898,12 +934,10 @@ def _tile_counters() -> dict:
             "sign_ef_tiles": sign_ef.sign_ef_tiles}
 
 
-def _sweep_batches(rounds: int) -> dict:
-    """``benchmarks/common.make_linear_problem``'s client batches at
-    d = 32, H = 2, B = 8 for SWEEP_N clients, stacked over ``rounds``; w*
-    is the port's ``normal(PRNGKey(42), (32,))``."""
+def _linear_batches():
+    """``benchmarks/common.make_linear_problem``'s ``make_batches`` at d =
+    32, H = 2, B = 8; w* is the port's ``normal(PRNGKey(42), (32,))``."""
     from repro_torch import random as trandom
-    from repro_torch.fl import runtime as rt
     w_star = trandom.normal(trandom.PRNGKey(42), (D_FLEET,)).numpy()
 
     def make_batches(t, n):
@@ -911,7 +945,14 @@ def _sweep_batches(rounds: int) -> dict:
         x = rng.normal(size=(n, 2, BATCH, D_FLEET)).astype(np.float32)
         y = x @ w_star + 0.01 * rng.normal(size=(n, 2, BATCH))
         return {"x": x, "y": y.astype(np.float32)}
-    return rt.stack_batches(make_batches, rounds, SWEEP_N)
+    return make_batches
+
+
+def _sweep_batches(rounds: int) -> dict:
+    """The linear problem's client batches for SWEEP_N clients, stacked
+    over ``rounds``."""
+    from repro_torch.fl import runtime as rt
+    return rt.stack_batches(_linear_batches(), rounds, SWEEP_N)
 
 
 def run_sweep(dev, smi: str, base_rates: dict) -> dict:
@@ -1066,10 +1107,10 @@ def run_host(dev, smi: str, base_rates: dict) -> None:
         f"equal to the scan's; launches {counts}; eval loss {losses}")
 
 
-def _lm_problem(dev):
-    """``benchmarks/common.make_lm_problem(n_clients=HFL_N, alpha=0.3)`` in
-    PyTorch: the same numpy data from the port's copies of the synthetic
-    source and the Dirichlet partition, the weights from the port's
+def _lm_problem(dev, n_clients: int = HFL_N, alpha: float = 0.3):
+    """``benchmarks/common.make_lm_problem(n_clients, alpha)`` in PyTorch:
+    the same numpy data from the port's copies of the synthetic source and
+    the Dirichlet partition, the weights from the port's
     threefry ``normal`` on ``PRNGKey(0)`` split three ways at the same
     scales. Returns ``(params, loss_fn, sample_batches, eval_fn)``; the
     eval_fn carries ``eval_batch``, so the scan serves it."""
@@ -1077,8 +1118,8 @@ def _lm_problem(dev):
     from repro_torch.data import SyntheticLMDataset, dirichlet_partition
     ds = SyntheticLMDataset(LM_VOCAB, LM_SEQ, 2048, n_classes=4, seed=0,
                             branching=2)
-    parts = dirichlet_partition(ds.class_of(np.arange(len(ds))), HFL_N,
-                                alpha=0.3, seed=0, min_per_client=16)
+    parts = dirichlet_partition(ds.class_of(np.arange(len(ds))), n_clients,
+                                alpha=alpha, seed=0, min_per_client=16)
     k1, k2, k3 = trandom.split(trandom.PRNGKey(0), 3)
     params = {"emb": trandom.normal(k1, (LM_VOCAB, LM_HID)) * 0.1,
               "w1": trandom.normal(k2, (LM_HID, LM_HID)) * LM_HID ** -0.5,
@@ -1314,6 +1355,271 @@ def run_hfl(dev, smi: str) -> dict:
     return launches
 
 
+_GOSSIP_EXACT = ("uplink_bits", "backhaul_bits", "n_edges", "n_online")
+
+
+def _gossip_card_equals_cpu(what, g, c, gp=None, cp=None) -> int:
+    """Gossip logs of the card against the CPU's: bits, edges and online
+    counts equal, latency within rtol 1e-5, loss and drift within rtol 1e-4
+    (drift atol 1e-6: a fog sync leaves round-off). With final params,
+    returns how many coordinates differ by more than atol 1e-5 (QSGD's
+    dither can round a coordinate to the neighbouring level where the
+    card's message norm differs from the CPU's by an ulp)."""
+    for f in _GOSSIP_EXACT:
+        np.testing.assert_array_equal(getattr(g, f), getattr(c, f),
+                                      err_msg=f"{what} {f}")
+    for f in ("latency_s", "comm_s", "comp_s"):
+        np.testing.assert_allclose(getattr(g, f), getattr(c, f), rtol=1e-5,
+                                   err_msg=f"{what} {f}")
+    np.testing.assert_allclose(g.loss, c.loss, rtol=1e-4,
+                               err_msg=f"{what} loss")
+    np.testing.assert_allclose(g.consensus_err, c.consensus_err, rtol=1e-4,
+                               atol=1e-6, err_msg=f"{what} drift")
+    if gp is None:
+        return 0
+    return int(sum((np.abs(gp[k].cpu().numpy() - cp[k].numpy()) > 1e-5).sum()
+                   for k in cp))
+
+
+def _gossip_cases():
+    """Phase 14(a)'s cells: (name, GossipConfig keywords, fog?)."""
+    from repro_torch.core import faults
+    from repro_torch.core.algorithms import registry as algos
+    from repro_torch.core.compression import registry as comp
+    base = dict(n_nodes=GOSSIP_N, rounds=GOSSIP_CHECK_ROUNDS,
+                algo_params=algos.algo_params(lr=0.1))
+    fp = faults.fault_params(**FAULTS)
+    return [("none", base, False),
+            ("qsgd", dict(base, compression="qsgd"), False),
+            ("topk", dict(base, compression="topk",
+                          compression_params=comp.compression_params(k=4)),
+             False),
+            ("sign x faults", dict(base, compression="sign", faults=fp),
+             False),
+            ("fog k=2", dict(base, gossip_steps=2), True),
+            ("fog k=2 x faults", dict(base, gossip_steps=2, faults=fp),
+             True)]
+
+
+def _profile_rounds(fn, rounds: int) -> tuple:
+    """``fn`` under ``torch.profiler``: (wall s, cudaLaunchKernel a round,
+    device busy share of the wall clock, the top device kernels)."""
+    from torch.autograd import DeviceType
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in kernels)
+    launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "profile_gossip.txt"),
+              "w") as f:
+        f.write(events.table(sort_by="self_cpu_time_total", row_limit=40))
+    return (wall, launches / rounds, device_us / 1e6 / wall,
+            [(e.key[:60], e.count, round(e.self_device_time_total / 1e3, 3))
+             for e in top])
+
+
+def run_gossip(dev, smi: str) -> dict:
+    """Phase 14: bench_decentralized.py's cells and the two examples' LM
+    cells on the gossip and fog engines. Returns each kernel's launches
+    across the phase (all must be 0)."""
+    from repro_torch.core import topology as topo
+    from repro_torch.core.algorithms import registry as algos
+    from repro_torch.core.hierarchy import HFLConfig
+    from repro_torch.fl import decentralized as dz
+    from repro_torch.fl import runtime as rt
+    counters = dict(_row_counters(), **_tile_counters())
+    for fn in counters.values():
+        fn.launches = 0
+    params0 = {"w": np.zeros(D_FLEET, np.float32)}
+    batches = _linear_batches()
+    w_torus = topo.laplacian_mixing(topo.torus_2d(8, 8))
+    h4 = HFLConfig(n_clusters=7, inter_cluster_period=4)
+
+    def go(kw, fog, device, engine="scan", rounds=None):
+        cfg = dz.GossipConfig(**dict(kw, rounds=rounds or kw["rounds"]))
+        if fog:
+            return dz.run_fog(cfg, h4, _loss, params0, batches,
+                              engine=engine, device=device)
+        return dz.run_gossip(cfg, _loss, params0, batches, w_torus,
+                             engine=engine, device=device)
+
+    part = time.perf_counter()
+
+    def took(what):
+        nonlocal part
+        log(f"gossip {what}: {time.perf_counter() - part:.2f} s")
+        part = time.perf_counter()
+
+    # (a) the card against the CPU at the bench's width; host loop == scan
+    for name, kw, fog in _gossip_cases():
+        (gp, g), secs = wall_s(lambda: go(kw, fog, dev))
+        cp, c = go(kw, fog, "cpu")
+        hp, hl = go(kw, fog, dev, "host")
+        off = _gossip_card_equals_cpu(f"gossip (a) {name}", g, c, gp, cp)
+        if off:
+            raise AssertionError(f"gossip (a) {name}: {off} coordinates of "
+                                 "the final params differ beyond 1e-5")
+        for f in _GOSSIP_EXACT + ("loss", "latency_s", "comm_s", "comp_s",
+                                  "consensus_err"):
+            if not np.array_equal(getattr(hl, f), getattr(g, f)):
+                raise AssertionError(f"gossip (a) {name}: host loop differs "
+                                     f"from the scan in {f}")
+        if not all(torch.equal(hp[k], gp[k]) for k in gp):
+            raise AssertionError(f"gossip (a) {name}: host params differ")
+        log(f"gossip (a) {name}: card == cpu (bits, edges, online; final "
+            f"params within 1e-5), host loop == scan bitwise; "
+            f"{GOSSIP_CHECK_ROUNDS} rounds in {secs:.3f} s on the card; "
+            f"online {c.n_online.tolist()}, edges {c.n_edges.tolist()}, "
+            f"loss {c.loss.tolist()}")
+
+    took("(a)")
+
+    # (b) bench_decentralized.py at its 40 rounds on the card
+    gkw = dict(n_nodes=GOSSIP_N, rounds=GOSSIP_ROUNDS,
+               algo_params=algos.algo_params(lr=0.1))
+    go(gkw, False, dev)  # warm
+    secs = min(wall_s(lambda: go(gkw, False, dev))[1] for _ in range(2))
+    _, logs = go(gkw, False, dev)
+    log(f"gossip (b) rounds/s at N={GOSSIP_N}: {GOSSIP_ROUNDS / secs:.4f} "
+        f"({secs / GOSSIP_ROUNDS * 1e6:.1f} us a round) on {smi}; torus, "
+        f"edges {int(logs.n_edges[-1])}, simulated wall clock "
+        f"{float(logs.latency_s[-1]):.3f} s, final loss "
+        f"{float(logs.loss[-1]):.6f}")
+    adjs = topo.standard_adjacencies(GOSSIP_N, seed=0, p=0.3)
+    names = sorted(adjs)
+    rt._ENGINE_CACHE.clear()
+    t0 = rt.ENGINE_STATS["traces"]
+    slogs, secs = wall_s(lambda: dz.run_gossip_sweep(
+        dz.GossipConfig(**gkw), _loss, params0, batches,
+        wgrid=[topo.laplacian_mixing(adjs[k]) for k in names], seeds=(0,),
+        device=dev))
+    n_traces = rt.ENGINE_STATS["traces"] - t0
+    for i, name in enumerate(names):
+        log(f"gossip (b) frontier {name}: final loss "
+            f"{float(slogs.loss[i, -1]):.6f}, simulated wall clock "
+            f"{float(slogs.latency_s[i, -1]):.3f} s, edges "
+            f"{int(slogs.n_edges[i, -1])}, drift "
+            f"{float(slogs.consensus_err[i, -1]):.3e}")
+    log(f"gossip (b) frontier: {len(names)} topologies x {GOSSIP_ROUNDS} "
+        f"rounds in {secs:.3f} s, {n_traces} trace(s)")
+    if n_traces != 1 or not np.isfinite(slogs.loss).all():
+        raise AssertionError(f"gossip (b) frontier: {n_traces} traces")
+    fkw = dict(gkw, gossip_steps=2)
+    go(fkw, True, dev)  # warm
+    secs = min(wall_s(lambda: go(fkw, True, dev))[1] for _ in range(2))
+    _, flogs = go(fkw, True, dev)
+    log(f"gossip (b) fog rounds/s at N={GOSSIP_N}: "
+        f"{GOSSIP_ROUNDS / secs:.4f} ({secs / GOSSIP_ROUNDS * 1e6:.1f} us a "
+        f"round) on {smi}; L=7, H=4, k=2, backhaul "
+        f"{float(flogs.backhaul_bits.sum()):.4e} bits")
+    for k in FOG_STEPS:
+        _, kl = go(dict(gkw, gossip_steps=k), True, dev)
+        log(f"gossip (b) fog frontier k={k}: final loss "
+            f"{float(kl.loss[-1]):.6f}, simulated wall clock "
+            f"{float(kl.latency_s[-1]):.3f} s, backhaul "
+            f"{float(kl.backhaul_bits.sum()):.4e} bits, drift "
+            f"{float(kl.consensus_err[-1]):.3e}")
+        if not np.isfinite(kl.loss).all():
+            raise AssertionError(f"gossip (b) fog k={k}: loss {kl.loss}")
+
+    took("(b)")
+
+    # (c) the examples' LM cells: card against CPU, then the card alone
+    graphs = {"ring": topo.ring(EX_GOSSIP_N),
+              "torus 4x4": topo.torus_2d(4, 4),
+              "erdos-renyi(0.4)": topo.erdos_renyi(0, EX_GOSSIP_N, 0.4)}
+    wgrid = [topo.laplacian_mixing(a) for a in graphs.values()]
+
+    def lm_cfg(n, rounds, **kw):
+        return dz.GossipConfig(n_nodes=n, rounds=rounds, compression="qsgd",
+                               model_bits=1e6,
+                               algo_params=algos.algo_params(lr=0.5), **kw)
+
+    def lm_gossip(device, rounds):
+        params, loss_fn, sample, eval_fn = _lm_problem(device, EX_GOSSIP_N,
+                                                       0.5)
+        return dz.run_gossip_sweep(lm_cfg(EX_GOSSIP_N, rounds), loss_fn,
+                                   params, sample, wgrid=wgrid,
+                                   eval_batch=eval_fn.eval_batch,
+                                   device=device)
+
+    def lm_fog(device, rounds, k):
+        params, loss_fn, sample, eval_fn = _lm_problem(device, EX_FOG_N, 0.5)
+        return dz.run_fog(lm_cfg(EX_FOG_N, rounds, gossip_steps=k), h4,
+                          loss_fn, params, sample,
+                          eval_batch=eval_fn.eval_batch, device=device)
+
+    g, c = (lm_gossip(dv, EX_CHECK_ROUNDS) for dv in (dev, "cpu"))
+    for i, name in enumerate(graphs):
+        _gossip_card_equals_cpu(
+            f"gossip (c) {name}",
+            *(SimpleNamespace(**{f: getattr(x, f)[i] for f in vars(x)})
+              for x in (g, c)))
+    (gp, g), (cp, c) = (lm_fog(dv, EX_CHECK_ROUNDS, 2) for dv in (dev,
+                                                                   "cpu"))
+    flips = _gossip_card_equals_cpu("gossip (c) fog k=2", g, c, gp, cp)
+    log(f"gossip (c) LM cells: card == cpu for {EX_CHECK_ROUNDS} rounds "
+        f"(bits, edges, online equal; latency, loss, drift within "
+        f"tolerance); fog k=2 final params: {flips} coordinates beyond 1e-5 "
+        f"(QSGD's dither rounds a coordinate to the neighbouring level "
+        f"where the card's message norm is an ulp off the CPU's, and the "
+        f"local updates and mixing carry that on)")
+    took("(c) card against cpu")
+    rt._ENGINE_CACHE.clear()
+    t0 = rt.ENGINE_STATS["traces"]
+    ex, secs = wall_s(lambda: lm_gossip(dev, EX_GOSSIP_ROUNDS))
+    n_traces = rt.ENGINE_STATS["traces"] - t0
+    for i, name in enumerate(graphs):
+        log(f"gossip (c) decentralized_gossip.py {name}: spectral gap "
+            f"{topo.spectral_gap(wgrid[i]):.3f}, final loss "
+            f"{float(ex.loss[i, -1]):.6f}, drift "
+            f"{float(ex.consensus_err[i, -1]):.6f}, simulated wall clock "
+            f"{float(ex.latency_s[i, -1]):.3f} s, edges "
+            f"{int(ex.n_edges[i, -1])}")
+    log(f"gossip (c) decentralized_gossip.py: {len(graphs)} topologies x "
+        f"{EX_GOSSIP_ROUNDS} rounds in {secs:.3f} s on {smi}, {n_traces} "
+        f"trace(s)")
+    for k in FOG_STEPS:
+        (_, kl), secs = wall_s(lambda: lm_fog(dev, EX_FOG_ROUNDS, k))
+        log(f"gossip (c) fog_hybrid.py k={k}: final loss "
+            f"{float(kl.loss[-1]):.6f}, simulated wall clock "
+            f"{float(kl.latency_s[-1]):.3f} s, backhaul "
+            f"{float(kl.backhaul_bits.sum()):.4e} bits, drift "
+            f"{float(kl.consensus_err[-1]):.3e}; {EX_FOG_ROUNDS} rounds in "
+            f"{secs:.3f} s")
+        if not np.isfinite(kl.loss).all():
+            raise AssertionError(f"gossip (c) fog k={k}: loss {kl.loss}")
+    if not np.isfinite(ex.loss).all():
+        raise AssertionError("gossip (c): a loss is not finite")
+
+    took("(c)")
+
+    # (d) one bench gossip run under torch.profiler
+    wall, per_round, busy, top = _profile_rounds(
+        lambda: go(gkw, False, dev), GOSSIP_ROUNDS)
+    log(f"gossip (d) profiled {GOSSIP_ROUNDS} rounds at N={GOSSIP_N}: host "
+        f"{wall / GOSSIP_ROUNDS * 1e3:.3f} ms a round, cudaLaunchKernel "
+        f"{per_round:.1f} a round, device busy {busy:.4f} of the wall clock "
+        f"on {smi}; top device kernels {top}")
+
+    # (e) the gossip and fog paths reach no kernel
+    launches = {n: fn.launches for n, fn in counters.items()}
+    log(f"gossip (e) kernel launches across phase 14: {launches}")
+    if any(launches.values()):
+        raise AssertionError(f"gossip: a kernel launched on the gossip "
+                             f"path: {launches}")
+    return launches
+
+
 def main() -> int:
     t0 = time.perf_counter()
     smi = card()
@@ -1333,7 +1639,8 @@ def main() -> int:
               ("privacy", lambda: run_privacy(dev, smi)),
               ("sweep", lambda: run_sweep(dev, smi, out["engine"][1])),
               ("host", lambda: run_host(dev, smi, out["engine"][1])),
-              ("hfl", lambda: run_hfl(dev, smi))]
+              ("hfl", lambda: run_hfl(dev, smi)),
+              ("gossip", lambda: run_gossip(dev, smi))]
     out = {}
     log(f"phase card: {time.perf_counter() - t0:.2f} s")
     for name, fn in phases:
@@ -1350,6 +1657,7 @@ def main() -> int:
                      "replaces": replaces, "launches": launches[name],
                      "sweep_launches": out["sweep"][name],
                      "hfl_launches": out["hfl"][name],
+                     "gossip_launches": out["gossip"][name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "device_ms": r["device_ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

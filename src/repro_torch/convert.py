@@ -1,6 +1,7 @@
 """Carry JAX-side values into the port, as numpy arrays: parameter dicts,
 PRNG keys, a whole round state, the channel, compression, algorithm, fault
-and privacy parameters, and the hierarchical engine's configuration. The port never imports JAX; callers hand over
+and privacy parameters, and the hierarchical and gossip engines'
+configurations. The port never imports JAX; callers hand over
 JAX objects, which are read through ``np.asarray`` and their field names."""
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from repro_torch.core.faults import FaultParams
 from repro_torch.core.hierarchy import HFLConfig
 from repro_torch.core.privacy.registry import PrivacyParams
 from repro_torch.core.wireless import ChannelParams
+from repro_torch.fl.decentralized import GossipConfig
 from repro_torch.fl.server import FLState
 
 
@@ -105,3 +107,18 @@ def hfl_config_from_jax(h) -> HFLConfig:
     """The reference's ``HFLConfig`` -> the port's, field by field."""
     return HFLConfig(**{f.name: getattr(h, f.name)
                         for f in dataclasses.fields(HFLConfig)})
+
+
+def gossip_config_from_jax(c) -> GossipConfig:
+    """The reference's ``GossipConfig`` -> the port's: its static fields
+    as they are, its algorithm, compression and fault parameters crossed
+    with the converters above."""
+    conv = {"algo_params": algo_params_from_jax,
+            "compression_params": compression_params_from_jax,
+            "faults": fault_params_from_jax}
+    kw = {}
+    for f in dataclasses.fields(GossipConfig):
+        v = getattr(c, f.name)
+        kw[f.name] = (conv[f.name](v) if f.name in conv and v is not None
+                      else v)
+    return GossipConfig(**kw)

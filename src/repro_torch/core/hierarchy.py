@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch import random as trandom
+from repro_torch.core import wireless
 
 Params = Dict[str, torch.Tensor]
 
@@ -71,52 +72,6 @@ def hex_centers(n_clusters: int = 7, pitch_m: float = 500.0) -> np.ndarray:
     return np.asarray(pts[:n_clusters])
 
 
-# The reference's CPU arithmetic for the deployment, held bitwise: its cos
-# and sin are the C library's cosf/sinf, which reduce by pi/2 and evaluate
-# these polynomials in float64 (the coefficients of glibc's sincosf tables);
-# its sqrt is correctly rounded, which PyTorch's float32 CPU sqrt is not
-# everywhere. Every step is one float64 op, so the card computes the same
-# bits as the CPU.
-_HPI_INV = float.fromhex("0x1.45f306dc9c883p-1")   # 2 / pi
-_HPI = float.fromhex("0x1.921fb54442d18p0")        # pi / 2
-_COS_C = tuple(float.fromhex(c) for c in (
-    "0x1p0", "-0x1.ffffffd0c621cp-2", "0x1.55553e1068f19p-5",
-    "-0x1.6c087e89a359dp-10", "0x1.99343027bf8c3p-16"))
-_SIN_S = tuple(float.fromhex(c) for c in (
-    "-0x1.555545995a603p-3", "0x1.1107605230bc4p-7",
-    "-0x1.994eb3774cf24p-13"))
-
-
-def _sqrt(x: torch.Tensor) -> torch.Tensor:
-    """Correctly rounded float32 square root (through float64)."""
-    return torch.sqrt(x.double()).to(torch.float32)
-
-
-def _cos_sin(theta: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """float32 ``(cos, sin)`` of float32 angles with ``|theta| < 120``, as
-    the C library's cosf/sinf compute them: reduce by pi/2 to ``|x| <=
-    pi/4`` with quadrant n, evaluate the even and odd polynomials, and swap
-    and negate them by the quadrant."""
-    x = theta.double()
-    n = torch.round(x * _HPI_INV)
-    x = x - n * _HPI
-    q = n.to(torch.int64) & 3
-    xs = torch.where((q == 1) | (q == 2), -x, x)
-    x2 = x * x
-    c0, c1, c2, c3, c4 = _COS_C
-    s1, s2, s3 = _SIN_S
-    x4 = x2 * x2
-    cpoly = (c0 + x2 * c1) + x4 * c2
-    cpoly = cpoly + (x4 * x2) * (c3 + x2 * c4)
-    cpoly = torch.where(q >= 2, -cpoly, cpoly)
-    x3 = xs * x2
-    spoly = (xs + x3 * s1) + (x3 * x2) * (s2 + x2 * s3)
-    odd = (q & 1) == 1
-    cos_t = torch.where(odd, spoly, cpoly)
-    sin_t = torch.where(odd, cpoly, spoly)
-    return cos_t.to(torch.float32), sin_t.to(torch.float32)
-
-
 def hfl_geometry_xy_jax(key: torch.Tensor, hcfg: HFLConfig, n_devices: int
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                    torch.Tensor, torch.Tensor]:
@@ -130,15 +85,12 @@ def hfl_geometry_xy_jax(key: torch.Tensor, hcfg: HFLConfig, n_devices: int
                            dtype=torch.float32, device=dev)
     k_r, k_t = trandom.split(key)
     theta = trandom.uniform(k_t, (n_devices,)) * (2.0 * math.pi)
-    r = hcfg.deploy_radius_m * _sqrt(trandom.uniform(k_r, (n_devices,)))
-    cos_t, sin_t = _cos_sin(theta)
+    r = hcfg.deploy_radius_m * wireless._sqrt(
+        trandom.uniform(k_r, (n_devices,)))
+    cos_t, sin_t = wireless._cos_sin(theta)
     pos = torch.stack([r * cos_t, r * sin_t], dim=-1)
     diff = pos[:, None, :] - centers[None, :, :]
-    dx, dy = diff[..., 0], diff[..., 1]
-    # the reference's norm contracts dy * dy into a fused multiply-add on
-    # the rounded dx * dx (the product is exact in float64)
-    d = _sqrt(((dx * dx).double() + dy.double() * dy.double()).to(
-        torch.float32))                                             # (N, L)
+    d = wireless._norm_xy(diff[..., 0], diff[..., 1])              # (N, L)
     cluster_ids = torch.argmin(d, dim=1).to(torch.int32)
     dist_to_sbs = torch.clamp_min(d.amin(dim=1), 1.0)
     member = (cluster_ids[None, :] == torch.arange(

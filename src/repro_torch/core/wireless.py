@@ -8,7 +8,8 @@ are float32 scalar tensors in :class:`ChannelParams`.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+import math
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -64,6 +65,62 @@ def gather_channel_params(cp: ChannelParams,
     return ChannelParams(*(f[ids] if f.dim() >= 1 else f for f in cp))
 
 
+# The reference's CPU arithmetic for deployments, held bitwise: its cos
+# and sin are the C library's cosf/sinf, which reduce by pi/2 and evaluate
+# these polynomials in float64 (the coefficients of glibc's sincosf tables);
+# its sqrt is correctly rounded, which PyTorch's float32 CPU sqrt is not
+# everywhere; its 2-D norm contracts into a fused multiply-add. Every step
+# is one float64 op, so the card computes the same bits as the CPU. The
+# hierarchical geometry (``core/hierarchy.py``) and the D2D geometry below
+# share them.
+_HPI_INV = float.fromhex("0x1.45f306dc9c883p-1")   # 2 / pi
+_HPI = float.fromhex("0x1.921fb54442d18p0")        # pi / 2
+_COS_C = tuple(float.fromhex(c) for c in (
+    "0x1p0", "-0x1.ffffffd0c621cp-2", "0x1.55553e1068f19p-5",
+    "-0x1.6c087e89a359dp-10", "0x1.99343027bf8c3p-16"))
+_SIN_S = tuple(float.fromhex(c) for c in (
+    "-0x1.555545995a603p-3", "0x1.1107605230bc4p-7",
+    "-0x1.994eb3774cf24p-13"))
+
+
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root (through float64)."""
+    return torch.sqrt(x.double()).to(torch.float32)
+
+
+def _cos_sin(theta: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """float32 ``(cos, sin)`` of float32 angles with ``|theta| < 120``, as
+    the C library's cosf/sinf compute them: reduce by pi/2 to ``|x| <=
+    pi/4`` with quadrant n, evaluate the even and odd polynomials, and swap
+    and negate them by the quadrant."""
+    x = theta.double()
+    n = torch.round(x * _HPI_INV)
+    x = x - n * _HPI
+    q = n.to(torch.int64) & 3
+    xs = torch.where((q == 1) | (q == 2), -x, x)
+    x2 = x * x
+    c0, c1, c2, c3, c4 = _COS_C
+    s1, s2, s3 = _SIN_S
+    x4 = x2 * x2
+    cpoly = (c0 + x2 * c1) + x4 * c2
+    cpoly = cpoly + (x4 * x2) * (c3 + x2 * c4)
+    cpoly = torch.where(q >= 2, -cpoly, cpoly)
+    x3 = xs * x2
+    spoly = (xs + x3 * s1) + (x3 * x2) * (s2 + x2 * s3)
+    odd = (q & 1) == 1
+    cos_t = torch.where(odd, spoly, cpoly)
+    sin_t = torch.where(odd, cpoly, spoly)
+    return cos_t.to(torch.float32), sin_t.to(torch.float32)
+
+
+def _norm_xy(dx: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """float32 ``|(dx, dy)|`` as the reference's compiled norm: ``dy * dy``
+    contracted into a fused multiply-add on the rounded ``dx * dx`` (the
+    product is exact in float64), then a correctly rounded sqrt."""
+    return _sqrt(((dx * dx).double() + dy.double() * dy.double()).to(
+        torch.float32))
+
+
 def sample_positions_jax(key: torch.Tensor, cp: ChannelParams,
                          n_devices: int) -> torch.Tensor:
     """Distances to the BS, uniform in the disk of radius R (>= 1 m)."""
@@ -71,10 +128,45 @@ def sample_positions_jax(key: torch.Tensor, cp: ChannelParams,
     return torch.clamp_min(r, 1.0)
 
 
+def sample_positions_xy_jax(key: torch.Tensor, cp: ChannelParams,
+                            n_devices: int) -> torch.Tensor:
+    """Uniform (N, 2) xy deployment in the disk of radius R, the xy
+    companion of :func:`sample_positions_jax` (same disk law): the D2D
+    (gossip) engine prices pairwise device distances."""
+    k_r, k_t = trandom.split(key)
+    theta = trandom.uniform(k_t, (n_devices,)) * (2.0 * math.pi)
+    r = cp.cell_radius_m * _sqrt(trandom.uniform(k_r, (n_devices,)))
+    cos_t, sin_t = _cos_sin(theta)
+    return torch.stack([r * cos_t, r * sin_t], dim=-1)
+
+
+def pairwise_dist_jax(pos_xy: torch.Tensor) -> torch.Tensor:
+    """(N, 2) positions -> (N, N) pairwise distances, clamped to >= 1 m so
+    the log-distance path loss stays finite (the self-distance diagonal is
+    clamped too; self-edges are never priced)."""
+    diff = pos_xy[:, None, :] - pos_xy[None, :, :]
+    return torch.clamp_min(_norm_xy(diff[..., 0], diff[..., 1]), 1.0)
+
+
+# The reference's compiled channel arithmetic: XLA folds ``10 * ple *
+# log10(d)`` into ``log(d) * (ple * f32(10 * f32(1 / ln 10)))`` and contracts
+# the add of the reference loss into a fused multiply-add, divides by 10 as a
+# multiply by f32(0.1), and its pow is correctly rounded. Mirrored in
+# float64 steps, the SNR matches its bits wherever XLA's log does.
+_DB_PER_NEPER = float(torch.tensor(1.0 / math.log(10.0),
+                                   dtype=torch.float32) * 10.0)
+
+
+def _pow10(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 ``10 ** x``."""
+    return torch.pow(10.0, x.double()).to(torch.float32)
+
+
 def path_gain_jax(dist_m: torch.Tensor, cp: ChannelParams) -> torch.Tensor:
-    loss_db = cp.ref_loss_db + 10.0 * cp.path_loss_exponent * torch.log10(
-        dist_m)
-    return torch.pow(10.0, -loss_db / 10.0)
+    k = cp.path_loss_exponent * _DB_PER_NEPER
+    loss_db = (torch.log(dist_m.double()).to(torch.float32).double()
+               * k.double() + cp.ref_loss_db.double()).to(torch.float32)
+    return _pow10(-loss_db * 0.1)
 
 
 def sample_fading_jax(key: torch.Tensor, n: int) -> torch.Tensor:
@@ -84,8 +176,8 @@ def sample_fading_jax(key: torch.Tensor, n: int) -> torch.Tensor:
 
 def snr_jax(dist_m, fading, cp: ChannelParams, bandwidth_hz=None):
     bw = bandwidth_hz if bandwidth_hz is not None else cp.bandwidth_hz
-    p = torch.pow(10.0, (cp.tx_power_dbm - 30.0) / 10.0)
-    n0 = torch.pow(10.0, cp.noise_dbw_per_hz / 10.0) * bw
+    p = _pow10((cp.tx_power_dbm - 30.0) * 0.1)
+    n0 = _pow10(cp.noise_dbw_per_hz * 0.1) * bw
     return p * path_gain_jax(dist_m, cp) * fading / n0
 
 
@@ -93,8 +185,8 @@ def downlink_snr_jax(dist_m, fading, cp: ChannelParams, bandwidth_hz=None):
     """Broadcast (BS -> device) SNR at ``bs_power_dbm`` over the full cell
     bandwidth by default; ``fading`` is the downlink slot's own draw."""
     bw = bandwidth_hz if bandwidth_hz is not None else cp.bandwidth_hz
-    p = torch.pow(10.0, (cp.bs_power_dbm - 30.0) / 10.0)
-    n0 = torch.pow(10.0, cp.noise_dbw_per_hz / 10.0) * bw
+    p = _pow10((cp.bs_power_dbm - 30.0) * 0.1)
+    n0 = _pow10(cp.noise_dbw_per_hz * 0.1) * bw
     return p * path_gain_jax(dist_m, cp) * fading / n0
 
 

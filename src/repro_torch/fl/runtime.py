@@ -51,7 +51,8 @@ synced through the macro BS every H rounds. Its round is
 :meth:`_HFLEngine.step`, shared by its scan, its host loop and
 ``run_sweep(hcfg=, hcfgs=)``.
 
-Not in this slice: gossip and fog, and sharding a sweep over several cards.
+Gossip and fog are ``fl/decentralized.py``. Not ported: sharding a sweep
+over several cards.
 """
 from __future__ import annotations
 
