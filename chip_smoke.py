@@ -137,6 +137,35 @@ Phases (any failure exits non-zero):
    40-round gossip run under ``torch.profiler`` (host ms, ``cudaLaunchKernel``
    a round, the device's busy share); (e) the six kernels' counters read
    0 (``gossip_launches`` in the kernels line).
+15. lm: the dense transformer LM through the flat engine, every kernel
+   counter set to 0 at its start: (a) ``examples/quickstart.py``'s cell at
+   its width (gemma-2b ``reduced()``, D = 541 312, N = 12, 4 scheduled by
+   age, H = 2, batch 4, seq 32, 2048 sequences, Dirichlet 0.3, top-k at
+   D // 50 with EF, lr 2e-3, 32 x param_count model bits): QS_CHECK_ROUNDS
+   rounds on the card against the CPU (participation bitwise, uplink bits
+   equal, latency within rtol 1e-5, loss within rtol 1e-4), then the
+   example's 30 rounds through ``run_simulation`` with its assert that the
+   last loss is below the first; ``examples/private_fl.py``'s runs (none,
+   secagg, secagg_dp at clip 1.0, sigma 0.5) and its dp sweep at sigma 0.3,
+   1.0, 3.0, PF_CHECK_ROUNDS rounds each, card against CPU; (b) the
+   quickstart at gemma-2b's published widths (d_model 2048, 8 heads, MQA,
+   head_dim 256, GeGLU d_ff 16 384, vocab 256 000, tied embeddings), cut to
+   QS_FULL_DEPTH layers in float32, D = 744 499 200: the init's peak memory,
+   one ``lm_loss`` and its gradient card against CPU (loss within rtol 1e-5,
+   the gradient's relative L2 error), ``topk_rows`` on one (1, D) row
+   against its plain version (bitwise) with its time, then QS_FULL_ROUNDS
+   rounds in blocks of QS_FULL_CHUNK (s a round, peak memory, loss and
+   bits, ``topk_rows`` launched rounds x 12 times, the five other counters
+   0); then, since the example's traffic schedules nobody at that width,
+   two untimed ``fl_round``s as the engine calls them (blocks of one,
+   ``donate=True``) with two clients forced to participate, the second held
+   bit for bit against plain versions: each client's new EF row against
+   its corrected message less ``topk_rows_plain`` of it, and the new params
+   against the plain mean of the two messages (the fold of the two block
+   partials and the server step); ``lm_launches`` in the kernels line.
+
+Phase 3 also holds ``qsgd_rows`` given its norms at (6, 744 497 152), rows
+x d past 2^32 (the flat pass), against its plain version row by row.
 
 Every phase prints its wall time. The last two lines of output are the
 kernel table as JSON and the result.
@@ -231,6 +260,20 @@ GOSSIP_N, GOSSIP_ROUNDS, GOSSIP_CHECK_ROUNDS = 64, 40, 5
 FOG_STEPS = (1, 2, 4)
 EX_GOSSIP_N, EX_GOSSIP_ROUNDS = 16, 40
 EX_FOG_N, EX_FOG_ROUNDS, EX_CHECK_ROUNDS = 28, 24, 4
+# examples/quickstart.py and examples/private_fl.py: gemma-2b reduced(),
+# N = 12, 4 scheduled by age, H = 2, batch 4, seq 32, 2048 sequences,
+# Dirichlet 0.3, lr 2e-3; the quickstart's 30 rounds of top-k at 2% with
+# EF; private_fl's clip 1.0, sigma 0.5 and dp sweep at sigma 0.3, 1, 3
+QS_N, QS_SCHED, QS_H, QS_B, QS_SEQ, QS_ROUNDS = 12, 4, 2, 4, 32, 30
+QS_CHECK_ROUNDS, PF_CHECK_ROUNDS, PF_SIGMAS = 3, 3, (0.3, 1.0, 3.0)
+# the quickstart at gemma-2b's published widths: the depth cut from 18 to
+# 2, as reduced() cuts it; clients in blocks of one, so that the round
+# holds one client's local SGD beside the (12, D) EF; one round (the
+# example runs 30): a round takes about 24 s on an H100, 0.97 of it
+# topk_rows on twelve 744M-wide rows, and two rounds would take the script
+# past 300 s; (6, D) the flat QSGD case past 2^32
+QS_FULL_DEPTH, QS_FULL_CHUNK, QS_FULL_ROUNDS = 2, 1, 1
+FLAT_QSGD_SHAPE = (6, 744_497_152)
 ROWS_SRC = "src/repro_torch/kernels/csrc/rows.cu"
 TILES_SRC = "src/repro_torch/kernels/csrc/tiles.cu"
 
@@ -501,6 +544,32 @@ def check_kernels(dev, table: dict) -> None:
             log(f"kernel {name} {shape} offset {offset}: max_abs_err "
                 f"{err:.3g} device_ms {device_ms(kern, 200):.5f}")
         del x, e, u, norms
+    check_qsgd_flat(dev, table)
+
+
+def check_qsgd_flat(dev, table: dict) -> None:
+    """QSGD given its norms at FLAT_QSGD_SHAPE, rows x d past 2^32 (the
+    flat pass, whose index must be 64-bit), against its plain version row
+    by row (the plain version's temporaries at the whole size would not fit
+    beside the three 17.9 GB operands); all freed before returning."""
+    from repro_torch.kernels import qsgd
+    rows, d = FLAT_QSGD_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn(rows, d, device=dev, generator=gen)
+    u = torch.rand(rows, d, device=dev, generator=gen)
+    norms = torch.linalg.vector_norm(x, dim=1, keepdim=True)
+    lv = torch.tensor(256.0, device=dev)
+    out, secs = wall_s(lambda: qsgd.qsgd_rows(x, u, norms, lv))
+    for r in range(rows):
+        if not torch.equal(out[r:r + 1], qsgd.qsgd_rows_plain(
+                x[r:r + 1], u[r:r + 1], norms[r:r + 1], lv)):
+            raise AssertionError(f"qsgd_rows {FLAT_QSGD_SHAPE}: row {r} "
+                                 "differs from its plain version")
+    log(f"kernel qsgd_rows+norms {FLAT_QSGD_SHAPE} (rows x d = {rows * d} "
+        f"> 2^32): bitwise its plain version row by row; {secs * 1e3:.3f} "
+        f"ms a call")
+    del x, u, norms, out
+    torch.cuda.empty_cache()
 
 
 def check_tile_kernels(dev, table: dict) -> None:
@@ -1620,6 +1689,335 @@ def run_gossip(dev, smi: str) -> dict:
     return launches
 
 
+def _qs_data(vocab: int, seed: int = 0):
+    """The examples' data: the port's copies of the synthetic source, the
+    Dirichlet partition and the loader, as the examples make them."""
+    from repro_torch.data import (FederatedLoader, SyntheticLMDataset,
+                                  dirichlet_partition)
+    ds = SyntheticLMDataset(vocab, seq_len=QS_SEQ, n_sequences=2048)
+    parts = dirichlet_partition(ds.class_of(np.arange(len(ds))), QS_N,
+                                alpha=0.3, min_per_client=8)
+    return FederatedLoader(ds, parts, batch=QS_B, local_steps=QS_H,
+                           seed=seed)
+
+
+def _qs_sim(cfg, d: int, rounds: int, **kw):
+    """The quickstart's SimConfig (or private_fl's, with privacy= and no
+    compression)."""
+    from repro_torch.core.algorithms import registry as algos
+    from repro_torch.core.compression import registry as comp
+    from repro_torch.fl import runtime as rt
+    if "privacy" not in kw:
+        kw.update(compression="topk", compression_params=(
+            comp.compression_params(k=max(1, d // 50))))
+    return rt.SimConfig(n_devices=QS_N, n_scheduled=QS_SCHED, rounds=rounds,
+                        local_steps=QS_H, algo_params=algos.algo_params(
+                            lr=2e-3), policy="age",
+                        model_bits=32.0 * cfg.param_count(), **kw)
+
+
+def _on(batches: dict, device) -> dict:
+    return {k: torch.as_tensor(v, device=device) for k, v in batches.items()}
+
+
+def _lm_forced_rounds(dev, loss_fn, params, batches, k: int) -> dict:
+    """Phase 15 (b): two rounds of ``fl_round`` as the engine calls it
+    (blocks of one, ``donate=True``) at full width, two clients forced to
+    participate, so that the two block partials fold through
+    ``CanonicalFold`` and the server applies their mean. The second round,
+    whose old EF rows are not zero, is held against plain versions: each
+    client's new EF row against ``corrected - topk_rows_plain(corrected)``,
+    with ``corrected`` its delta (its client step computed again, the same
+    operations on the same inputs) plus its old EF row, and the new params
+    against ``params + server_lr * (m_0 + m_1) / 2`` with ``m_i`` the plain
+    top-k of ``corrected_i``. Both must agree bit for bit. Returns the
+    launches of the two rounds, their peak memory and what was compared."""
+    from repro_torch import random as trandom
+    from repro_torch.core.algorithms import registry as algos
+    from repro_torch.core.compression import registry as comp
+    from repro_torch.fl import client as fl_client
+    from repro_torch.fl import server as fl_server
+    from repro_torch.kernels import topk_mask
+    n = 2
+    ap = algos.algo_params(lr=2e-3, device=dev)
+    cp = comp.compression_params(k=k, device=dev)
+    kt = torch.tensor(float(k), device=dev)
+    part = torch.ones(n, device=dev)
+    b = {k_: v[:n] for k_, v in batches.items()}
+    kw = dict(algo="fedavg", aparams=ap, participation=part,
+              compression_name="topk", cparams=cp, chunk_size=1,
+              donate=True)
+    counter = topk_mask.topk_rows
+    counter.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    state = fl_server.init_fl_state(params, n, use_ef=True, n_rows=n)
+    state, _ = fl_server.fl_round(state, b, loss_fn,
+                                  key=trandom.PRNGKey(1, dev), **kw)
+    p1, ef1 = state.params, state.client_error.clone()
+    state, metrics = fl_server.fl_round(state, b, loss_fn,
+                                        key=trandom.PRNGKey(2, dev), **kw)
+    launches = counter.launches
+    peak = torch.cuda.max_memory_allocated()
+    step = fl_client.make_client_step(loss_fn, ap.lr)
+    msgs, ef_bad = [], 0
+    for i in range(n):  # one client at a time, as the blocks of one ran
+        deltas, _ = step(p1, {k_: v[i:i + 1] for k_, v in b.items()})
+        corrected = fl_server.flatten_clients(deltas)[0] + ef1[i:i + 1]
+        del deltas
+        m = topk_mask.topk_rows_plain(corrected, kt)
+        ef_bad += int((corrected - m != state.client_error[i:i + 1]).sum())
+        msgs.append(m[0])
+        del corrected, m
+    del ef1
+    want = algos.flatten_vec(p1) + ap.server_lr * ((msgs[0] + msgs[1]) / 2.0)
+    p_bad = int((algos.flatten_vec(state.params) != want).sum())
+    nnz = [int((m != 0).sum()) for m in msgs]
+    del msgs, want, state, p1
+    torch.cuda.empty_cache()
+    return dict(launches=launches, peak=peak, ef_bad=ef_bad, p_bad=p_bad,
+                nnz=nnz, loss=float(metrics["loss"]),
+                bits=float(metrics["uplink_bits"]))
+
+
+def run_lm(dev, smi: str) -> dict:
+    """Phase 15: the dense transformer LM through the flat engine, the two
+    examples at their width (a), then the quickstart at gemma-2b's published
+    widths (b). Returns each kernel's launches across the phase."""
+    import dataclasses
+    from repro_torch import random as trandom
+    from repro_torch.configs import get_config
+    from repro_torch.core.algorithms import registry as algos
+    from repro_torch.core.privacy import registry as priv
+    from repro_torch.fl import runtime as rt
+    from repro_torch.kernels import topk_mask
+    from repro_torch.models import transformer as tf
+    counters = dict(_row_counters(), **_tile_counters())
+    total = dict.fromkeys(counters, 0)
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read():
+        got = {n: fn.launches for n, fn in counters.items()}
+        for n, v in got.items():
+            total[n] += v
+        return got
+
+    part = time.perf_counter()
+
+    def took(what):
+        nonlocal part
+        log(f"lm {what}: {time.perf_counter() - part:.2f} s")
+        part = time.perf_counter()
+
+    # (a) the examples at their own width
+    cfg = get_config("gemma-2b").reduced()
+    params = tf.init_params(cfg, trandom.PRNGKey(0, dev))
+    cparams = tf.init_params(cfg, trandom.PRNGKey(0))
+    # each leaf's largest difference over its largest value (threefry is
+    # bitwise; normal's erfinv rounds a few ulps apart on the two devices)
+    init_err = max(float((params[k].cpu() - cparams[k]).abs().max()
+                         / cparams[k].abs().max().clamp_min(1e-30))
+                   for k in cparams)
+    if init_err > 1e-5:
+        raise AssertionError(f"lm (a) init: card {init_err:.3g} off the cpu")
+    cparams = {k: v.cpu() for k, v in params.items()}
+    d = algos.flat_dim(params)
+
+    def loss_fn(p, b):
+        return tf.lm_loss(p, cfg, b, remat=False)
+
+    loader = _qs_data(cfg.vocab_size)
+    batches = rt.stack_batches(lambda t, n: loader.next_round(),
+                               QS_CHECK_ROUNDS, QS_N)
+    sim = _qs_sim(cfg, d, QS_CHECK_ROUNDS)
+    zero()
+    (_, g), secs = wall_s(lambda: rt.run_simulation_scan(
+        sim, loss_fn, params, _on(batches, dev), device=dev))
+    got = read()
+    _, c = rt.run_simulation_scan(sim, loss_fn, cparams, _on(batches, "cpu"),
+                                  device="cpu")
+    rel = _card_equals_cpu("lm (a) quickstart", g, c)
+    if got["topk_rows"] != QS_CHECK_ROUNDS or sum(got.values()) != \
+            QS_CHECK_ROUNDS:
+        raise AssertionError(f"lm (a) quickstart: launches {got}")
+    log(f"lm (a) quickstart D={d} N={QS_N}: card == cpu for "
+        f"{QS_CHECK_ROUNDS} rounds (participation, bits; latency; loss max "
+        f"rel diff {rel:.3g}), init max rel diff {init_err:.3g}; "
+        f"{secs:.3f} s on the card; launches {got}; loss {c.loss.tolist()}")
+    loader = _qs_data(cfg.vocab_size)
+    zero()
+    logs, secs = wall_s(lambda: rt.run_simulation(
+        _qs_sim(cfg, d, QS_ROUNDS), loss_fn, params,
+        lambda t, n: loader.next_round(), device=dev))
+    got = read()
+    for lg in logs[::5] + [logs[-1]]:
+        log(f"lm (a) quickstart round {lg.round:3d}  wall-clock "
+            f"{lg.latency_s:8.1f}s  (comm {lg.comm_s:6.1f}s)  loss "
+            f"{lg.loss:.4f}  scheduled {lg.n_scheduled}  uplink "
+            f"{lg.uplink_bits:.2e}b")
+    if not logs[-1].loss < logs[0].loss or got["topk_rows"] != QS_ROUNDS:
+        raise AssertionError(f"lm (a) quickstart: loss {logs[0].loss} -> "
+                             f"{logs[-1].loss}, launches {got}")
+    log(f"lm (a) quickstart: {QS_ROUNDS} rounds in {secs:.3f} s "
+        f"({QS_ROUNDS / secs:.4f} rounds/s) on {smi}; the loss falls "
+        f"{logs[0].loss:.4f} -> {logs[-1].loss:.4f}; launches {got}")
+    took("(a) quickstart")
+
+    pp = priv.privacy_params(clip=1.0, sigma=0.5)
+    batches = rt.stack_batches(lambda t, n: loader.next_round(),
+                               PF_CHECK_ROUNDS, QS_N)
+    zero()
+    for privacy in ("none", "secagg", "secagg_dp"):
+        psim = _qs_sim(cfg, d, PF_CHECK_ROUNDS, privacy=privacy,
+                       privacy_params=pp)
+        g, c = (rt.run_simulation_scan(psim, loss_fn, p, _on(batches, dv),
+                                       device=dv)[1]
+                for p, dv in ((params, dev), (cparams, "cpu")))
+        rel = _card_equals_cpu(f"lm (a) private_fl {privacy}", g, c)
+        log(f"lm (a) private_fl {privacy}: card == cpu for "
+            f"{PF_CHECK_ROUNDS} rounds; loss {c.loss.tolist()} (max rel "
+            f"diff {rel:.3g}), epsilon {c.epsilon.tolist()}, mask bits "
+            f"{c.mask_bits.tolist()}")
+    grid = [priv.privacy_params(clip=1.0, sigma=s) for s in PF_SIGMAS]
+    g, c = (rt.run_sweep(_qs_sim(cfg, d, PF_CHECK_ROUNDS, privacy="dp",
+                                 privacy_params=pp), loss_fn, p,
+                         _on(batches, dv), seeds=[0], privacies=["dp"],
+                         pparams_grid=grid, device=dv)[("age", "dp")]
+            for p, dv in ((params, dev), (cparams, "cpu")))
+    _card_equals_cpu("lm (a) private_fl dp sweep", g, c)
+    got = read()
+    if any(got.values()):
+        raise AssertionError(f"lm (a) private_fl: launches {got}")
+    log(f"lm (a) private_fl dp sweep sigma {PF_SIGMAS}: card == cpu; final "
+        f"loss {c.loss[:, -1].tolist()}, epsilon {c.epsilon[:, -1].tolist()}"
+        f"; launches {got}")
+    del params, cparams
+    took("(a) private_fl")
+
+    # (b) the quickstart at gemma-2b's published widths, depth cut
+    cfg = dataclasses.replace(get_config("gemma-2b"), n_layers=QS_FULL_DEPTH,
+                              dtype="float32")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params, secs = wall_s(lambda: tf.init_params(cfg, trandom.PRNGKey(0,
+                                                                       dev)))
+    d = algos.flat_dim(params)
+    init_peak = torch.cuda.max_memory_allocated() - base
+    k = max(1, d // 50)
+    gb = 4 * d / 1e9
+    log(f"lm (b) {cfg.name} at its published widths, {cfg.n_layers} layers, "
+        f"float32: D = {d} (param_count {cfg.param_count()}), k = {k}; init "
+        f"{secs:.3f} s, peak {init_peak / 1e9:.3f} GB (params {gb:.3f} GB); "
+        f"reckoned: the (12, D) EF {12 * gb:.1f} GB, server params "
+        f"{gb:.2f} GB (and the caller's copy), about 8 D-sized buffers a "
+        f"client in a block of {QS_FULL_CHUNK}: {8 * gb:.1f} GB")
+    loader = _qs_data(cfg.vocab_size)
+    batches = rt.stack_batches(lambda t, n: loader.next_round(),
+                               QS_FULL_ROUNDS, QS_N)
+    b0 = {k_: torch.as_tensor(v[0, 0, 0]) for k_, v in batches.items()}
+
+    def value_grad(p, b):
+        return torch.func.grad_and_value(
+            lambda q: tf.lm_loss(q, cfg, b, remat=False)[0])(p)
+
+    (gg, gl), secs = wall_s(lambda: value_grad(params, _on(b0, dev)))
+    cp = {k_: v.cpu() for k_, v in params.items()}
+    t0 = time.perf_counter()
+    cg, cl = value_grad(cp, b0)
+    cpu_s = time.perf_counter() - t0
+    num = sum(float(((gg[k_].cpu() - cg[k_]) ** 2).sum()) for k_ in cg)
+    den = sum(float((cg[k_] ** 2).sum()) for k_ in cg)
+    grad_err = (num / den) ** 0.5
+    loss_err = abs(float(gl) - float(cl)) / abs(float(cl))
+    del gg, cg, cp
+    log(f"lm (b) lm_loss of a ({QS_B}, {QS_SEQ}) batch: card {float(gl):.6f} "
+        f"cpu {float(cl):.6f} (rel diff {loss_err:.3g}); gradient relative "
+        f"L2 error {grad_err:.3g}; {secs:.3f} s on the card, {cpu_s:.3f} s on "
+        f"the cpu")
+    if loss_err > 1e-5 or not grad_err < 1e-4:
+        raise AssertionError(f"lm (b) lm_loss: loss {loss_err:.3g}, "
+                             f"gradient {grad_err:.3g} off the cpu")
+    took("(b) init and gradient")
+
+    # B2 on one (c, D) block: against its plain version, and its time
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(QS_FULL_CHUNK, d, device=dev, generator=gen)
+    kt = torch.tensor(float(k), device=dev)
+    err = _compare("topk_rows", (QS_FULL_CHUNK, d),
+                   topk_mask.topk_rows(x, kt),
+                   topk_mask.topk_rows_plain(x, kt), False)
+    # a call takes about 2 s: one timed call each, after time_ms's warm-up
+    ms = time_ms(lambda: topk_mask.topk_rows(x, kt), 1)
+    dev_ms = device_ms(lambda: topk_mask.topk_rows(x, kt), 1)
+    plain_ms = time_ms(lambda: topk_mask.topk_rows_plain(x, kt), 1)
+    b_ms, b_by = bound_ms("topk_rows", QS_FULL_CHUNK * d)
+    del x
+    torch.cuda.empty_cache()
+    row = dict(shape=[QS_FULL_CHUNK, d], max_abs_err=err, ms=ms,
+               device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by)
+    log(f"lm (b) kernel topk_rows ({QS_FULL_CHUNK}, {d}): max_abs_err "
+        f"{err:.3g} ms {ms:.3f} device_ms {dev_ms:.3f} plain_ms "
+        f"{plain_ms:.3f} bound_ms {b_ms:.3f} ({b_by}, 8 B/elem at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); {dev_ms / b_ms:.1f}x the bound")
+    took("(b) topk_rows")
+
+    zero()
+    torch.cuda.reset_peak_memory_stats()
+    sim = _qs_sim(cfg, d, QS_FULL_ROUNDS, chunk_size=QS_FULL_CHUNK)
+    (_, logs), secs = wall_s(lambda: rt.run_simulation_scan(
+        sim, lambda p, b: tf.lm_loss(p, cfg, b, remat=False), params,
+        _on(batches, dev), device=dev))
+    got = read()
+    peak = torch.cuda.max_memory_allocated()
+    blocks = -(-QS_N // QS_FULL_CHUNK)
+    for t in range(QS_FULL_ROUNDS):
+        log(f"lm (b) round {t}: loss {float(logs.loss[t]):.6f}, uplink "
+            f"{float(logs.uplink_bits[t]):.6e} bits, simulated wall clock "
+            f"{float(logs.latency_s[t]):.3f} s, scheduled "
+            f"{int(logs.n_scheduled[t])}")
+    why = ("" if logs.n_scheduled.any() else
+           "; no device clears it, so no update is aggregated (every client "
+           "still trains and compresses)")
+    log(f"lm (b) scheduled {logs.n_scheduled.tolist()}: the age policy "
+        f"schedules devices that clear R_min = model_bits / deadline = "
+        f"{sim.model_bits / sim.deadline_s:.4e} b/s on their free "
+        f"subchannels{why}")
+    log(f"lm (b) {QS_FULL_ROUNDS} rounds in {secs:.3f} s: "
+        f"{secs / QS_FULL_ROUNDS:.3f} s a round on {smi}; "
+        f"max_memory_allocated {peak / 1e9:.3f} GB of "
+        f"{torch.cuda.get_device_properties(dev).total_memory / 1e9:.3f}; "
+        f"launches {got}")
+    if (got["topk_rows"] != QS_FULL_ROUNDS * blocks
+            or sum(got.values()) != got["topk_rows"]
+            or not np.isfinite(logs.loss).all()):
+        raise AssertionError(f"lm (b): launches {got}, loss {logs.loss}")
+    took("(b) engine")
+
+    f = _lm_forced_rounds(dev, lambda p, b: tf.lm_loss(p, cfg, b,
+                                                       remat=False),
+                          params, {k_: v[0].to(dev)
+                                   for k_, v in batches.items()}, k)
+    log(f"lm (b) fl_round with 2 clients forced to participate, blocks of "
+        f"one, donate=True: topk_rows launched {f['launches']} times in 2 "
+        f"rounds; round 2 loss {f['loss']:.6f}, uplink {f['bits']:.6e} "
+        f"bits, kept {f['nnz']} of k = {k}; new EF rows off the plain "
+        f"residual at {f['ef_bad']} coordinates, new params off the plain "
+        f"mean at {f['p_bad']}; max_memory_allocated in the rounds "
+        f"{f['peak'] / 1e9:.3f} GB")
+    if (f["launches"] != 4 or f["ef_bad"] or f["p_bad"]
+            or not np.isfinite(f["loss"])):
+        raise AssertionError(f"lm (b) forced rounds: {f}")
+    del params
+    torch.cuda.empty_cache()
+    took("(b) forced rounds")
+    log(f"lm kernel launches across phase 15: {total}")
+    return total, row
+
+
 def main() -> int:
     t0 = time.perf_counter()
     smi = card()
@@ -1640,7 +2038,8 @@ def main() -> int:
               ("sweep", lambda: run_sweep(dev, smi, out["engine"][1])),
               ("host", lambda: run_host(dev, smi, out["engine"][1])),
               ("hfl", lambda: run_hfl(dev, smi)),
-              ("gossip", lambda: run_gossip(dev, smi))]
+              ("gossip", lambda: run_gossip(dev, smi)),
+              ("lm", lambda: run_lm(dev, smi))]
     out = {}
     log(f"phase card: {time.perf_counter() - t0:.2f} s")
     for name, fn in phases:
@@ -1658,10 +2057,12 @@ def main() -> int:
                      "sweep_launches": out["sweep"][name],
                      "hfl_launches": out["hfl"][name],
                      "gossip_launches": out["gossip"][name],
+                     "lm_launches": out["lm"][0][name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "device_ms": r["device_ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": None})
+    rows[list(KERNELS).index("topk_rows")]["lm_row"] = out["lm"][1]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

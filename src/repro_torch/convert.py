@@ -1,8 +1,9 @@
-"""Carry JAX-side values into the port, as numpy arrays: parameter dicts,
-PRNG keys, a whole round state, the channel, compression, algorithm, fault
-and privacy parameters, and the hierarchical and gossip engines'
-configurations. The port never imports JAX; callers hand over
-JAX objects, which are read through ``np.asarray`` and their field names."""
+"""Carry JAX-side values into the port, as numpy arrays: parameter dicts
+(flat, or a transformer's nested tree), PRNG keys, a whole round state, the
+channel, compression, algorithm, fault and privacy parameters, the
+hierarchical and gossip engines' configurations and model configs. The port
+never imports JAX; callers hand over JAX objects, which are read through
+``np.asarray`` and their field names."""
 from __future__ import annotations
 
 import dataclasses
@@ -12,6 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import aggregation as agg
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.algorithms.registry import AlgoParams
 from repro_torch.core.compression.registry import CompressionParams
 from repro_torch.core.compression.error_feedback import SparseEF
@@ -21,6 +23,7 @@ from repro_torch.core.privacy.registry import PrivacyParams
 from repro_torch.core.wireless import ChannelParams
 from repro_torch.fl.decentralized import GossipConfig
 from repro_torch.fl.server import FLState
+from repro_torch.models.transformer import flatten_params
 
 
 def _tensor(v, device=None) -> torch.Tensor:
@@ -37,6 +40,19 @@ def params_from_jax(tree: Dict, device=None) -> Dict[str, torch.Tensor]:
     """A (flat) dict of arrays -> dict of tensors on ``device``, same
     dtypes and values."""
     return {k: _tensor(v, device) for k, v in tree.items()}
+
+
+def lm_params_from_jax(tree: Dict, device=None) -> Dict[str, torch.Tensor]:
+    """The reference transformer's nested params -> the port's flat dict
+    keyed by ``/``-joined paths, leaves (the stacked ``(L, ...)`` ones
+    included) as they are. Sorted, the keys are ``jax.tree.leaves`` order."""
+    return params_from_jax(flatten_params(tree), device)
+
+
+def model_config_from_jax(cfg) -> ModelConfig:
+    """The reference's ``ModelConfig`` -> the port's, field by field."""
+    return ModelConfig(**{f.name: getattr(cfg, f.name)
+                          for f in dataclasses.fields(ModelConfig)})
 
 
 def key_from_jax(key, device=None) -> torch.Tensor:

@@ -55,6 +55,34 @@ def canonical_sum(x: torch.Tensor, valid: Optional[torch.Tensor] = None
     return x[0]
 
 
+class CanonicalFold:
+    """``canonical_sum`` over a stack of block partials, fed one partial at a
+    time: adjacent pairs merge as soon as both exist (a binary counter), and
+    ``total`` pads with ``+0.0`` leaves to a power of two as
+    ``canonical_sum`` pads its rows. Bitwise ``canonical_sum(stack(parts))``,
+    with at most ``log2(m) + 1`` partials alive instead of all ``m``."""
+
+    def __init__(self):
+        self._stack = []  # (level, partial), levels strictly decreasing
+        self._count = 0
+
+    def add(self, x: torch.Tensor) -> None:
+        level = 0
+        while self._stack and self._stack[-1][0] == level:
+            x = self._stack.pop()[1] + x
+            level += 1
+        self._stack.append((level, x))
+        self._count += 1
+
+    def total(self) -> torch.Tensor:
+        if not self._count:
+            raise ValueError("canonical_sum needs at least one row")
+        zero = torch.zeros_like(self._stack[-1][1])
+        for _ in range(pow2_ceil(self._count) - self._count):
+            self.add(zero)
+        return self._stack[0][1]
+
+
 def canonical_mean(x: torch.Tensor, valid: Optional[torch.Tensor] = None,
                    count: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``canonical_sum / count``; ``count`` defaults to N (or the mask sum),

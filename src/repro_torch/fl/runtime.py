@@ -301,10 +301,12 @@ def _log_columns(outs: List[Tuple], n: int) -> Dict[str, np.ndarray]:
 
 def stack_batches(sample_client_batches: Callable[[int, int], Dict],
                   rounds: int, n_devices: int) -> Params:
-    """Pre-sample every round's client batches (array-likes: numpy or
-    tensors); leaves get a leading ``(rounds,)`` axis."""
+    """Pre-sample every round's client batches (array-likes: numpy, or
+    tensors on any one device); leaves get a leading ``(rounds,)`` axis."""
     per_round = [sample_client_batches(t, n_devices) for t in range(rounds)]
-    return {k: torch.stack([torch.tensor(np.asarray(b[k])) for b in per_round])
+    return {k: torch.stack([b[k] if isinstance(b[k], torch.Tensor)
+                            else torch.tensor(np.asarray(b[k]))
+                            for b in per_round])
             for k in per_round[0]}
 
 
@@ -494,7 +496,8 @@ class _Engine:
         self.round_fn = functools.partial(
             fl_server.fl_round, loss_fn=loss_fn, algo=self.algo,
             compression_name=(cfg.compression if self.comp_active else None),
-            chunk_size=self.chunk, n_clients=n, privacy=self.priv)
+            chunk_size=self.chunk, n_clients=n, privacy=self.priv,
+            donate=True)
 
     def variant(self, key: torch.Tensor, chan: wireless.ChannelParams,
                 cparams: CompressionParams, aparams: AlgoParams,

@@ -134,13 +134,24 @@ def _rows(state_rows, lo: int, hi: int):
     return state_rows[lo:hi]
 
 
-def _cat_rows(blocks):
-    if blocks[0] is None:
+def _clone_rows(state_rows):
+    """A copy of per-client state (tensor, SparseEF or None)."""
+    if state_rows is None:
         return None
-    if isinstance(blocks[0], SparseEF):
-        return SparseEF(torch.cat([b.values for b in blocks]),
-                        torch.cat([b.indices for b in blocks]))
-    return torch.cat(blocks)
+    if isinstance(state_rows, SparseEF):
+        return SparseEF(*(t.clone() for t in state_rows))
+    return state_rows.clone()
+
+
+def _write_rows(state_rows, lo: int, block) -> None:
+    """Write a block's rows into per-client state from row ``lo`` on."""
+    if state_rows is None:
+        return
+    if isinstance(state_rows, SparseEF):
+        for dst, src in zip(state_rows, block):
+            dst[lo:lo + src.shape[0]].copy_(src)
+    else:
+        state_rows[lo:lo + block.shape[0]].copy_(block)
 
 
 def _select_rows(keep: torch.Tensor, new, old):
@@ -231,6 +242,7 @@ def fl_round(state: FLState, stacked_batches, loss_fn, *,
              privacy=None, pparams: Optional[PrivacyParams] = None,
              privacy_key: Optional[torch.Tensor] = None,
              gate_ef: bool = False, guard_empty: bool = False,
+             donate: bool = False,
              lr=None, server=None, server_lr=None, slowmo_beta=None,
              momentum=None) -> Tuple[FLState, Dict[str, torch.Tensor]]:
     """One FL round.
@@ -257,7 +269,11 @@ def fl_round(state: FLState, stacked_batches, loss_fn, *,
     ``privacy_key`` privatizes the wire rows: in the field modes they are
     int64 field elements summed mod 2^32, masked by the survivors' pairwise
     masks, and bill ``field_bits * D`` each. With ``chunk_size`` the
-    per-client state needs ``init_fl_state(n_rows=ceil(N/chunk) * chunk)``. The deprecated ``lr=``,
+    per-client state needs ``init_fl_state(n_rows=ceil(N/chunk) * chunk)``;
+    ``donate=True`` (the caller gives ``state`` up, as the engine's carry is)
+    then writes each block's EF and ctrl rows into ``state``'s own tensors,
+    so a round holds one (N, D) EF matrix, not two; without it they go into
+    a copy. The deprecated ``lr=``,
     ``server=``, ``server_lr=``, ``slowmo_beta=`` and ``momentum=`` map onto
     the registry with a warning. Returns the new state and metrics ``loss``,
     ``delta_norm`` and, with compression, the participation-weighted
@@ -361,6 +377,7 @@ def fl_round(state: FLState, stacked_batches, loss_fn, *,
         else:
             deltas, losses = client_pass(batches_b)
         flat, _ = flatten_clients(deltas)            # (c, D) message space
+        del deltas
 
         new_ef_b, ctrl_wire, bits = ef_b, ctrl_flat, None
         if comp_active:
@@ -425,7 +442,12 @@ def fl_round(state: FLState, stacked_batches, loss_fn, *,
         _check_state_rows(ef, state.ctrl, npad, "chunk_size")
         part_pad, sw_pad = (None if v is None else torch.cat(
             [v, v.new_zeros(npad - n)]) for v in (part, sw))
-        psums_m, ef_m, ctrl_m = [], [], []
+        # each block's new rows are written over its old ones: into the
+        # given state under donate, else into a copy of it
+        client_error, new_ctrl = ef, state.ctrl
+        if not donate:
+            client_error, new_ctrl = _clone_rows(ef), _clone_rows(state.ctrl)
+        folds = {}
         for b in range(m):
             lo, hi = b * chunk, (b + 1) * chunk
             ids = chunking.block_ids(b, chunk, dev)
@@ -436,19 +458,17 @@ def fl_round(state: FLState, stacked_batches, loss_fn, *,
                 batches_b = {k: v[src] for k, v in stacked_batches.items()}
             psums_b, ef_b, ctrl_b = client_block(
                 ids, batches_b, _rows(part_pad, lo, hi), _rows(sw_pad, lo, hi),
-                _rows(ef, lo, hi), _rows(state.ctrl, lo, hi))
-            psums_m.append(psums_b)
-            ef_m.append(ef_b)
-            ctrl_m.append(ctrl_b)
-        # block partials are aligned subtrees of the full canonical tree, so
-        # folding them canonically reproduces the unchunked sum bit for bit
-        totals = {k: chunking.canonical_sum(torch.stack([p[k] for p in
-                                                         psums_m]))
-                  for k in psums_m[0]}
+                _rows(client_error, lo, hi), _rows(new_ctrl, lo, hi))
+            # block partials are aligned subtrees of the full canonical
+            # tree, so folding them canonically reproduces the unchunked sum
+            # bit for bit
+            for k, v in psums_b.items():
+                folds.setdefault(k, chunking.CanonicalFold()).add(v)
+            _write_rows(client_error, lo, ef_b)
+            _write_rows(new_ctrl, lo, ctrl_b)
+        totals = {k: f.total() for k, f in folds.items()}
         if field:  # int64 adds mod 2^32: the reference's wrapping uint32
             totals["delta"] = totals["delta"] & FIELD_MASK
-        client_error = _cat_rows(ef_m)
-        new_ctrl = _cat_rows(ctrl_m)
     else:
         _check_state_rows(ef, state.ctrl, n, "the client count")
         ids = torch.arange(n, device=dev)

@@ -127,18 +127,17 @@ def _check_cuda(name: str, first, tensors, x_types) -> None:
             raise ValueError(f"{name}: expected contiguous "
                              f"{'/'.join(map(str, allowed))}, got {t.dtype} "
                              f"(contiguous={t.is_contiguous()})")
-    if first.numel() >= 2 ** 31:
-        raise ValueError(f"{name}: expected < 2^31 elements, got "
-                         f"{first.numel()}")
 
 
 def check_operands(name: str, rows_like, *others) -> None:
     """The row kernels take contiguous float32 CUDA tensors on one device: a
-    2-D ``(rows, d)`` first operand with fewer than 2^31 elements, and
-    further operands of any shape. Raise on anything else."""
+    2-D ``(rows, d)`` first operand with rows and d each below 2^30 (an
+    int index within a row, plus a block's stride, stays below 2^31; the
+    kernels index elements in 64 bits), and further operands of any shape.
+    Raise on anything else."""
     _check_cuda(name, rows_like, (rows_like, *others), (torch.float32,))
-    if rows_like.dim() != 2:
-        raise ValueError(f"{name}: expected (rows, d), got "
+    if rows_like.dim() != 2 or max(rows_like.shape) >= 2 ** 30:
+        raise ValueError(f"{name}: expected (rows, d), each < 2^30, got "
                          f"{tuple(rows_like.shape)}")
 
 
@@ -147,6 +146,9 @@ def check_tile_operands(name: str, x, *others) -> None:
     or bfloat16 with fewer than 2^31 elements, and further contiguous float32
     operands on its device. Raise on anything else."""
     _check_cuda(name, x, (x, *others), (torch.float32, torch.bfloat16))
+    if x.numel() >= 2 ** 31:
+        raise ValueError(f"{name}: expected < 2^31 elements, got "
+                         f"{x.numel()}")
 
 
 def launch(name: str, fn, first, *args) -> None:

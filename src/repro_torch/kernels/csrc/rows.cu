@@ -261,15 +261,17 @@ qsgd_rows_group(const float* __restrict__ x, const float* __restrict__ u,
   store_vals<V, VEC>(out + l.off, ov);
 }
 
-// Wider rows with their norms given: no reduction left, a flat pass.
+// Wider rows with their norms given: no reduction left, a flat pass. The
+// count and the index are 64-bit: rows * d passes 2^32 at six rows of a
+// 744M-parameter model's message.
 __global__ void qsgd_rows_flat(const float* __restrict__ x,
                                const float* __restrict__ u,
                                const float* __restrict__ norms,
-                               float* __restrict__ out, unsigned n,
-                               unsigned d, const float* __restrict__ lp) {
+                               float* __restrict__ out, long long n,
+                               long long d, const float* __restrict__ lp) {
   const float levels = clamp_levels(*lp);
-  for (unsigned i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += gridDim.x * blockDim.x)
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x)
     out[i] = qsgd_elem(x[i], u[i], norms[i / d], levels);
 }
 
@@ -350,7 +352,8 @@ __global__ void sign_ef_rows_warp(const float* __restrict__ x,
                                   const float* __restrict__ e,
                                   float* __restrict__ c_out,
                                   float* __restrict__ e_out, int rows, int d) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const long long row =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   if (row >= rows) return;
   sign_ef_warp_row<VPT>(x, e, c_out, e_out, (size_t)row * d, d,
                         (size_t)rows * d, threadIdx.x & 31);
@@ -414,11 +417,11 @@ extern "C" int qsgd_rows_launch(const float* x, const float* u,
                  qsgd_rows_group<G, V, VEC><<<grid, block, 0, s>>>(
                      x, u, norms, out, rows, d, levels))
   } else if (norms) {
-    const unsigned n = (unsigned)rows * (unsigned)d;
-    unsigned grid = (n + 255) / 256;
-    if (grid > 132u * 32u) grid = 132u * 32u;  // grid-stride beyond ~32 waves
-    qsgd_rows_flat<<<grid, 256, 0, s>>>(x, u, norms, out, n, (unsigned)d,
-                                        levels);
+    const long long n = (long long)rows * d;
+    long long grid = (n + 255) / 256;
+    if (grid > 132 * 32) grid = 132 * 32;  // grid-stride beyond ~32 waves
+    qsgd_rows_flat<<<(unsigned)grid, 256, 0, s>>>(x, u, norms, out, n, d,
+                                                  levels);
   } else {
     qsgd_rows_block<<<rows, kRowThreads, 0, s>>>(x, u, out, d, levels);
   }

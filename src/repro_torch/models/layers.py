@@ -1,0 +1,165 @@
+"""Shared layer primitives: norms, RoPE, MLPs, embeddings, inits. Port of
+``repro/models/layers.py``.
+
+Conventions
+-----------
+* Init functions take a threefry key (``repro_torch.random``, the
+  reference's generator bit for bit) and return a nested dict of tensors on
+  the key's device, drawing what the reference draws from the same keys in
+  the same order. Layer stacks have a leading layer axis: ``stacked_init``
+  splits the key ``n`` ways and writes each layer's draw into the stack, one
+  leaf at a time, where the reference ``vmap``s the per-layer init.
+* Apply functions take the same nested dicts; model matmuls are plain ``@``
+  in the parameters' dtype, norms and RoPE compute in float32.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch import random as trandom
+
+Params = Dict[str, Any]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """A config's dtype name -> the torch dtype."""
+    return _DTYPES[name]
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+def init_norm(key, d: int, norm_type: str, dtype) -> Params:
+    p = {"scale": torch.ones((d,), dtype=dtype, device=key.device)}
+    if norm_type == "layernorm":
+        p["bias"] = torch.zeros((d,), dtype=dtype, device=key.device)
+    return p
+
+
+def apply_norm(p: Params, x: torch.Tensor, norm_type: str,
+               eps: float = 1e-6) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    if norm_type == "layernorm":
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = (xf - mu).square().mean(dim=-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+        y = y * p["scale"].to(torch.float32) + p["bias"].to(torch.float32)
+    else:  # rmsnorm
+        ms = xf.square().mean(dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + eps) * p["scale"].to(torch.float32)
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (torch.tensor(theta, dtype=torch.float32,
+                               device=device) ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq) integers."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)  # (hd/2,)
+    angles = positions[..., None].to(torch.float32) * freqs  # (..., seq, hd/2)
+    cos = torch.cos(angles)[..., None, :]  # broadcast over heads
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Dense / gated MLPs
+# ---------------------------------------------------------------------------
+def init_mlp(key, d: int, d_ff: int, mlp_type: str, dtype) -> Params:
+    k1, k2, k3 = trandom.split(key, 3)
+    if mlp_type in ("swiglu", "geglu"):
+        return {"w_gate": dense_init(k1, (d, d_ff), dtype),
+                "w_up": dense_init(k2, (d, d_ff), dtype),
+                "w_down": dense_init(k3, (d_ff, d), dtype)}
+    return {"w_up": dense_init(k1, (d, d_ff), dtype),
+            "b_up": torch.zeros((d_ff,), dtype=dtype, device=key.device),
+            "w_down": dense_init(k2, (d_ff, d), dtype),
+            "b_down": torch.zeros((d,), dtype=dtype, device=key.device)}
+
+
+def _gelu(v: torch.Tensor) -> torch.Tensor:
+    return F.gelu(v, approximate="tanh")
+
+
+def apply_mlp(p: Params, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
+    if mlp_type in ("swiglu", "geglu"):
+        act = F.silu if mlp_type == "swiglu" else _gelu
+        h = act(x @ p["w_gate"]) * (x @ p["w_up"])
+        return h @ p["w_down"]
+    h = _gelu(x @ p["w_up"] + p["b_up"])
+    return h @ p["w_down"] + p["b_down"]
+
+
+# ---------------------------------------------------------------------------
+# Embeddings
+# ---------------------------------------------------------------------------
+def init_embedding(key, vocab: int, d: int, dtype) -> torch.Tensor:
+    return dense_init(key, (vocab, d), dtype, scale=d ** -0.5)
+
+
+def embed_tokens(table: torch.Tensor, tokens: torch.Tensor,
+                 scale_by_dim: bool = False) -> torch.Tensor:
+    out = table[tokens.long()]
+    if scale_by_dim:  # gemma-style embedding scaling, in the table's dtype
+        out = out * torch.tensor(out.shape[-1] ** 0.5, dtype=out.dtype,
+                                 device=out.device)
+    return out
+
+
+def sinusoidal_positions(n_pos: int, d: int, device=None) -> torch.Tensor:
+    """Whisper-style sinusoidal table (float32)."""
+    half = d // 2
+    log_base = torch.log(torch.tensor(10_000.0, device=device))
+    freq = torch.exp(-log_base * torch.arange(half, dtype=torch.float32,
+                                              device=device) / (half - 1))
+    args = torch.arange(n_pos, dtype=torch.float32,
+                        device=device)[:, None] * freq[None, :]
+    return torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Init helpers
+# ---------------------------------------------------------------------------
+def _stack_into(out, tree, i: int, n: int):
+    """Write ``tree`` (a nested dict of tensors) as layer ``i`` of the
+    stacked ``out`` (allocated at ``i == 0``); returns ``out``."""
+    if isinstance(tree, dict):
+        out = {} if out is None else out
+        for k, v in tree.items():
+            out[k] = _stack_into(out.get(k), v, i, n)
+        return out
+    if out is None:
+        out = torch.empty((n,) + tuple(tree.shape), dtype=tree.dtype,
+                          device=tree.device)
+    out[i] = tree
+    return out
+
+
+def stacked_init(init_fn: Callable, key, n: int):
+    """``init_fn`` over ``n`` split keys -> a leading stack dim. Layer by
+    layer into the stack, so one layer's draws are alive at a time."""
+    keys = trandom.split(key, n)
+    out = None
+    for i in range(n):
+        out = _stack_into(out, init_fn(keys[i]), i, n)
+    return out
+
+
+def dense_init(key, shape, dtype, scale: float | None = None):
+    scale = shape[0] ** -0.5 if scale is None else scale
+    return (trandom.normal(key, shape) * scale).to(dtype)

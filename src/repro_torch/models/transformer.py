@@ -1,0 +1,182 @@
+"""Decoder-only transformer LM, the dense family. Port of the training path
+of ``repro/models/transformer.py``.
+
+The port's parameters are a flat dict whose keys are the reference's tree
+paths joined with ``/`` (``"blocks/attn/wq"``, ``"embed"``,
+``"final_norm/scale"``): sorted, they are in ``jax.tree.leaves`` order,
+because ``/`` sorts below every letter, digit and ``_``, so the engine's flat
+(D,) message is the reference's coordinate for coordinate. Layers keep the
+reference's leading layer axis (``blocks/*`` leaves are ``(L, ...)``), and
+``forward_trunk`` runs them in a Python loop where the reference scans.
+
+Only ``family == "dense"`` is ported; the other families (moe, ssm, hybrid,
+vlm, audio), prefill and decode raise or are absent (ROADMAP queue A).
+``remat`` is accepted for the reference's signatures: the reference
+rematerializes to save memory, and under ``torch.func`` the port computes
+the same numbers without recomputation.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch import random as trandom
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (apply_mlp, apply_norm, dense_init,
+                                       embed_tokens, init_embedding, init_mlp,
+                                       init_norm, stacked_init, torch_dtype)
+
+Params = Dict[str, Any]
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.name}) is not ported yet: the port "
+            "runs the dense family (ROADMAP queue A)")
+
+
+def flatten_params(tree: Params, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A nested dict of tensors -> the port's flat ``/``-keyed dict."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flatten_params(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def nest_params(params: Params) -> Params:
+    """The flat ``/``-keyed dict -> nested dicts of the same tensors (a
+    nested dict passes through)."""
+    out: Params = {}
+    for k, v in params.items():
+        *path, leaf = k.split("/")
+        node = out
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return out
+
+
+# ===========================================================================
+# init_params
+# ===========================================================================
+def _init_attn_layer(key, cfg: ModelConfig, dtype) -> Params:
+    k1, k2, k3, k4 = trandom.split(key, 4)
+    return {
+        "norm1": init_norm(k1, cfg.d_model, cfg.norm_type, dtype),
+        "attn": attn.init_attention(k2, cfg.d_model, cfg.n_heads,
+                                    cfg.n_kv_heads, cfg.head_dim, dtype),
+        "norm2": init_norm(k3, cfg.d_model, cfg.norm_type, dtype),
+        "mlp": init_mlp(k4, cfg.d_model, cfg.d_ff, cfg.mlp_type, dtype),
+    }
+
+
+def init_params(cfg: ModelConfig, key: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The reference's ``init_params`` from the same threefry key, on the
+    key's device: the same draws in the same order, one leaf at a time."""
+    _check_family(cfg)
+    dtype = torch_dtype(cfg.dtype)
+    keys = trandom.split(key, 8)
+    params: Params = {
+        "embed": init_embedding(keys[0], cfg.vocab_size, cfg.d_model, dtype),
+        "final_norm": init_norm(keys[1], cfg.d_model, cfg.norm_type, dtype)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(keys[2], (cfg.d_model, cfg.vocab_size),
+                                       dtype)
+    if cfg.pos_embed == "learned":
+        params["pos_embed"] = dense_init(keys[3], (cfg.max_position,
+                                                   cfg.d_model),
+                                         dtype, scale=0.02)
+    params["blocks"] = stacked_init(lambda k: _init_attn_layer(k, cfg, dtype),
+                                    keys[4], cfg.n_layers)
+    return flatten_params(params)
+
+
+# ===========================================================================
+# Blocks, embedding, unembedding
+# ===========================================================================
+def _attn_block_fwd(p: Params, x, cfg: ModelConfig, *, window,
+                    q_chunk: int = 1024):
+    h = apply_norm(p["norm1"], x, cfg.norm_type)
+    x = x + attn.self_attention(
+        p["attn"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.head_dim, use_rope=cfg.use_rope,
+        rope_theta=cfg.rope_theta, window=window, softcap=cfg.logit_softcap,
+        q_chunk=q_chunk)
+    h2 = apply_norm(p["norm2"], x, cfg.norm_type)
+    x = x + apply_mlp(p["mlp"], h2, cfg.mlp_type)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor):
+    x = embed_tokens(params["embed"], tokens, scale_by_dim=cfg.tie_embeddings)
+    if cfg.pos_embed == "learned":
+        table = params["pos_embed"]
+        idx = torch.arange(tokens.shape[1],
+                           device=tokens.device) % table.shape[0]
+        x = x + table[idx][None, :, :]
+    return x
+
+
+def unembed(params: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    params = nest_params(params)
+    h = apply_norm(params["final_norm"], h, cfg.norm_type)
+    table = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return h @ table
+
+
+# ===========================================================================
+# Forward (train trunk) and loss
+# ===========================================================================
+def forward_trunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                  extras: Optional[Dict[str, torch.Tensor]] = None, *,
+                  remat: bool = True, q_chunk: int = 1024):
+    """Embedding + all blocks; returns (hidden (B,S,d), aux, None).
+    ``extras`` and ``remat`` are accepted for the reference's signature."""
+    del extras, remat
+    _check_family(cfg)
+    params = nest_params(params)
+    x = _embed(params, cfg, tokens)
+    window = cfg.sliding_window if cfg.attn_type == "sliding" else None
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    blocks = params["blocks"]
+    for i in range(cfg.n_layers):
+        p_l = {name: {k: v[i] for k, v in sub.items()}
+               for name, sub in blocks.items()}
+        x, a = _attn_block_fwd(p_l, x, cfg, window=window, q_chunk=q_chunk)
+        aux = aux + a
+    return x, aux, None
+
+
+def chunked_xent(params: Params, cfg: ModelConfig, h: torch.Tensor,
+                 labels: torch.Tensor, chunk: int = 512) -> torch.Tensor:
+    """Mean token cross-entropy, (B,S,V) logits one sequence chunk at a
+    time."""
+    b, s, _ = h.shape
+    if s % chunk or s <= chunk:
+        chunk = s
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, s, chunk):
+        logits = unembed(params, cfg, h[:, c0:c0 + chunk]).to(torch.float32)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            labels[:, c0:c0 + chunk, None].long())[..., 0]
+        tot = tot + (lse - gold).sum()
+    return tot / (b * s)
+
+
+def lm_loss(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            *, remat: bool = True
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Full forward + loss. batch: tokens, labels."""
+    extras = {k: v for k, v in batch.items() if k not in ("tokens", "labels")}
+    h, aux, _ = forward_trunk(params, cfg, batch["tokens"], extras,
+                              remat=remat)
+    xent = chunked_xent(params, cfg, h, batch["labels"])
+    loss = xent + cfg.router_aux_weight * aux
+    return loss, {"xent": xent, "aux": aux}

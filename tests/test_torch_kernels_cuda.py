@@ -105,6 +105,28 @@ def test_qsgd_rows_api_is_one_kernel_on_cuda(cuda):
 
 
 @pytest.mark.requires_cuda
+def test_qsgd_rows_flat_past_two_to_the_32_on_cuda(cuda):
+    """QSGD given its norms on rows wider than a block's row path: the flat
+    pass at (6, 744 497 152), rows x d past 2^32 (six rows of the message of
+    gemma-2b at two layers), against the plain version row by row (its
+    temporaries at the whole size would not fit beside the operands)."""
+    rows, d = 6, 744_497_152
+    if torch.cuda.get_device_properties(cuda).total_memory < 72 * 2 ** 30:
+        pytest.skip("needs a card with 72 GiB: three 17.9 GB operands")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(rows, d, device=cuda, generator=gen)
+    u = torch.rand(rows, d, device=cuda, generator=gen)
+    norms = torch.linalg.vector_norm(x, dim=1, keepdim=True)
+    lv = torch.tensor(256.0, device=cuda)
+    out = qsgd.qsgd_rows(x, u, norms, lv)
+    for r in range(rows):
+        assert torch.equal(out[r:r + 1], qsgd.qsgd_rows_plain(
+            x[r:r + 1], u[r:r + 1], norms[r:r + 1], lv)), r
+    del x, u, out
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.requires_cuda
 @pytest.mark.parametrize("shape", [(100,), (3, 777), (5, 7, 11), (1 << 18,),
                                    (64, 128), (1000, 1001)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
