@@ -163,6 +163,32 @@ Phases (any failure exits non-zero):
    its corrected message less ``topk_rows_plain`` of it, and the new params
    against the plain mean of the two messages (the fold of the two block
    partials and the server step); ``lm_launches`` in the kernels line.
+16. families: the moe, ssm and hybrid families through the CLI's federated
+   trainer (``repro_torch.launch.train``), every kernel counter set to 0 at
+   its start: (a) ``run_federated`` at ``--reduced`` for minicpm-2b
+   (dense), qwen2-moe-a2.7b (moe), falcon-mamba-7b (ssm) and
+   recurrentgemma-2b (hybrid), CLI_ARGS (8 devices, 4 scheduled, top-k, 3
+   rounds), on the card against the same call on the CPU: participation
+   bitwise, bits equal, latency within rtol 1e-5, loss within rtol 1e-4 for
+   the first two rounds and FLIP_RTOL after (at lr 2.0 a top-k selection
+   flipping between coordinates an ulp apart moves the model by a
+   threshold-sized step), ``topk_rows`` launched once a round; (b)
+   falcon-mamba-7b at its published widths (d_model 4096, d_inner 8192,
+   ssm_state 16, d_conv 4, dt_rank 256, vocab 65 024, untied head), cut to
+   FM_DEPTH layers in float32, through ``run_federated``'s own pieces
+   (``federated_problem``, FM_ARGS: 4 devices, 2 scheduled by the random
+   policy, 2 local steps of (8, 128) batches, top-k at 1% with EF, 32 x D
+   model bits) in blocks of one client for one timed round (s a round,
+   peak memory, ``topk_rows`` launched 4 times, the five others 0), B2 on
+   one (1, D) row against its plain version (bitwise) and timed, then the
+   two forced ``fl_round``s of phase 15 (b) at this D, EF rows and params
+   bit for bit against plain versions; (c) qwen2-moe-a2.7b (60 experts,
+   top-4, 4 shared, capacity 1.25) at 2 layers and recurrentgemma-2b at one
+   pattern period (3 layers), published widths, float32: one (4, 32) batch
+   through ``lm_loss`` and its gradient on the card and on the CPU (init on
+   the card, copied), loss within rtol 1e-5, the gradient's relative L2
+   error within 1e-4, and the MoE's token choices dropped by capacity,
+   layer by layer, equal on both; ``families_launches`` in the kernels line.
 
 Phase 3 also holds ``qsgd_rows`` given its norms at (6, 744 497 152), rows
 x d past 2^32 (the flat pass), against its plain version row by row.
@@ -274,6 +300,27 @@ QS_CHECK_ROUNDS, PF_CHECK_ROUNDS, PF_SIGMAS = 3, 3, (0.3, 1.0, 3.0)
 # past 300 s; (6, D) the flat QSGD case past 2^32
 QS_FULL_DEPTH, QS_FULL_CHUNK, QS_FULL_ROUNDS = 2, 1, 1
 FLAT_QSGD_SHAPE = (6, 744_497_152)
+# the CLI's federated path at --reduced, one config of each family it
+# trains: 8 devices, 4 scheduled, top-k, 3 rounds of 2 local steps of (4, 16)
+# batches at lr 2.0 (at the CLI's lr 1e-3 no family's loss falls in 3 rounds,
+# and the CLI asserts that it does)
+CLI_ARCHS = ("minicpm-2b", "qwen2-moe-a2.7b", "falcon-mamba-7b",
+             "recurrentgemma-2b")
+CLI_ARGS = ["--reduced", "--n-devices", "8", "--n-scheduled", "4",
+            "--compressor", "topk", "--rounds", "3", "--seq-len", "16",
+            "--batch", "4", "--lr", "2.0"]
+CLI_ROUNDS, FLIP_RTOL = 3, 1e-3
+# falcon-mamba-7b at its published widths through run_federated's pieces:
+# depth 64 -> 2, float32 (the config says bfloat16), clients in blocks of
+# one, one timed round (B2 takes about 2 s a 743M-wide row, four a round)
+FM_DEPTH, FM_ROUNDS = 2, 1
+FM_ARGS = ["--arch", "falcon-mamba-7b", "--n-devices", "4", "--n-scheduled",
+           "2", "--policy", "random", "--local-steps", "2", "--batch", "8",
+           "--seq-len", "128", "--compressor", "topk", "--rounds",
+           str(FM_ROUNDS)]
+# published widths, one (4, 32) batch: (arch, depth)
+WIDE_ARCHS = (("qwen2-moe-a2.7b", 2), ("recurrentgemma-2b", 3))
+WIDE_B, WIDE_SEQ = 4, 32
 ROWS_SRC = "src/repro_torch/kernels/csrc/rows.cu"
 TILES_SRC = "src/repro_torch/kernels/csrc/tiles.cu"
 
@@ -1720,7 +1767,8 @@ def _on(batches: dict, device) -> dict:
     return {k: torch.as_tensor(v, device=device) for k, v in batches.items()}
 
 
-def _lm_forced_rounds(dev, loss_fn, params, batches, k: int) -> dict:
+def _lm_forced_rounds(dev, loss_fn, params, batches, k: int,
+                      lr: float = 2e-3) -> dict:
     """Phase 15 (b): two rounds of ``fl_round`` as the engine calls it
     (blocks of one, ``donate=True``) at full width, two clients forced to
     participate, so that the two block partials fold through
@@ -1739,7 +1787,7 @@ def _lm_forced_rounds(dev, loss_fn, params, batches, k: int) -> dict:
     from repro_torch.fl import server as fl_server
     from repro_torch.kernels import topk_mask
     n = 2
-    ap = algos.algo_params(lr=2e-3, device=dev)
+    ap = algos.algo_params(lr=lr, device=dev)
     cp = comp.compression_params(k=k, device=dev)
     kt = torch.tensor(float(k), device=dev)
     part = torch.ones(n, device=dev)
@@ -1779,6 +1827,23 @@ def _lm_forced_rounds(dev, loss_fn, params, batches, k: int) -> dict:
                 bits=float(metrics["uplink_bits"]))
 
 
+def _counting(counters: dict):
+    """(zero, read, total) over the kernels' launch counters: ``read``
+    adds what was launched since ``zero`` into ``total``."""
+    total = dict.fromkeys(counters, 0)
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read():
+        got = {n: fn.launches for n, fn in counters.items()}
+        for n, v in got.items():
+            total[n] += v
+        return got
+    return zero, read, total
+
+
 def run_lm(dev, smi: str) -> dict:
     """Phase 15: the dense transformer LM through the flat engine, the two
     examples at their width (a), then the quickstart at gemma-2b's published
@@ -1791,19 +1856,7 @@ def run_lm(dev, smi: str) -> dict:
     from repro_torch.fl import runtime as rt
     from repro_torch.kernels import topk_mask
     from repro_torch.models import transformer as tf
-    counters = dict(_row_counters(), **_tile_counters())
-    total = dict.fromkeys(counters, 0)
-
-    def zero():
-        for fn in counters.values():
-            fn.launches = 0
-
-    def read():
-        got = {n: fn.launches for n, fn in counters.items()}
-        for n, v in got.items():
-            total[n] += v
-        return got
-
+    zero, read, total = _counting(dict(_row_counters(), **_tile_counters()))
     part = time.perf_counter()
 
     def took(what):
@@ -2018,6 +2071,209 @@ def run_lm(dev, smi: str) -> dict:
     return total, row
 
 
+def _moe_drops(fn) -> list:
+    """Run ``fn`` with every ``moe_forward`` call counting the token
+    choices its capacity drops; returns the counts, layer by layer."""
+    from repro_torch.models import moe
+    drops, orig = [], moe.moe_forward
+
+    def counted(p, x, cfg, *a, **kw):
+        r = moe.route(p, x.reshape(-1, x.shape[-1]), cfg)
+        drops.append(int(r.overflow.sum()))
+        return orig(p, x, cfg, *a, **kw)
+    moe.moe_forward = counted
+    try:
+        fn()
+    finally:
+        moe.moe_forward = orig
+    return drops
+
+
+def run_families(dev, smi: str) -> tuple:
+    """Phase 16: the moe, ssm and hybrid families through the CLI's
+    federated trainer: every family at ``--reduced``, card against CPU (a);
+    falcon-mamba-7b at its published widths through ``run_federated``'s
+    pieces (b); qwen2-moe-a2.7b and recurrentgemma-2b at their published
+    widths, one batch's loss and gradient, card against CPU (c). Returns
+    each kernel's launches across the phase and B2's (1, D) row."""
+    import dataclasses
+    from repro_torch import random as trandom
+    from repro_torch.configs import get_config
+    from repro_torch.core.algorithms import registry as algos
+    from repro_torch.fl import runtime as rt
+    from repro_torch.kernels import topk_mask
+    from repro_torch.launch import train as cli
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    zero, read, total = _counting(dict(_row_counters(), **_tile_counters()))
+    part = time.perf_counter()
+
+    def took(what):
+        nonlocal part
+        log(f"families {what}: {time.perf_counter() - part:.2f} s")
+        part = time.perf_counter()
+
+    # (a) run_federated at --reduced, one config of each family
+    for arch in CLI_ARCHS:
+        args = cli.parser().parse_args(["--arch", arch] + CLI_ARGS)
+        zero()
+        g, secs = wall_s(lambda: cli.run_federated(args, device=dev))
+        got = read()
+        c = cli.run_federated(args, device="cpu")
+        g, c = _logs_of(g), _logs_of(c)
+        for f in ("participation", "n_scheduled", "uplink_bits",
+                  "downlink_bits"):
+            np.testing.assert_array_equal(getattr(g, f), getattr(c, f),
+                                          err_msg=f"families (a) {arch} {f}")
+        np.testing.assert_allclose(g.latency_s, c.latency_s, rtol=1e-5)
+        rel = np.abs(g.loss - c.loss) / np.abs(c.loss)
+        if (rel[:2] > 1e-4).any() or (rel > FLIP_RTOL).any():
+            raise AssertionError(f"families (a) {arch}: loss rel diff {rel}")
+        if got["topk_rows"] != CLI_ROUNDS or sum(got.values()) != CLI_ROUNDS:
+            raise AssertionError(f"families (a) {arch}: launches {got}")
+        log(f"families (a) {arch} --reduced: card == cpu for {CLI_ROUNDS} "
+            f"rounds (participation, bits; latency; loss rel diff by round "
+            f"{rel.tolist()}); loss {c.loss.tolist()}, uplink "
+            f"{c.uplink_bits.tolist()} bits; {secs:.3f} s on the card; "
+            f"launches {got}")
+    took("(a) run_federated --reduced")
+
+    # (b) falcon-mamba-7b at its published widths, depth cut
+    cfg = dataclasses.replace(get_config("falcon-mamba-7b"),
+                              n_layers=FM_DEPTH, dtype="float32")
+    args = cli.parser().parse_args(FM_ARGS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    (cfg, sim, loss_fn, params, loader), secs = wall_s(
+        lambda: cli.federated_problem(args, cfg=cfg, device=dev))
+    init_peak = torch.cuda.max_memory_allocated() - base
+    d, k = algos.flat_dim(params), int(sim.compression_params.k)
+    sim = dataclasses.replace(sim, chunk_size=1)
+    gb = 4 * d / 1e9
+    log(f"families (b) {cfg.name} at its published widths (d_model "
+        f"{cfg.d_model}, d_inner {cfg.d_inner}, ssm_state {cfg.ssm_state}, "
+        f"d_conv {cfg.d_conv}, dt_rank {cfg.dt_rank_eff}, vocab "
+        f"{cfg.vocab_size}, tied {cfg.tie_embeddings}); cuts: depth 64 -> "
+        f"{cfg.n_layers}, {cfg.dtype} (the config says bfloat16); D = {d} "
+        f"(param_count {cfg.param_count()}), k = {k}; init {secs:.3f} s, "
+        f"peak {init_peak / 1e9:.3f} GB (params {gb:.3f} GB, the (4, D) EF "
+        f"{4 * gb:.1f} GB)")
+    zero()
+    torch.cuda.reset_peak_memory_stats()
+    logs, secs = wall_s(lambda: rt.run_simulation(
+        sim, loss_fn, params, lambda t, n: loader.next_round(),
+        engine=args.engine, device=dev))
+    got = read()
+    peak = torch.cuda.max_memory_allocated()
+    for lg in logs:
+        log(f"families (b) round {lg.round}: loss {lg.loss:.6f}, scheduled "
+            f"{lg.n_scheduled} {lg.participation.tolist()}, uplink "
+            f"{lg.uplink_bits:.6e} bits, simulated wall clock "
+            f"{lg.latency_s:.3f} s")
+    log(f"families (b) {FM_ROUNDS} round(s) in {secs:.3f} s: "
+        f"{secs / FM_ROUNDS:.3f} s a round on {smi}; max_memory_allocated "
+        f"{peak / 1e9:.3f} GB of "
+        f"{torch.cuda.get_device_properties(dev).total_memory / 1e9:.3f}; "
+        f"launches {got}")
+    n_dev = args.n_devices
+    if (got["topk_rows"] != FM_ROUNDS * n_dev
+            or sum(got.values()) != got["topk_rows"]
+            or not all(np.isfinite(lg.loss) for lg in logs)
+            or not all(lg.n_scheduled == args.n_scheduled for lg in logs)):
+        raise AssertionError(f"families (b): launches {got}, logs {logs}")
+    took("(b) round")
+
+    # B2 on one (1, D) row: against its plain version, and one timed call
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(1, d, device=dev, generator=gen)
+    kt = torch.tensor(float(k), device=dev)
+    err = _compare("topk_rows", (1, d), topk_mask.topk_rows(x, kt),
+                   topk_mask.topk_rows_plain(x, kt), False)
+    ms = time_ms(lambda: topk_mask.topk_rows(x, kt), 1)
+    plain_ms = time_ms(lambda: topk_mask.topk_rows_plain(x, kt), 1)
+    b_ms, b_by = bound_ms("topk_rows", d)
+    del x
+    torch.cuda.empty_cache()
+    row = dict(shape=[1, d], max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               bound_ms=b_ms, bound_by=b_by)
+    log(f"families (b) kernel topk_rows (1, {d}): max_abs_err {err:.3g} ms "
+        f"{ms:.3f} plain_ms {plain_ms:.3f} bound_ms {b_ms:.3f} ({b_by}); "
+        f"{ms / b_ms:.1f}x the bound")
+    took("(b) topk_rows")
+
+    batches = {k_: torch.as_tensor(v, device=dev)
+               for k_, v in loader.next_round().items()}
+    f = _lm_forced_rounds(dev, loss_fn, params, batches, k, lr=args.lr)
+    log(f"families (b) fl_round with 2 clients forced to participate, "
+        f"blocks of one, donate=True: topk_rows launched {f['launches']} "
+        f"times in 2 rounds; round 2 loss {f['loss']:.6f}, uplink "
+        f"{f['bits']:.6e} bits, kept {f['nnz']} of k = {k}; new EF rows off "
+        f"the plain residual at {f['ef_bad']} coordinates, new params off "
+        f"the plain mean at {f['p_bad']}; max_memory_allocated in the rounds "
+        f"{f['peak'] / 1e9:.3f} GB")
+    if (f["launches"] != 4 or f["ef_bad"] or f["p_bad"]
+            or not np.isfinite(f["loss"])):
+        raise AssertionError(f"families (b) forced rounds: {f}")
+    del params, batches, loader
+    torch.cuda.empty_cache()
+    took("(b) forced rounds")
+
+    # (c) published widths, one batch's loss and gradient, card vs CPU
+    for arch, depth in WIDE_ARCHS:
+        cfg = dataclasses.replace(get_config(arch), n_layers=depth,
+                                  dtype="float32")
+        params, secs = wall_s(lambda: tf.init_params(
+            cfg, trandom.PRNGKey(0, dev)))
+        d = algos.flat_dim(params)
+        toks = np.random.default_rng(0).integers(
+            0, cfg.vocab_size, size=(2, WIDE_B, WIDE_SEQ))
+        batch = {"tokens": torch.as_tensor(toks[0], dtype=torch.int32),
+                 "labels": torch.as_tensor(toks[1], dtype=torch.int32)}
+
+        def value_grad(p, b):
+            return torch.func.grad_and_value(
+                lambda q: tf.lm_loss(q, cfg, b, remat=False)[0])(p)
+
+        def drops(p, b):
+            with torch.no_grad():
+                return _moe_drops(lambda: tf.lm_loss(p, cfg, b))
+
+        (gg, gl), g_s = wall_s(lambda: value_grad(params, _on(batch, dev)))
+        g_drop = drops(params, _on(batch, dev))
+        cp = {k_: v.cpu() for k_, v in params.items()}
+        del params
+        t0 = time.perf_counter()
+        cg, cl = value_grad(cp, batch)
+        c_s = time.perf_counter() - t0
+        c_drop = drops(cp, batch)
+        num = sum(float(((gg[k_].cpu() - cg[k_]) ** 2).sum()) for k_ in cg)
+        den = sum(float((cg[k_] ** 2).sum()) for k_ in cg)
+        grad_err = (num / den) ** 0.5
+        loss_err = abs(float(gl) - float(cl)) / abs(float(cl))
+        del gg, cg, cp
+        torch.cuda.empty_cache()
+        moe_txt = (f"; token choices dropped by capacity, by layer: card "
+                   f"{g_drop}, cpu {c_drop} (of {WIDE_B * WIDE_SEQ} tokens x "
+                   f"top-{cfg.moe_top_k}, capacity "
+                   f"{moe.capacity(cfg, WIDE_B * WIDE_SEQ)})"
+                   if cfg.family == "moe" else "")
+        log(f"families (c) {arch} at its published widths, {depth} layers, "
+            f"float32: D = {d}; init {secs:.3f} s; lm_loss of a ({WIDE_B}, "
+            f"{WIDE_SEQ}) batch: card {float(gl):.6f} cpu {float(cl):.6f} "
+            f"(rel diff {loss_err:.3g}); gradient relative L2 error "
+            f"{grad_err:.3g}; {g_s:.3f} s on the card, {c_s:.3f} s on the "
+            f"cpu{moe_txt}")
+        if (loss_err > 1e-5 or not grad_err < 1e-4 or g_drop != c_drop
+                or (cfg.family == "moe" and len(g_drop) != depth)):
+            raise AssertionError(f"families (c) {arch}: loss {loss_err:.3g}"
+                                 f", gradient {grad_err:.3g}, drops "
+                                 f"{g_drop} / {c_drop}")
+    took("(c) published widths")
+    log(f"families kernel launches across phase 16: {total}")
+    return total, row
+
+
 def main() -> int:
     t0 = time.perf_counter()
     smi = card()
@@ -2039,7 +2295,8 @@ def main() -> int:
               ("host", lambda: run_host(dev, smi, out["engine"][1])),
               ("hfl", lambda: run_hfl(dev, smi)),
               ("gossip", lambda: run_gossip(dev, smi)),
-              ("lm", lambda: run_lm(dev, smi))]
+              ("lm", lambda: run_lm(dev, smi)),
+              ("families", lambda: run_families(dev, smi))]
     out = {}
     log(f"phase card: {time.perf_counter() - t0:.2f} s")
     for name, fn in phases:
@@ -2058,11 +2315,13 @@ def main() -> int:
                      "hfl_launches": out["hfl"][name],
                      "gossip_launches": out["gossip"][name],
                      "lm_launches": out["lm"][0][name],
+                     "families_launches": out["families"][0][name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "device_ms": r["device_ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": None})
     rows[list(KERNELS).index("topk_rows")]["lm_row"] = out["lm"][1]
+    rows[list(KERNELS).index("topk_rows")]["mamba_row"] = out["families"][1]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -45,7 +45,8 @@ def params_from_jax(tree: Dict, device=None) -> Dict[str, torch.Tensor]:
 def lm_params_from_jax(tree: Dict, device=None) -> Dict[str, torch.Tensor]:
     """The reference transformer's nested params -> the port's flat dict
     keyed by ``/``-joined paths, leaves (the stacked ``(L, ...)`` ones
-    included) as they are. Sorted, the keys are ``jax.tree.leaves`` order."""
+    included) as they are; a list (hybrid's ``rest`` layers) by index.
+    Sorted, the keys are ``jax.tree.leaves`` order."""
     return params_from_jax(flatten_params(tree), device)
 
 

@@ -1,0 +1,77 @@
+"""RG-LRU recurrent block (RecurrentGemma / Griffin, arXiv:2402.19427): the
+training forward. Port of ``repro/models/rglru.py``.
+
+Recurrent block: x -> {linear -> conv1d -> RG-LRU} * {linear -> GeLU} -> linear.
+RG-LRU:
+    r_t = sigmoid(x_t W_a + b_a)              (recurrence gate)
+    i_t = sigmoid(x_t W_x + b_x)              (input gate)
+    log a_t = -c * softplus(Lambda) * r_t     (c = 8)
+    h_t = a_t h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
+Computed with the shared chunked scan. The prefill state and the one-token
+decode step serve inference and are not ported here.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch import random as trandom
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import xla_math
+from repro_torch.models.layers import dense_init
+from repro_torch.models.scan_utils import (causal_depthwise_conv,
+                                           chunked_linear_recurrence)
+from repro_torch.models.ssm import softplus
+
+Params = Dict[str, torch.Tensor]
+
+RGLRU_C = 8.0
+
+
+def init_rglru_block(key, cfg: ModelConfig, dtype) -> Params:
+    d, w = cfg.d_model, cfg.lru_width
+    dev = key.device
+    keys = trandom.split(key, 7)
+    # Lambda init so that a ~ Uniform(0.9, 0.999)^c at r=1, in the
+    # reference's CPU arithmetic
+    lam = xla_math.log(xla_math.expm1(
+        -xla_math.log(xla_math.linspace(0.9, 0.999, w, device=dev))
+        / RGLRU_C))
+    return {
+        "in_x": dense_init(keys[0], (d, w), dtype),
+        "in_gate": dense_init(keys[1], (d, w), dtype),
+        "conv_w": dense_init(keys[2], (cfg.d_conv, w), dtype,
+                             scale=cfg.d_conv ** -0.5),
+        "conv_b": torch.zeros((w,), dtype=dtype, device=dev),
+        "w_a": dense_init(keys[3], (w, w), dtype),
+        "b_a": torch.zeros((w,), dtype=dtype, device=dev),
+        "w_i": dense_init(keys[4], (w, w), dtype),
+        "b_i": torch.zeros((w,), dtype=dtype, device=dev),
+        "Lambda": lam.to(dtype),
+        "out_proj": dense_init(keys[5], (w, d), dtype),
+    }
+
+
+def _gates(p: Params, xc: torch.Tensor):
+    r = torch.sigmoid((xc @ p["w_a"] + p["b_a"]).to(torch.float32))
+    i = torch.sigmoid((xc @ p["w_i"] + p["b_i"]).to(torch.float32))
+    log_a = -RGLRU_C * softplus(p["Lambda"].to(torch.float32)) * r
+    a = torch.exp(log_a)
+    mult = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12))
+    return a, mult * i * xc.to(torch.float32)
+
+
+def rglru_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                  chunk: int = 256) -> torch.Tensor:
+    """x: (B,S,d) -> (B,S,d), from a zero state."""
+    gate = F.gelu((x @ p["in_gate"]).to(torch.float32), approximate="tanh")
+    xb = x @ p["in_x"]
+    xc = causal_depthwise_conv(xb, p["conv_w"], p["conv_b"])
+    a, b = _gates(p, xc)
+    h0 = torch.zeros((x.shape[0], cfg.lru_width), dtype=torch.float32,
+                     device=x.device)
+    h_all, _ = chunked_linear_recurrence(a, b, h0, chunk=chunk)
+    y = (h_all * gate).to(x.dtype)
+    return y @ p["out_proj"]

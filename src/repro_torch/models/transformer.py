@@ -1,19 +1,23 @@
-"""Decoder-only transformer LM, the dense family. Port of the training path
-of ``repro/models/transformer.py``.
+"""Decoder-only transformer LMs: the dense, moe, ssm (mamba) and hybrid
+(RG-LRU + local attention) families. Port of the training path of
+``repro/models/transformer.py``.
 
 The port's parameters are a flat dict whose keys are the reference's tree
 paths joined with ``/`` (``"blocks/attn/wq"``, ``"embed"``,
-``"final_norm/scale"``): sorted, they are in ``jax.tree.leaves`` order,
-because ``/`` sorts below every letter, digit and ``_``, so the engine's flat
-(D,) message is the reference's coordinate for coordinate. Layers keep the
-reference's leading layer axis (``blocks/*`` leaves are ``(L, ...)``), and
-``forward_trunk`` runs them in a Python loop where the reference scans.
+``"final_norm/scale"``; a list entry by its index, hybrid's
+``"rest/0/rec/w_a"``): sorted, they are in ``jax.tree.leaves`` order,
+because ``/`` sorts below every letter, digit and ``_``, so the engine's
+flat (D,) message is the reference's coordinate for coordinate. Layers keep
+the reference's leading layer axis (``blocks/*`` leaves are ``(L, ...)``;
+hybrid's ``blocks/p{i}_{kind}/*`` are ``(L // period, ...)``, one entry per
+pattern period), and ``forward_trunk`` runs them in a Python loop where the
+reference scans.
 
-Only ``family == "dense"`` is ported; the other families (moe, ssm, hybrid,
-vlm, audio), prefill and decode raise or are absent (ROADMAP queue A).
-``remat`` is accepted for the reference's signatures: the reference
-rematerializes to save memory, and under ``torch.func`` the port computes
-the same numbers without recomputation.
+The vlm and audio families (fed vision or audio embeddings, which only the
+cluster trainer makes), prefill and decode raise or are absent (ROADMAP
+queue A). ``remat`` is accepted for the reference's signatures: the
+reference rematerializes to save memory, and under ``torch.func`` the port
+computes the same numbers without recomputation.
 """
 from __future__ import annotations
 
@@ -24,6 +28,9 @@ import torch
 from repro_torch import random as trandom
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_mlp, apply_norm, dense_init,
                                        embed_tokens, init_embedding, init_mlp,
                                        init_norm, stacked_init, torch_dtype)
@@ -31,27 +38,43 @@ from repro_torch.models.layers import (apply_mlp, apply_norm, dense_init,
 Params = Dict[str, Any]
 
 
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
+
+
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet: the port "
-            "runs the dense family (ROADMAP queue A)")
+            f"runs the {', '.join(FAMILIES)} families (ROADMAP queue A)")
 
 
-def flatten_params(tree: Params, prefix: str = "") -> Dict[str, torch.Tensor]:
-    """A nested dict of tensors -> the port's flat ``/``-keyed dict."""
+def flatten_params(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A nested dict (or list) of tensors -> the port's flat ``/``-keyed
+    dict; a list entry is keyed by its index (hybrid's ``rest`` has fewer
+    entries than a pattern period, so its indices sort in leaf order)."""
     out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in items:
+        if isinstance(v, (dict, list)):
             out.update(flatten_params(v, f"{prefix}{k}/"))
         else:
             out[f"{prefix}{k}"] = v
     return out
 
 
+def _lists(node):
+    """Nodes whose keys are all indices back into lists."""
+    if not isinstance(node, dict):
+        return node
+    node = {k: _lists(v) for k, v in node.items()}
+    if node and all(k.isdigit() for k in node):
+        return [node[str(i)] for i in range(len(node))]
+    return node
+
+
 def nest_params(params: Params) -> Params:
-    """The flat ``/``-keyed dict -> nested dicts of the same tensors (a
-    nested dict passes through)."""
+    """The flat ``/``-keyed dict -> nested dicts (and lists) of the same
+    tensors (a nested dict passes through)."""
     out: Params = {}
     for k, v in params.items():
         *path, leaf = k.split("/")
@@ -59,21 +82,47 @@ def nest_params(params: Params) -> Params:
         for p in path:
             node = node.setdefault(p, {})
         node[leaf] = v
-    return out
+    return _lists(out)
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a stack: every leaf indexed on its leading axis."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
 
 
 # ===========================================================================
 # init_params
 # ===========================================================================
-def _init_attn_layer(key, cfg: ModelConfig, dtype) -> Params:
+def _init_attn_layer(key, cfg: ModelConfig, dtype, use_moe: bool = False
+                     ) -> Params:
     k1, k2, k3, k4 = trandom.split(key, 4)
-    return {
+    p = {
         "norm1": init_norm(k1, cfg.d_model, cfg.norm_type, dtype),
         "attn": attn.init_attention(k2, cfg.d_model, cfg.n_heads,
                                     cfg.n_kv_heads, cfg.head_dim, dtype),
         "norm2": init_norm(k3, cfg.d_model, cfg.norm_type, dtype),
-        "mlp": init_mlp(k4, cfg.d_model, cfg.d_ff, cfg.mlp_type, dtype),
     }
+    if use_moe:
+        p["mlp"] = moe_mod.init_moe_block(k4, cfg, dtype)
+    else:
+        p["mlp"] = init_mlp(k4, cfg.d_model, cfg.d_ff, cfg.mlp_type, dtype)
+    return p
+
+
+def _init_mamba_layer(key, cfg: ModelConfig, dtype) -> Params:
+    k1, k2 = trandom.split(key)
+    return {"norm": init_norm(k1, cfg.d_model, cfg.norm_type, dtype),
+            "mamba": ssm_mod.init_mamba_block(k2, cfg, dtype)}
+
+
+def _init_rglru_layer(key, cfg: ModelConfig, dtype) -> Params:
+    k1, k2, k3, k4 = trandom.split(key, 4)
+    return {"norm1": init_norm(k1, cfg.d_model, cfg.norm_type, dtype),
+            "rec": rglru_mod.init_rglru_block(k2, cfg, dtype),
+            "norm2": init_norm(k3, cfg.d_model, cfg.norm_type, dtype),
+            "mlp": init_mlp(k4, cfg.d_model, cfg.d_ff, cfg.mlp_type, dtype)}
 
 
 def init_params(cfg: ModelConfig, key: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -92,8 +141,25 @@ def init_params(cfg: ModelConfig, key: torch.Tensor) -> Dict[str, torch.Tensor]:
         params["pos_embed"] = dense_init(keys[3], (cfg.max_position,
                                                    cfg.d_model),
                                          dtype, scale=0.02)
-    params["blocks"] = stacked_init(lambda k: _init_attn_layer(k, cfg, dtype),
-                                    keys[4], cfg.n_layers)
+    fam = cfg.family
+    if fam in ("dense", "moe"):
+        params["blocks"] = stacked_init(
+            lambda k: _init_attn_layer(k, cfg, dtype, fam == "moe"),
+            keys[4], cfg.n_layers)
+    elif fam == "ssm":
+        params["blocks"] = stacked_init(
+            lambda k: _init_mamba_layer(k, cfg, dtype), keys[4], cfg.n_layers)
+    else:  # hybrid: one stack per pattern position, the remainder listed
+        pat = cfg.block_pattern
+        n_super, rem = divmod(cfg.n_layers, len(pat))
+        init = {"rglru": _init_rglru_layer, "attn": _init_attn_layer}
+        params["blocks"] = {
+            f"p{i}_{kind}": stacked_init(
+                lambda k, kind=kind: init[kind](k, cfg, dtype),
+                trandom.fold_in(keys[4], i), n_super)
+            for i, kind in enumerate(pat)}
+        params["rest"] = [init[pat[j]](trandom.fold_in(keys[5], j), cfg,
+                                       dtype) for j in range(rem)]
     return flatten_params(params)
 
 
@@ -109,8 +175,24 @@ def _attn_block_fwd(p: Params, x, cfg: ModelConfig, *, window,
         rope_theta=cfg.rope_theta, window=window, softcap=cfg.logit_softcap,
         q_chunk=q_chunk)
     h2 = apply_norm(p["norm2"], x, cfg.norm_type)
-    x = x + apply_mlp(p["mlp"], h2, cfg.mlp_type)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "moe" and "router" in p["mlp"]:
+        out, aux = moe_mod.moe_forward(p["mlp"], h2, cfg)
+    else:
+        out = apply_mlp(p["mlp"], h2, cfg.mlp_type)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + out, aux
+
+
+def _rglru_block_fwd(p: Params, x, cfg: ModelConfig):
+    h = apply_norm(p["norm1"], x, cfg.norm_type)
+    x = x + rglru_mod.rglru_forward(p["rec"], h, cfg)
+    h2 = apply_norm(p["norm2"], x, cfg.norm_type)
+    return x + apply_mlp(p["mlp"], h2, cfg.mlp_type)
+
+
+def _mamba_block_fwd(p: Params, x, cfg: ModelConfig):
+    h = apply_norm(p["norm"], x, cfg.norm_type)
+    return x + ssm_mod.mamba_forward(p["mamba"], h, cfg)
 
 
 def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor):
@@ -144,12 +226,28 @@ def forward_trunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     x = _embed(params, cfg, tokens)
     window = cfg.sliding_window if cfg.attn_type == "sliding" else None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    blocks = params["blocks"]
-    for i in range(cfg.n_layers):
-        p_l = {name: {k: v[i] for k, v in sub.items()}
-               for name, sub in blocks.items()}
-        x, a = _attn_block_fwd(p_l, x, cfg, window=window, q_chunk=q_chunk)
-        aux = aux + a
+    blocks, fam = params["blocks"], cfg.family
+    if fam in ("dense", "moe"):
+        for i in range(cfg.n_layers):
+            x, a = _attn_block_fwd(_layer(blocks, i), x, cfg, window=window,
+                                   q_chunk=q_chunk)
+            aux = aux + a
+    elif fam == "ssm":
+        for i in range(cfg.n_layers):
+            x = _mamba_block_fwd(_layer(blocks, i), x, cfg)
+    else:  # hybrid: the pattern periods, then the remainder
+        n_super = cfg.n_layers // len(cfg.block_pattern)
+        layers = [(kind, _layer(blocks[f"p{i}_{kind}"], n))
+                  for n in range(n_super)
+                  for i, kind in enumerate(cfg.block_pattern)]
+        layers += [("rglru" if "rec" in p_l else "attn", p_l)
+                   for p_l in params.get("rest", [])]
+        for kind, p_l in layers:
+            if kind == "rglru":
+                x = _rglru_block_fwd(p_l, x, cfg)
+            else:
+                x, _ = _attn_block_fwd(p_l, x, cfg, window=window,
+                                       q_chunk=q_chunk)
     return x, aux, None
 
 

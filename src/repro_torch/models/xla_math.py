@@ -1,0 +1,154 @@
+"""float32 ``log``, ``expm1`` and ``linspace`` as the reference's CPU backend
+computes them, so that the recurrent blocks' constant inits (mamba's
+``A_log``, RG-LRU's ``Lambda``) are bitwise the reference's.
+
+XLA's CPU backend does not call libm for these: it emits Cephes-style
+polynomials (``log`` a degree-8 polynomial after a frexp split, ``exp`` a
+degree-5 one after a ``2^n`` split, ``tanh`` a 13/6 rational), which differ
+from a correctly rounded result by an ulp on some inputs (``log(7)``, most
+of ``linspace(0.9, 0.999, w)``'s chain). Each step below is one float32
+operation or one fused multiply-add, where the reference's compiled x86
+code has one (``_fma``), so the results are the same on the CPU and on the
+card. ``linspace`` divides by ``num - 1`` as a multiply by its float32
+reciprocal and takes ``stop * step`` as ``iota * (stop * (1 / (num - 1)))``,
+as XLA's simplifier rewrites them.
+"""
+from __future__ import annotations
+
+import struct
+
+import numpy as np
+import torch
+
+
+def _f(bits: str) -> float:
+    """A float32 constant, given as the IEEE double the compiled program
+    prints (``0x3FB2043760000000``)."""
+    return float(np.float32(struct.unpack(">d", bytes.fromhex(bits))[0]))
+
+
+_SQRTHF = _f("3FE6A09E60000000")
+_LOG_P = [_f(h) for h in ("3FB2043760000000", "BFBD7A3700000000",
+                          "BFBFCBA9E0000000", "3FC23D37E0000000",
+                          "3FC999D580000000", "BFCFFFFF80000000",
+                          "3FBDE4A340000000", "BFC555CA00000000",
+                          "3FD5555540000000")]
+_LN2_HI, _LN2_LO = _f("3FE6300000000000"), _f("BF2BD01060000000")
+_LOG2E = _f("3FF7154760000000")
+_EXP_LO, _EXP_HI = _f("C055F33340000000"), _f("4056333340000000")
+_EXP_P = [_f(h) for h in ("3F2A0D2CE0000000", "3F56E879C0000000",
+                          "3F81112100000000", "3FA5553820000000",
+                          "3FC5555540000000")]
+_TANH_CLAMP, _TANH_TINY = _f("401FFEC880000000"), _f("3F3A36E2E0000000")
+_TANH_N = [_f(h) for h in ("BCB3E4B800000000", "3D4C266FC0000000",
+                           "BDD7A6FFE0000000", "3E6B800820000000",
+                           "3EEF286940000000", "3F44E1BDA0000000",
+                           "3F740B3B80000000")]
+_TANH_D = [_f(h) for h in ("3EB41A7B00000000", "3F1F12BAC0000000",
+                           "3F629540A0000000", "3F740B3BA0000000")]
+_MIN_NORMAL = 2.0 ** -126
+
+
+def _c(v: float, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(v, dtype=torch.float32, device=like.device)
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once (the product of two float32
+    values is exact in float64)."""
+    return (a.double() * b.double() + c.double()).to(torch.float32)
+
+
+def log(x: torch.Tensor) -> torch.Tensor:
+    """XLA CPU's float32 ``log``."""
+    x = x.to(torch.float32)
+    c = lambda v: _c(v, x)  # noqa: E731
+    xs = torch.maximum(x, c(_MIN_NORMAL))
+    bits = xs.view(torch.int32)
+    e = c(1.0) + ((bits >> 23) - 127).to(torch.float32)
+    m = ((bits & -2139095041) | 1056964608).view(torch.float32)
+    small = m < c(_SQRTHF)
+    e = e - torch.where(small, c(1.0), c(0.0))
+    v = (m - c(1.0)) + torch.where(small, m, c(0.0))
+    z = v * v
+    v3 = z * v
+    p = _LOG_P
+    a = _fma(v, _fma(v, c(p[0]), c(p[1])), c(p[6]))
+    b = _fma(v, _fma(v, c(p[2]), c(p[3])), c(p[7]))
+    d = _fma(v, _fma(v, c(p[4]), c(p[5])), c(p[8]))
+    t = _fma(v3, _fma(v3, a, b), d)
+    y = _fma(t, v3, c(_LN2_LO) * e)
+    out = _fma(c(_LN2_HI), e, _fma(c(-0.5), z, v) + y)
+    # denormals are flushed to zero, as the reference's CPU flushes them
+    out = torch.where(x < 0, c(float("nan")), out)
+    out = torch.where(x.abs() < c(_MIN_NORMAL), c(-float("inf")), out)
+    out = torch.where(x == float("inf"), c(float("inf")), out)
+    return torch.where(x.isnan(), x, out)
+
+
+def _exp_parts(x: torch.Tensor):
+    """Cephes ``exp(x) = (1 + r + r^2 poly(r)) * 2^n``: returns the
+    mantissa part and ``2^n`` (their product is ``exp``)."""
+    c = lambda v: _c(v, x)  # noqa: E731
+    xc = torch.clamp(x, _EXP_LO, _EXP_HI)
+    n = torch.floor(_fma(xc, c(_LOG2E), c(0.5))).clamp(-127.0, 127.0)
+    r = _fma(n, c(-_LN2_LO), _fma(n, c(-_LN2_HI), xc))
+    y = _fma(r, c(_EXP_P[0]), c(_EXP_P[1]))
+    for p in _EXP_P[2:] + [0.5]:
+        y = _fma(r, y, c(p))
+    y = _fma(y, r * r, r) + c(1.0)
+    pow2 = ((n.to(torch.int32) << 23) + 1065353216).view(torch.float32)
+    return y, pow2
+
+
+def _tanh(x: torch.Tensor) -> torch.Tensor:
+    c = lambda v: _c(v, x)  # noqa: E731
+    xc = torch.clamp(x, -_TANH_CLAMP, _TANH_CLAMP)
+    x2 = xc * xc
+    num = _fma(x2, c(_TANH_N[0]), c(_TANH_N[1]))
+    for p in _TANH_N[2:]:
+        num = _fma(x2, num, c(p))
+    num = xc * num
+    den = _fma(x2, c(_TANH_D[0]), c(_TANH_D[1]))
+    for p in _TANH_D[2:]:
+        den = _fma(x2, den, c(p))
+    t = torch.where(x.abs() < c(_TANH_TINY), x, num / den)
+    return torch.where(x.abs() >= c(20.0), torch.sign(x), t)
+
+
+def expm1(x: torch.Tensor) -> torch.Tensor:
+    """XLA CPU's float32 ``expm1``: ``exp(x) - 1`` past |x| = 0.5, else
+    ``tanh(x / 2) * (exp(x) + 1)``; 0 stays 0."""
+    x = x.to(torch.float32)
+    y, pow2 = _exp_parts(x)
+    e = y * pow2
+    out = torch.where(x.abs() > _c(0.5, x), e + _c(-1.0, x),
+                      _tanh(x * _c(0.5, x)) * (e + _c(1.0, x)))
+    return torch.where(x == 0, x, out)
+
+
+def linspace(start: float, stop: float, num: int, device=None
+             ) -> torch.Tensor:
+    """``jnp.linspace(start, stop, num)`` in float32 (endpoint included).
+
+    ``start * (1 - step) + iota * (stop * r)``, ``r = f32(1 / (num - 1))``,
+    the sum one fused multiply-add. Up to 352 points the compiled loop is
+    unrolled and ``1 - step`` is folded into a table, two roundings; past
+    that it runs 32 lanes at a time with ``1 - step`` fused, and the tail
+    of fewer than 32 points as the unrolled form. This is the reference's
+    output bit for bit from 2 to 1199 points and at 2560 (RG-LRU's widths
+    at ``reduced()`` and published), but for the second point at 12, 14, 15
+    and 26 points, an ulp away; wider loops may split their tail again."""
+    s = torch.tensor(start, dtype=torch.float32, device=device)
+    t = torch.tensor(stop, dtype=torch.float32, device=device)
+    if num == 1:
+        return s.reshape(1)
+    r = torch.tensor(np.float32(1.0) / np.float32(num - 1), device=device)
+    one = torch.tensor(1.0, device=device)
+    iota = torch.arange(num - 1, dtype=torch.float32, device=device)
+    one_minus = one - iota * r
+    if num > 352:
+        lanes = (num - 1) // 32 * 32
+        one_minus[:lanes] = _fma(-iota[:lanes], r, one)
+    out = _fma(iota, t * r, s * one_minus)
+    return torch.cat([out, t.reshape(1)])
