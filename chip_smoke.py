@@ -190,6 +190,27 @@ Phases (any failure exits non-zero):
    error within 1e-4, and the MoE's token choices dropped by capacity,
    layer by layer, equal on both; ``families_launches`` in the kernels line.
 
+17. trainer: the one-card trainer (``launch/steps.py`` through the CLI's
+   ``run_cluster``), no kernel on its path, every kernel counter set to 0
+   at its start and required to read 0 at its end: (a) ``run_cluster`` at
+   ``--reduced`` for gemma-2b (cosine) and minicpm-2b (wsd), TRAINER_ARGS (6
+   steps of (8, 64) batches at the CLI's lr 1e-3) for pssgd x {none, bf16,
+   int8 + EF, sign + EF}, localsgd (H = 2) and fsdp, on the card against
+   the same call on the CPU: the loss within rtol 1e-4 at every step and
+   the final params' relative L2 error within 1e-4; (b) gemma-2b at its
+   published size (18 layers, d_model 2048, 8 heads, MQA, head_dim 256,
+   GeGLU d_ff 16 384, vocab 256 000, tied embeddings), cut only to float32
+   (the config says bfloat16), through ``run_cluster`` with the CLI's
+   defaults but ``--steps``: pssgd, int8 + EF, adamw, lr 1e-3, remat, 10
+   steps of (8, 128) batches: the init's seconds and peak memory, each
+   step's time by CUDA events (s a step: the median of steps 2-9), tokens
+   per second, the peak memory in the steps, the loss falling (the CLI's
+   assertion), and its ``--ckpt-dir`` checkpoint loaded back bit for bit;
+   (c) ``python -m repro_torch.examples.train_fl_100m --full-100m`` at its
+   default 300 steps (its tokens per second and the loss's fall of at least
+   0.3, which the example asserts); ``trainer_launches`` in the kernels
+   line.
+
 Phase 3 also holds ``qsgd_rows`` given its norms at (6, 744 497 152), rows
 x d past 2^32 (the flat pass), against its plain version row by row.
 
@@ -321,6 +342,23 @@ FM_ARGS = ["--arch", "falcon-mamba-7b", "--n-devices", "4", "--n-scheduled",
 # published widths, one (4, 32) batch: (arch, depth)
 WIDE_ARCHS = (("qwen2-moe-a2.7b", 2), ("recurrentgemma-2b", 3))
 WIDE_B, WIDE_SEQ = 4, 32
+# the one-card trainer at --reduced: gemma-2b (cosine) and minicpm-2b (wsd),
+# 6 steps of (8, 64) batches at the CLI's lr 1e-3, each mode x compression
+TRAINER_ARCHS = ("gemma-2b", "minicpm-2b")
+TRAINER_MODES = (("pssgd", "none"), ("pssgd", "bf16"), ("pssgd", "int8"),
+                 ("pssgd", "sign"), ("localsgd", "none"), ("fsdp", "none"))
+TRAINER_ARGS = ["--reduced", "--cluster", "--steps", "6", "--seq-len", "64",
+                "--batch", "8", "--local-steps", "2"]
+TRAINER_RTOL = 1e-4
+# gemma-2b at its published size through run_cluster, the CLI's defaults
+# (pssgd, adamw, lr 1e-3, (8, 128) batches, remat) with int8 + EF, 10 steps;
+# s a step is the median of steps 2-9
+GEMMA_ARGS = ["--arch", "gemma-2b", "--cluster", "--mode", "pssgd",
+              "--compression", "int8", "--steps", "10"]
+GEMMA_TIMED = slice(2, 10)
+# the 100M example at its default 300 steps: in 30 its loss falls from
+# 10.903 to 10.846 on an H100, short of the 0.3 the example asserts
+FL100M_ARGS = ["--full-100m"]
 ROWS_SRC = "src/repro_torch/kernels/csrc/rows.cu"
 TILES_SRC = "src/repro_torch/kernels/csrc/tiles.cu"
 
@@ -2274,6 +2312,148 @@ def run_families(dev, smi: str) -> tuple:
     return total, row
 
 
+def _rel_l2(got: dict, want: dict) -> float:
+    num = sum(float(((got[k].cpu().double() - want[k].double()) ** 2).sum())
+              for k in want)
+    den = sum(float((want[k].double() ** 2).sum()) for k in want)
+    return (num / den) ** 0.5
+
+
+def run_trainer(dev, smi: str) -> dict:
+    """Phase 17: the one-card trainer through ``run_cluster``: every mode x
+    compression at ``--reduced``, card against CPU (a); gemma-2b at its
+    published size (b); the 100M example (c). Returns each kernel's
+    launches across the phase (all must be 0)."""
+    import contextlib
+    import dataclasses
+    import io
+    import shutil
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.examples import train_fl_100m as ex
+    from repro_torch.launch import train as cli
+    zero, read, total = _counting(dict(_row_counters(), **_tile_counters()))
+    zero()
+    part = time.perf_counter()
+
+    def took(what):
+        nonlocal part
+        log(f"trainer {what}: {time.perf_counter() - part:.2f} s")
+        part = time.perf_counter()
+
+    # (a) every mode x compression at --reduced, card against CPU
+    for arch in TRAINER_ARCHS:
+        for mode, comp in TRAINER_MODES:
+            args = cli.parser().parse_args(
+                ["--arch", arch, "--mode", mode, "--compression", comp]
+                + TRAINER_ARGS)
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                (gl, gs), secs = wall_s(lambda: cli.run_cluster(args,
+                                                                device=dev))
+                cl, cs = cli.run_cluster(args, device="cpu")
+            rel = np.abs(np.array(gl) - np.array(cl)) / np.abs(cl)
+            p_err = _rel_l2(gs["params"], cs["params"])
+            log(f"trainer (a) {arch} {mode}/{comp}: loss "
+                f"{np.round(cl, 6).tolist()}; card vs cpu rel diff by step "
+                f"max "
+                f"{rel.max():.3g}, final params relative L2 {p_err:.3g}; "
+                f"{secs:.3f} s on the card; {out.getvalue().splitlines()[-1]}")
+            if not (rel.max() <= TRAINER_RTOL and p_err <= TRAINER_RTOL):
+                raise AssertionError(f"trainer (a) {arch} {mode}/{comp}: "
+                                     f"loss {rel}, params {p_err}")
+            del gs, cs
+    took("(a) run_cluster --reduced")
+
+    # (b) gemma-2b at its published size, float32
+    cfg = dataclasses.replace(get_config("gemma-2b"), dtype="float32")
+    ckpt_dir = os.path.join(ROOT, "build", "trainer_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    args = cli.parser().parse_args(GEMMA_ARGS + ["--ckpt-dir", ckpt_dir])
+    got = {"events": []}
+    orig_init, orig_step = cli.make_init_fn, cli.make_train_step
+
+    def timed_init(*a):
+        init = orig_init(*a)
+
+        def run(key):
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            state, secs = wall_s(lambda: init(key))
+            got["init"] = (secs, torch.cuda.max_memory_allocated() - base)
+            torch.cuda.reset_peak_memory_stats()
+            return state
+        return run
+
+    def timed_step(*a):
+        step = orig_step(*a)
+
+        def run(state, batch):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = step(state, batch)
+            ev[1].record()
+            got["events"].append(ev)
+            return out
+        return run
+
+    torch.cuda.empty_cache()
+    cli.make_init_fn, cli.make_train_step = timed_init, timed_step
+    try:
+        (losses, state), secs = wall_s(lambda: cli.run_cluster(
+            args, cfg=cfg, device=dev))
+    finally:
+        cli.make_init_fn, cli.make_train_step = orig_init, orig_step
+    peak = torch.cuda.max_memory_allocated()
+    step_s = [a.elapsed_time(b) / 1e3 for a, b in got["events"]]
+    med = float(np.median(step_s[GEMMA_TIMED]))
+    d = sum(v.numel() for v in state["params"].values())
+    toks = args.batch * args.seq_len
+    log(f"trainer (b) {cfg.name} at its published size ({cfg.n_layers} "
+        f"layers, d_model {cfg.d_model}, {cfg.n_heads} heads, {cfg.n_kv_heads}"
+        f" kv head, head_dim {cfg.head_dim}, {cfg.mlp_type} d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab_size}, tied {cfg.tie_embeddings}); cut: "
+        f"{cfg.dtype} (the config says bfloat16); D = {d} (param_count "
+        f"{cfg.param_count()}); {args.mode}/{args.compression}+EF, "
+        f"{args.optimizer}, lr {args.lr}, remat, {args.steps} steps of "
+        f"({args.batch}, {args.seq_len})")
+    log(f"trainer (b) init {got['init'][0]:.3f} s, peak "
+        f"{got['init'][1] / 1e9:.3f} GB; step s (CUDA events) "
+        f"{[round(x, 4) for x in step_s]}; s a step (median of steps 2-9) "
+        f"{med:.4f}, {toks / med:.1f} tokens/s; max_memory_allocated in the "
+        f"steps {peak / 1e9:.3f} GB of "
+        f"{torch.cuda.get_device_properties(dev).total_memory / 1e9:.3f}; "
+        f"loss {losses[0]:.6f} -> {losses[-1]:.6f}; run_cluster {secs:.3f} s "
+        f"on {smi}")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"trainer (b): losses {losses}")
+    back, load_s = wall_s(lambda: ckpt.load_checkpoint(ckpt_dir, args.steps,
+                                                       state["params"]))
+    off = [k for k, v in state["params"].items()
+           if not torch.equal(back[k], v)]
+    size = os.path.getsize(os.path.join(ckpt_dir,
+                                        f"ckpt_{args.steps:08d}.npz"))
+    log(f"trainer (b) checkpoint {size / 1e9:.3f} GB, loaded back in "
+        f"{load_s:.3f} s: {len(back)} leaves, {len(off)} not bitwise {off}")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    if off or sorted(back) != sorted(state["params"]):
+        raise AssertionError(f"trainer (b) checkpoint: {off}")
+    del back, state
+    torch.cuda.empty_cache()
+    took("(b) gemma-2b")
+
+    # (c) the 100M example on the card
+    _, secs = wall_s(lambda: ex.main(FL100M_ARGS, device=dev))
+    log(f"trainer (c) train_fl_100m {' '.join(FL100M_ARGS)}: {secs:.3f} s")
+    took("(c) train_fl_100m")
+    got = read()
+    log(f"trainer kernel launches across phase 17: {got}")
+    if any(got.values()):
+        raise AssertionError(f"trainer: kernels launched {got}")
+    return total
+
+
 def main() -> int:
     t0 = time.perf_counter()
     smi = card()
@@ -2296,7 +2476,8 @@ def main() -> int:
               ("hfl", lambda: run_hfl(dev, smi)),
               ("gossip", lambda: run_gossip(dev, smi)),
               ("lm", lambda: run_lm(dev, smi)),
-              ("families", lambda: run_families(dev, smi))]
+              ("families", lambda: run_families(dev, smi)),
+              ("trainer", lambda: run_trainer(dev, smi))]
     out = {}
     log(f"phase card: {time.perf_counter() - t0:.2f} s")
     for name, fn in phases:
@@ -2316,6 +2497,7 @@ def main() -> int:
                      "gossip_launches": out["gossip"][name],
                      "lm_launches": out["lm"][0][name],
                      "families_launches": out["families"][0][name],
+                     "trainer_launches": out["trainer"][name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "device_ms": r["device_ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

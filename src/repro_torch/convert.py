@@ -1,7 +1,8 @@
 """Carry JAX-side values into the port, as numpy arrays: parameter dicts
 (flat, or a transformer's nested tree), PRNG keys, a whole round state, the
 channel, compression, algorithm, fault and privacy parameters, the
-hierarchical and gossip engines' configurations and model configs. The port
+hierarchical and gossip engines' configurations, model configs, and the
+trainer's state and policy. The port
 never imports JAX; callers hand over JAX objects, which are read through
 ``np.asarray`` and their field names."""
 from __future__ import annotations
@@ -23,7 +24,9 @@ from repro_torch.core.privacy.registry import PrivacyParams
 from repro_torch.core.wireless import ChannelParams
 from repro_torch.fl.decentralized import GossipConfig
 from repro_torch.fl.server import FLState
+from repro_torch.launch.steps import TrainPolicy
 from repro_torch.models.transformer import flatten_params
+from repro_torch.optim.optimizers import OptState
 
 
 def _tensor(v, device=None) -> torch.Tensor:
@@ -139,3 +142,30 @@ def gossip_config_from_jax(c) -> GossipConfig:
         kw[f.name] = (conv[f.name](v) if f.name in conv and v is not None
                       else v)
     return GossipConfig(**kw)
+
+
+def opt_state_from_jax(opt, device=None) -> OptState:
+    """The reference's ``OptState`` -> the port's: the step, and each
+    moment tree (or None) flattened as ``lm_params_from_jax`` flattens
+    params."""
+    def tree(t):
+        return None if t is None else lm_params_from_jax(t, device)
+    return OptState(_tensor(opt.step, device), tree(opt.m), tree(opt.v))
+
+
+def train_state_from_jax(state: Dict, device=None) -> Dict:
+    """A state of the reference's trainer (``launch/steps.py``'s
+    ``make_init_fn`` and train steps) -> the port's: params, ``OptState``,
+    the step and, where there is one, the EF tree."""
+    out = {"params": lm_params_from_jax(state["params"], device),
+           "opt": opt_state_from_jax(state["opt"], device),
+           "step": _tensor(state["step"], device)}
+    if "ef" in state:
+        out["ef"] = lm_params_from_jax(state["ef"], device)
+    return out
+
+
+def train_policy_from_jax(p) -> TrainPolicy:
+    """The reference's ``TrainPolicy`` -> the port's, field by field."""
+    return TrainPolicy(**{f.name: getattr(p, f.name)
+                          for f in dataclasses.fields(TrainPolicy)})

@@ -14,6 +14,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from repro_torch import random as trandom
+from repro_torch.models import xla_math
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,10 +150,11 @@ def pairwise_dist_jax(pos_xy: torch.Tensor) -> torch.Tensor:
 
 
 # The reference's compiled channel arithmetic: XLA folds ``10 * ple *
-# log10(d)`` into ``log(d) * (ple * f32(10 * f32(1 / ln 10)))`` and contracts
-# the add of the reference loss into a fused multiply-add, divides by 10 as a
-# multiply by f32(0.1), and its pow is correctly rounded. Mirrored in
-# float64 steps, the SNR matches its bits wherever XLA's log does.
+# log10(d)`` into ``log(d) * (ple * f32(10 * f32(1 / ln 10)))`` with its own
+# float32 ``log`` (``xla_math.log``), contracts the add of the reference
+# loss into a fused multiply-add, divides by 10 as a multiply by f32(0.1),
+# and its pow is correctly rounded. Mirrored in float64 steps, the SNR
+# matches its bits.
 _DB_PER_NEPER = float(torch.tensor(1.0 / math.log(10.0),
                                    dtype=torch.float32) * 10.0)
 
@@ -164,8 +166,8 @@ def _pow10(x: torch.Tensor) -> torch.Tensor:
 
 def path_gain_jax(dist_m: torch.Tensor, cp: ChannelParams) -> torch.Tensor:
     k = cp.path_loss_exponent * _DB_PER_NEPER
-    loss_db = (torch.log(dist_m.double()).to(torch.float32).double()
-               * k.double() + cp.ref_loss_db.double()).to(torch.float32)
+    loss_db = (xla_math.log(dist_m).double() * k.double()
+               + cp.ref_loss_db.double()).to(torch.float32)
     return _pow10(-loss_db * 0.1)
 
 

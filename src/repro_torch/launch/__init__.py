@@ -1,2 +1,4 @@
-"""Command-line entry points of the port: ``python -m repro_torch.launch.train``
-trains a config federated through the flat engine."""
+"""Command-line entry points of the port: ``python -m
+repro_torch.launch.train`` trains a config federated through the flat
+engine, or with ``--cluster`` through the one-card trainer
+(``launch/steps.py``)."""

@@ -1,23 +1,31 @@
-"""Federated training from the command line: the FL simulation scale of
-``repro/launch/train.py`` (vmapped clients, wireless scheduling,
-compression + EF) on one CUDA device.
+"""End-to-end training from the command line, the port of
+``repro/launch/train.py`` on one CUDA device. Two scales:
 
+* ``--cluster`` -- the pod-scale trainer (``launch/steps.py``) on a mesh of
+  one card: PSSGD, local SGD or FSDP with a compressed all-reduce and EF;
+* default -- the FL simulation scale: vmapped clients, wireless scheduling,
+  compression + EF through the flat engine.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b \
+        --steps 20 --reduced --cluster
     PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm-2b \
         --reduced --rounds 50 --policy age --compressor topk
 
-Trains the dense, moe, ssm and hybrid families. ``--cluster`` (the
-reference's pod-scale pjit path, and the only one that feeds the vlm and
-audio families their embeddings) belongs to the trainer and is not ported
-yet (ROADMAP queue A item 10).
+Trains the dense, moe, ssm and hybrid families; the vlm and audio families
+raise (ROADMAP queue A item 2), as does a mesh of more than one card
+(``--mesh-data`` / ``--mesh-model`` above 1, item 5).
 """
 from __future__ import annotations
 
 import argparse
+import time
 import warnings
 
 import numpy as np
+import torch
 
 from repro_torch import random as trandom
+from repro_torch.checkpoint import save_checkpoint
 from repro_torch.configs import get_config
 from repro_torch.core.algorithms.registry import (algo_params,
                                                   algorithm_names, flat_dim,
@@ -26,14 +34,56 @@ from repro_torch.core.compression.registry import (compression_params,
                                                    compressor_names)
 from repro_torch.core.privacy import privacy_names, privacy_params
 from repro_torch.data import (FederatedLoader, SyntheticLMDataset,
-                              dirichlet_partition)
+                              batch_iterator, dirichlet_partition)
 from repro_torch.fl import runtime as fl_runtime
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.launch.steps import (TrainPolicy, make_init_fn,
+                                      make_train_step)
 from repro_torch.models import transformer as tf
 
 
 def make_compression(name: str, d: int, k_frac: float = 0.01):
     """CLI name -> (registry name, CompressionParams) for the d-dim model."""
     return name, compression_params(k=max(1, int(k_frac * d)), levels=256)
+
+
+def run_cluster(args, cfg=None, device="cuda"):
+    """Train ``--arch`` (or ``cfg`` as given) for ``--steps`` steps of the
+    pod-scale trainer on one card, print the losses, save the params to
+    ``--ckpt-dir`` if given and return (losses, the final state); the last
+    loss must be below the first."""
+    if cfg is None:
+        cfg = get_config(args.arch)
+        if args.reduced:
+            cfg = cfg.reduced()
+    mesh = make_local_mesh(args.mesh_data, args.mesh_model)
+    dev = fl_runtime.resolve_device(device)
+    ef = args.compression not in ("none", "bf16")
+    policy = TrainPolicy(mode=args.mode, compression=args.compression,
+                         error_feedback=ef, local_steps=args.local_steps,
+                         lr=args.lr, optimizer=args.optimizer,
+                         total_steps=args.steps, remat=not args.reduced)
+    ds = SyntheticLMDataset(cfg.vocab_size, args.seq_len, 4096, seed=0)
+    it = batch_iterator(ds, args.batch, seed=0)
+
+    state = make_init_fn(cfg, policy, mesh)(trandom.PRNGKey(args.seed, dev))
+    step_fn = make_train_step(cfg, policy, mesh)
+    losses = []
+    for step in range(args.steps):
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in next(it).items()}
+        t0 = time.time()
+        state, metrics = step_fn(state, batch)
+        loss = float(metrics["loss"])
+        losses.append(loss)
+        if step % max(1, args.steps // 20) == 0 or step == args.steps - 1:
+            print(f"step {step:5d} loss {loss:.4f} "
+                  f"({time.time() - t0:.2f}s) [{policy.tag()}]")
+    if args.ckpt_dir:
+        save_checkpoint(args.ckpt_dir, args.steps, state["params"])
+    assert losses[-1] < losses[0], "training did not reduce loss"
+    print(f"final loss {losses[-1]:.4f} (from {losses[0]:.4f})")
+    return losses, state
 
 
 def federated_problem(args, cfg=None, device="cuda"):
@@ -158,13 +208,12 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv=None) -> None:
+def main(argv=None, device="cuda") -> None:
     args = parser().parse_args(argv)
     if args.cluster:
-        raise NotImplementedError(
-            "--cluster is the pod-scale trainer (launch/steps.py, optim/, "
-            "checkpoint/), not ported yet: ROADMAP queue A item 10")
-    run_federated(args)
+        run_cluster(args, device=device)
+    else:
+        run_federated(args, device=device)
 
 
 if __name__ == "__main__":

@@ -15,15 +15,18 @@ reference scans.
 
 The vlm and audio families (fed vision or audio embeddings, which only the
 cluster trainer makes), prefill and decode raise or are absent (ROADMAP
-queue A). ``remat`` is accepted for the reference's signatures: the
-reference rematerializes to save memory, and under ``torch.func`` the port
-computes the same numbers without recomputation.
+queue A). ``remat`` recomputes each layer in the backward
+(``torch.utils.checkpoint``) where autograd records the forward, as the
+reference's ``jax.checkpoint`` of its scan body does; under ``torch.func``
+(the federated engine's per-client grads) the layers run as they are. The
+numbers are the same either way.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import random as trandom
 from repro_torch.configs.base import ModelConfig
@@ -85,11 +88,15 @@ def nest_params(params: Params) -> Params:
     return _lists(out)
 
 
-def _layer(tree, i: int):
-    """Layer ``i`` of a stack: every leaf indexed on its leading axis."""
+def _unstack(tree, n: int) -> list:
+    """The ``n`` layers of a stack, every leaf unbound from its leading axis
+    once: the backward of ``unbind`` stacks the layers' gradients in one
+    pass, where indexing layer by layer would add each layer's gradient
+    into a zero-filled copy of the whole stack."""
     if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
-    return tree[i]
+        per = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: per[k][i] for k in per} for i in range(n)]
+    return tree.unbind(0)
 
 
 # ===========================================================================
@@ -215,39 +222,55 @@ def unembed(params: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
 # ===========================================================================
 # Forward (train trunk) and loss
 # ===========================================================================
+def _remat(fn: Callable, remat: bool) -> Callable:
+    """``fn``, recomputed in the backward instead of keeping its
+    activations where ``remat`` asks for it and autograd (not a
+    ``torch.func`` transform) records the forward."""
+    if not (remat and torch.is_grad_enabled()
+            and not torch._C._are_functorch_transforms_active()):
+        return fn
+    # no layer draws random numbers, so the RNG state (a device-to-host copy
+    # a layer) need not be saved for the recomputation
+    return lambda *a, **kw: checkpoint(fn, *a, use_reentrant=False,
+                                       preserve_rng_state=False, **kw)
+
+
 def forward_trunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                   extras: Optional[Dict[str, torch.Tensor]] = None, *,
                   remat: bool = True, q_chunk: int = 1024):
     """Embedding + all blocks; returns (hidden (B,S,d), aux, None).
-    ``extras`` and ``remat`` are accepted for the reference's signature."""
-    del extras, remat
+    ``extras`` is accepted for the reference's signature; ``remat``
+    recomputes each layer in the backward."""
+    del extras
     _check_family(cfg)
     params = nest_params(params)
     x = _embed(params, cfg, tokens)
     window = cfg.sliding_window if cfg.attn_type == "sliding" else None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     blocks, fam = params["blocks"], cfg.family
+    attn_fwd = _remat(_attn_block_fwd, remat)
     if fam in ("dense", "moe"):
-        for i in range(cfg.n_layers):
-            x, a = _attn_block_fwd(_layer(blocks, i), x, cfg, window=window,
-                                   q_chunk=q_chunk)
+        for p_l in _unstack(blocks, cfg.n_layers):
+            x, a = attn_fwd(p_l, x, cfg, window=window, q_chunk=q_chunk)
             aux = aux + a
     elif fam == "ssm":
-        for i in range(cfg.n_layers):
-            x = _mamba_block_fwd(_layer(blocks, i), x, cfg)
+        mamba_fwd = _remat(_mamba_block_fwd, remat)
+        for p_l in _unstack(blocks, cfg.n_layers):
+            x = mamba_fwd(p_l, x, cfg)
     else:  # hybrid: the pattern periods, then the remainder
         n_super = cfg.n_layers // len(cfg.block_pattern)
-        layers = [(kind, _layer(blocks[f"p{i}_{kind}"], n))
-                  for n in range(n_super)
+        stacks = [_unstack(blocks[f"p{i}_{kind}"], n_super)
+                  for i, kind in enumerate(cfg.block_pattern)]
+        layers = [(kind, stacks[i][n]) for n in range(n_super)
                   for i, kind in enumerate(cfg.block_pattern)]
         layers += [("rglru" if "rec" in p_l else "attn", p_l)
                    for p_l in params.get("rest", [])]
+        rglru_fwd = _remat(_rglru_block_fwd, remat)
         for kind, p_l in layers:
             if kind == "rglru":
-                x = _rglru_block_fwd(p_l, x, cfg)
+                x = rglru_fwd(p_l, x, cfg)
             else:
-                x, _ = _attn_block_fwd(p_l, x, cfg, window=window,
-                                       q_chunk=q_chunk)
+                x, _ = attn_fwd(p_l, x, cfg, window=window, q_chunk=q_chunk)
     return x, aux, None
 
 

@@ -1,20 +1,24 @@
-"""float32 ``log``, ``expm1`` and ``linspace`` as the reference's CPU backend
-computes them, so that the recurrent blocks' constant inits (mamba's
-``A_log``, RG-LRU's ``Lambda``) are bitwise the reference's.
+"""float32 ``log``, ``log1p``, ``exp``, ``expm1`` and ``linspace`` as the
+reference's CPU backend computes them, so that the recurrent blocks'
+constant inits (mamba's ``A_log``, RG-LRU's ``Lambda``) and the normal and
+exponential draws (``random.erfinv``, ``random.exponential``) are bitwise
+the reference's.
 
 XLA's CPU backend does not call libm for these: it emits Cephes-style
-polynomials (``log`` a degree-8 polynomial after a frexp split, ``exp`` a
-degree-5 one after a ``2^n`` split, ``tanh`` a 13/6 rational), which differ
-from a correctly rounded result by an ulp on some inputs (``log(7)``, most
-of ``linspace(0.9, 0.999, w)``'s chain). Each step below is one float32
-operation or one fused multiply-add, where the reference's compiled x86
-code has one (``_fma``), so the results are the same on the CPU and on the
-card. ``linspace`` divides by ``num - 1`` as a multiply by its float32
-reciprocal and takes ``stop * step`` as ``iota * (stop * (1 / (num - 1)))``,
-as XLA's simplifier rewrites them.
+polynomials (``log`` a degree-8 polynomial after a frexp split, ``log1p``
+a 6/6 rational near 0, ``exp`` a degree-5 one after a ``2^n`` split,
+``tanh`` a 13/6 rational), which differ from a correctly rounded result by
+an ulp on some inputs (``log(7)``, most of ``linspace(0.9, 0.999, w)``'s
+chain). Each step below is one float32 operation or one fused
+multiply-add, where the reference's compiled x86 code has one (``fma64``),
+so the results are the same on the CPU and on the card. ``linspace``
+divides by ``num - 1`` as a multiply by its float32 reciprocal and takes
+``stop * step`` as ``iota * (stop * (1 / (num - 1)))``, as XLA's
+simplifier rewrites them.
 """
 from __future__ import annotations
 
+import functools
 import struct
 
 import numpy as np
@@ -47,43 +51,90 @@ _TANH_N = [_f(h) for h in ("BCB3E4B800000000", "3D4C266FC0000000",
 _TANH_D = [_f(h) for h in ("3EB41A7B00000000", "3F1F12BAC0000000",
                            "3F629540A0000000", "3F740B3BA0000000")]
 _MIN_NORMAL = 2.0 ** -126
+# log1p's rational branch below |x| = sqrt(2) - 1: x - x^2 / 2 + x^3 P / Q
+_LOG1P_SMALL = _f("3FDA8279A0000000")
+_LOG1P_P = [_f(h) for h in ("3F07BC0960000000", "3FDFE818A0000000",
+                            "401A509F40000000", "403DE97380000000",
+                            "404E798EC0000000", "404C8E75A0000000",
+                            "40340A2020000000")]
+_LOG1P_Q = [_f(h) for h in ("402E2035A0000000", "4054C30B60000000",
+                            "406BB865A0000000", "4073519460000000",
+                            "406B0DB140000000", "404E0F3040000000")]
 
 
 def _c(v: float, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(v, dtype=torch.float32, device=like.device)
 
 
-def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """float32 ``a * b + c`` rounded once (the product of two float32
-    values is exact in float64)."""
-    return (a.double() * b.double() + c.double()).to(torch.float32)
+@functools.lru_cache(maxsize=None)
+def const64(v, device: torch.device) -> torch.Tensor:
+    """A float64 constant (a float, or a tuple of them) on ``device``, made
+    once per device and never written."""
+    return torch.tensor(v, dtype=torch.float64, device=device)
+
+
+def fma64(a64: torch.Tensor, b, c) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once, ``a`` handed over widened to
+    float64 (so that callers widen a shared factor once); ``b`` and ``c``
+    float32 tensors or Python floats that float32 holds exactly. The product
+    of two float32 values is exact in float64, and one ``addcmul`` forms the
+    float64 sum before the rounding to float32: two launches on the card."""
+    d = a64.device
+    b = b if torch.is_tensor(b) else const64(b, d)
+    c = c if torch.is_tensor(c) else const64(c, d)
+    return torch.addcmul(c, a64, b).to(torch.float32)
+
+
+def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once, ``a`` a float32 tensor."""
+    return fma64(a.double(), b, c)
 
 
 def log(x: torch.Tensor) -> torch.Tensor:
     """XLA CPU's float32 ``log``."""
     x = x.to(torch.float32)
-    c = lambda v: _c(v, x)  # noqa: E731
-    xs = torch.maximum(x, c(_MIN_NORMAL))
-    bits = xs.view(torch.int32)
-    e = c(1.0) + ((bits >> 23) - 127).to(torch.float32)
+    bits = torch.clamp_min(x, _MIN_NORMAL).view(torch.int32)
+    e = ((bits >> 23) - 127).to(torch.float32) + 1.0
     m = ((bits & -2139095041) | 1056964608).view(torch.float32)
-    small = m < c(_SQRTHF)
-    e = e - torch.where(small, c(1.0), c(0.0))
-    v = (m - c(1.0)) + torch.where(small, m, c(0.0))
+    small = m < _SQRTHF
+    e = e - small.to(torch.float32)
+    v = (m - 1.0) + torch.where(small, m, 0.0)
     z = v * v
     v3 = z * v
+    v64, v3_64 = v.double(), v3.double()
     p = _LOG_P
-    a = _fma(v, _fma(v, c(p[0]), c(p[1])), c(p[6]))
-    b = _fma(v, _fma(v, c(p[2]), c(p[3])), c(p[7]))
-    d = _fma(v, _fma(v, c(p[4]), c(p[5])), c(p[8]))
-    t = _fma(v3, _fma(v3, a, b), d)
-    y = _fma(t, v3, c(_LN2_LO) * e)
-    out = _fma(c(_LN2_HI), e, _fma(c(-0.5), z, v) + y)
+    a = fma64(v64, fma64(v64, p[0], p[1]), p[6])
+    b = fma64(v64, fma64(v64, p[2], p[3]), p[7])
+    d = fma64(v64, fma64(v64, p[4], p[5]), p[8])
+    t = fma64(v3_64, fma64(v3_64, a, b), d)
+    y = fma64(v3_64, t, e * _LN2_LO)
+    # fma(-1/2, z, v) is v - z / 2, the product exact
+    out = fma64(e.double(), _LN2_HI, torch.add(v, z, alpha=-0.5) + y)
     # denormals are flushed to zero, as the reference's CPU flushes them
-    out = torch.where(x < 0, c(float("nan")), out)
-    out = torch.where(x.abs() < c(_MIN_NORMAL), c(-float("inf")), out)
-    out = torch.where(x == float("inf"), c(float("inf")), out)
+    out = torch.where(x < 0, float("nan"), out)
+    out = torch.where(x.abs() < _MIN_NORMAL, -float("inf"), out)
+    out = torch.where(x == float("inf"), float("inf"), out)
     return torch.where(x.isnan(), x, out)
+
+
+def log1p(x: torch.Tensor) -> torch.Tensor:
+    """XLA CPU's float32 ``log1p``: ``log(1 + x)`` (the ``log`` above) from
+    ``|x| = sqrt(2) - 1`` on, and below it ``x + fma(-1/2, x^2, x^3 P / Q)``
+    with ``P`` (degree 6) and ``Q`` (monic, degree 6) by Horner's rule in
+    FMAs and one correctly rounded division. ``random.normal`` feeds it
+    ``-x * x`` and ``random.exponential`` ``-u``, as the reference's
+    compiled samplers do."""
+    x = x.to(torch.float32)
+    x64 = x.double()
+    p = fma64(x64, _LOG1P_P[0], _LOG1P_P[1])
+    for v in _LOG1P_P[2:]:
+        p = fma64(x64, p, v)
+    q = x + _LOG1P_Q[0]
+    for v in _LOG1P_Q[1:]:
+        q = fma64(x64, q, v)
+    x2 = x * x
+    small = x + torch.add(x * x2 * (p / q), x2, alpha=-0.5)
+    return torch.where(x.abs() < _LOG1P_SMALL, small, log(x + 1.0))
 
 
 def _exp_parts(x: torch.Tensor):
@@ -99,6 +150,12 @@ def _exp_parts(x: torch.Tensor):
     y = _fma(y, r * r, r) + c(1.0)
     pow2 = ((n.to(torch.int32) << 23) + 1065353216).view(torch.float32)
     return y, pow2
+
+
+def exp(x: torch.Tensor) -> torch.Tensor:
+    """XLA CPU's float32 ``exp`` for ``|x| < 87`` (the clamp saturates)."""
+    y, pow2 = _exp_parts(x.to(torch.float32))
+    return y * pow2
 
 
 def _tanh(x: torch.Tensor) -> torch.Tensor:

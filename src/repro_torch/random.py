@@ -16,10 +16,10 @@ output shape is ``key.shape[:-1] + shape``.
 
 Floats follow ``jax.random._uniform``: 23 random mantissa bits under the
 exponent of 1.0, minus one. ``normal`` is ``sqrt(2) * erfinv(u)`` with XLA's
-float32 ``ErfInv`` polynomial ported term for term; its ``log1p`` and the
-``log1p`` of ``exponential`` are PyTorch's, which may differ from XLA's in
-the last place, so those two samplers agree with JAX to a few ulp while
-``bits``/``uniform``/``split``/``fold_in``/``permutation`` are bitwise.
+float32 ``ErfInv`` polynomial ported term for term, its Horner steps fused
+multiply-adds as the reference's compiled x86 code has them; its ``log1p``
+and that of ``exponential`` are XLA's CPU ``log1p`` (``models/xla_math.py``),
+so every sampler here is bitwise the reference's on the CPU.
 """
 from __future__ import annotations
 
@@ -27,6 +27,8 @@ import math
 from typing import Sequence, Union
 
 import torch
+
+from repro_torch.models import xla_math
 
 MASK = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -122,14 +124,25 @@ _ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
                0.00943887047, 1.00167406, 2.83297682)
 
 
+def _f32(values: tuple) -> tuple:
+    """The float32 roundings of ``values``, as Python floats."""
+    return tuple(torch.tensor(values, dtype=torch.float32).tolist())
+
+
 def erfinv(x: torch.Tensor) -> torch.Tensor:
     """float32 inverse error function, XLA's polynomial term for term."""
-    w = -torch.log1p(-x * x)
+    w = -xla_math.log1p(-x * x)
     lt = w < 5.0
-    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
-    p = torch.where(lt, _ERFINV_LT5[0], _ERFINV_GE5[0]).to(x.dtype)
-    for a, b in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
-        p = torch.where(lt, a, b).to(x.dtype) + p * w
+    # sqrt correctly rounded (in float64), as x86's vsqrtps: PyTorch's CPU
+    # float32 sqrt is an ulp low on some inputs
+    w = torch.where(lt, w - 2.5, w.double().sqrt().float() - 3.0)
+    coef = torch.where(lt[..., None],
+                       xla_math.const64(_f32(_ERFINV_LT5), x.device),
+                       xla_math.const64(_f32(_ERFINV_GE5), x.device))
+    w64 = w.double()
+    p = coef[..., 0]
+    for i in range(1, len(_ERFINV_LT5)):
+        p = xla_math.fma64(w64, p, coef[..., i])
     return torch.where(x.abs() == 1.0, x * math.inf, p * x)
 
 
@@ -144,7 +157,7 @@ def normal(key: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
 
 def exponential(key: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
     """Exp(1) float32 (``jax.random.exponential``): ``-log1p(-u)``."""
-    return -torch.log1p(-uniform(key, shape))
+    return -xla_math.log1p(-uniform(key, shape))
 
 
 def permutation(key: torch.Tensor, n: int) -> torch.Tensor:

@@ -216,6 +216,28 @@ def test_field_noise_rows_within_one_unit():
     assert diff.max() <= 1 and diff.sum() <= want.size / 1000
 
 
+def test_field_noise_rows_bitwise_across_thread_counts():
+    """The same inputs as above under 1 to 8 intra-op threads: the noise is
+    the reference's bit for bit at every count (``random.normal`` is
+    XLA's float32 arithmetic step by step, with no libm call whose
+    vectorized and scalar paths could differ)."""
+    pp = jpriv.privacy_params(clip=0.5, sigma=0.3, field_bits=17.0)
+    key = jax.random.PRNGKey(6)
+    ids = np.arange(300)
+    want = np.asarray(jpriv.field_noise_rows(
+        pp, key, jnp.asarray(ids, jnp.int32), 64))
+    n = torch.get_num_threads()
+    try:
+        for threads in range(1, 9):
+            torch.set_num_threads(threads)
+            got = tpriv.field_noise_rows(privacy_params_from_jax(pp),
+                                         key_from_jax(key), _t(ids), 64)
+            np.testing.assert_array_equal(got.numpy(), want,
+                                          err_msg=f"{threads} threads")
+    finally:
+        torch.set_num_threads(n)
+
+
 def test_clip_rows_and_central_noise():
     rows = np.random.default_rng(0).standard_normal((50, 40)).astype(
         np.float32)
