@@ -211,6 +211,33 @@ Phases (any failure exits non-zero):
    0.3, which the example asserts); ``trainer_launches`` in the kernels
    line.
 
+18. serve: the serving path (``launch/serve.py``, ``launch/steps.py``'s
+   serving steps, ``transformer.prefill`` / ``decode_step``) and the vlm and
+   audio families, no kernel on the path, every kernel counter set to 0 at
+   its start and required to read 0 at its end: (a) ``serve --reduced``
+   (batch 2, prompt 32, 16 greedy steps) for gemma-2b, qwen2-moe-a2.7b,
+   falcon-mamba-7b, recurrentgemma-2b, llama-3.2-vision-11b and
+   whisper-base on the card against the same call on the CPU (every step's
+   logits within SERVE_TOL of the largest |logit|, greedy tokens equal
+   wherever the CPU's top-2 gap exceeds that), then circular decode past a
+   window of 16 at positions 0, 5, 15, 16 and 50 for falcon-mamba-7b,
+   recurrentgemma-2b and gemma-2b (logits and caches); (b) ``run_cluster
+   --reduced`` for llama-3.2-vision-11b and whisper-base, pssgd, int8 +
+   EF, 6 steps of (8, 64), card against CPU as phase 17(a); (c)
+   llama-3.2-vision-11b at its published widths cut to 10 layers and
+   float32, both gates 0.5 and seeded normal vision embeds: the init's s
+   and peak, prefill (4, 512) and 64 greedy decode steps through
+   ``make_prefill_step`` / ``_load_prefill`` / ``make_decode_step``, each
+   beside its bound (``_vlm_bounds``), the peak in serving, and the decode's
+   logits against one teacher-forced ``forward_trunk`` over the 576 tokens
+   within VLM_TOL, greedy tokens equal wherever the top-2 gap exceeds it;
+   (d) the same widths cut to 5 layers through ``run_cluster`` (pssgd, int8
+   + EF, adamw, lr 1e-3, remat, 10 steps of (8, 128)): init s and peak, s
+   a step, tokens/s, peak; (e) whisper-base at its published size in
+   float32: ``serve`` (4, 64) + 64 steps card against CPU, and
+   ``run_cluster`` for 10 steps of (8, 128); ``serve_launches`` in the
+   kernels line.
+
 Phase 3 also holds ``qsgd_rows`` given its norms at (6, 744 497 152), rows
 x d past 2^32 (the flat pass), against its plain version row by row.
 
@@ -359,6 +386,41 @@ GEMMA_TIMED = slice(2, 10)
 # the 100M example at its default 300 steps: in 30 its loss falls from
 # 10.903 to 10.846 on an H100, short of the 0.3 the example asserts
 FL100M_ARGS = ["--full-100m"]
+# phase 18, the serving path: (a) serve --reduced for one config of each
+# family (batch 2, prompt 32, 16 greedy steps) and circular decode past a
+# window of 16, card against CPU; every step's logits within SERVE_TOL of
+# the largest |logit|, greedy tokens equal wherever the top-2 gap exceeds
+# that
+SERVE_ARCHS = ("gemma-2b", "qwen2-moe-a2.7b", "falcon-mamba-7b",
+               "recurrentgemma-2b", "llama-3.2-vision-11b", "whisper-base")
+SERVE_ARGS = ["--reduced", "--batch", "2", "--prompt-len", "32", "--gen",
+              "16"]
+SERVE_TOL = 1e-4
+CIRC_ARCHS = ("falcon-mamba-7b", "recurrentgemma-2b", "gemma-2b")
+CIRC_POS, CIRC_WINDOW = (0, 5, 15, 16, 50), 16
+# (b) run_cluster --reduced for the vlm and audio families, card vs CPU
+NEW_FAMILY_ARCHS = ("llama-3.2-vision-11b", "whisper-base")
+NEW_FAMILY_ARGS = ["--reduced", "--cluster", "--steps", "6", "--seq-len",
+                   "64", "--batch", "8", "--compression", "int8"]
+# (c) llama-3.2-vision-11b at its published widths, depth 40 -> 10 (two
+# superblocks), float32, both gates 0.5 and seeded normal vision embeds:
+# prefill (4, 512), 64 greedy steps; decode against the teacher-forced
+# forward within VLM_TOL of the largest |logit|
+VLM = "llama-3.2-vision-11b"
+VLM_DEPTH, VLM_B, VLM_PROMPT, VLM_GEN, VLM_GATE = 10, 4, 512, 64, 0.5
+VLM_TOL = 1e-3
+# (d) the same widths through run_cluster at one superblock (5 layers), the
+# CLI's defaults with int8 + EF, 10 steps of (8, 128)
+VLM_TRAIN_DEPTH = 5
+VLM_TRAIN_ARGS = ["--arch", VLM, "--cluster", "--mode", "pssgd",
+                  "--compression", "int8", "--steps", "10"]
+# (e) whisper-base at its published size (6 + 6 layers, 1500 frames),
+# float32: serve (4, 64) + 64 steps card vs CPU, run_cluster 10 steps
+WHISPER_SERVE_ARGS = ["--arch", "whisper-base", "--batch", "4",
+                      "--prompt-len", "64", "--gen", "64"]
+WHISPER_TRAIN_ARGS = ["--arch", "whisper-base", "--cluster", "--mode",
+                      "pssgd", "--compression", "int8", "--steps", "10"]
+CLUSTER_TIMED = slice(2, 10)
 ROWS_SRC = "src/repro_torch/kernels/csrc/rows.cu"
 TILES_SRC = "src/repro_torch/kernels/csrc/tiles.cu"
 
@@ -2319,6 +2381,51 @@ def _rel_l2(got: dict, want: dict) -> float:
     return (num / den) ** 0.5
 
 
+def _timed_cluster(args, cfg, dev):
+    """``run_cluster(args, cfg=cfg)`` on the card, its init and each step
+    timed: returns (its result, its wall s, {"init": (s, peak bytes),
+    "step_s": each step's s by CUDA events, "peak": peak bytes in the
+    steps})."""
+    from repro_torch.launch import train as cli
+    got = {"events": []}
+    orig_init, orig_step = cli.make_init_fn, cli.make_train_step
+
+    def timed_init(*a):
+        init = orig_init(*a)
+
+        def run(key):
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            state, secs = wall_s(lambda: init(key))
+            got["init"] = (secs, torch.cuda.max_memory_allocated() - base)
+            torch.cuda.reset_peak_memory_stats()
+            return state
+        return run
+
+    def timed_step(*a):
+        step = orig_step(*a)
+
+        def run(state, batch):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = step(state, batch)
+            ev[1].record()
+            got["events"].append(ev)
+            return out
+        return run
+
+    torch.cuda.empty_cache()
+    cli.make_init_fn, cli.make_train_step = timed_init, timed_step
+    try:
+        out, secs = wall_s(lambda: cli.run_cluster(args, cfg=cfg, device=dev))
+    finally:
+        cli.make_init_fn, cli.make_train_step = orig_init, orig_step
+    got["peak"] = torch.cuda.max_memory_allocated()
+    got["step_s"] = [a.elapsed_time(b) / 1e3 for a, b in got.pop("events")]
+    return out, secs, got
+
+
 def run_trainer(dev, smi: str) -> dict:
     """Phase 17: the one-card trainer through ``run_cluster``: every mode x
     compression at ``--reduced``, card against CPU (a); gemma-2b at its
@@ -2370,43 +2477,9 @@ def run_trainer(dev, smi: str) -> dict:
     ckpt_dir = os.path.join(ROOT, "build", "trainer_ckpt")
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     args = cli.parser().parse_args(GEMMA_ARGS + ["--ckpt-dir", ckpt_dir])
-    got = {"events": []}
-    orig_init, orig_step = cli.make_init_fn, cli.make_train_step
-
-    def timed_init(*a):
-        init = orig_init(*a)
-
-        def run(key):
-            torch.cuda.reset_peak_memory_stats()
-            base = torch.cuda.memory_allocated()
-            state, secs = wall_s(lambda: init(key))
-            got["init"] = (secs, torch.cuda.max_memory_allocated() - base)
-            torch.cuda.reset_peak_memory_stats()
-            return state
-        return run
-
-    def timed_step(*a):
-        step = orig_step(*a)
-
-        def run(state, batch):
-            ev = (torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True))
-            ev[0].record()
-            out = step(state, batch)
-            ev[1].record()
-            got["events"].append(ev)
-            return out
-        return run
-
-    torch.cuda.empty_cache()
-    cli.make_init_fn, cli.make_train_step = timed_init, timed_step
-    try:
-        (losses, state), secs = wall_s(lambda: cli.run_cluster(
-            args, cfg=cfg, device=dev))
-    finally:
-        cli.make_init_fn, cli.make_train_step = orig_init, orig_step
-    peak = torch.cuda.max_memory_allocated()
-    step_s = [a.elapsed_time(b) / 1e3 for a, b in got["events"]]
+    (losses, state), secs, got = _timed_cluster(args, cfg, dev)
+    peak = got["peak"]
+    step_s = got["step_s"]
     med = float(np.median(step_s[GEMMA_TIMED]))
     d = sum(v.numel() for v in state["params"].values())
     toks = args.batch * args.seq_len
@@ -2454,6 +2527,320 @@ def run_trainer(dev, smi: str) -> dict:
     return total
 
 
+def _tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _tree_leaves(v)]
+    return [tree]
+
+
+def _rel_err(got, want) -> float:
+    """Largest |got - want| over the largest |want| (1 at least)."""
+    got, want = got.cpu().double(), want.cpu().double()
+    return float((got - want).abs().max()) / max(1.0, float(
+        want.abs().max()))
+
+
+def _greedy_agree(got_logits, want_logits, tol: float) -> tuple:
+    """(B, n, V) logits: the positions where ``want``'s top-2 gap exceeds
+    ``tol`` times its largest |logit|, and how many of them pick another
+    greedy token in ``got``."""
+    want = want_logits.cpu().double()
+    top2 = want.topk(2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > tol * max(1.0, float(
+        want.abs().max()))
+    off = (got_logits.cpu().argmax(-1) != want.argmax(-1)) & sure
+    return int(sure.sum()), int(off.sum())
+
+
+def _served_agree(g, c) -> tuple:
+    """Two ``serve`` results step by step, until the CPU's top-2 gap falls
+    within SERVE_TOL (the inputs may part after that): (steps compared,
+    largest relative logit error, greedy tokens that differ)."""
+    err, n, off = 0.0, 0, 0
+    for gl, cl in zip(g.logits, c.logits):
+        err = max(err, _rel_err(gl, cl))
+        sure, bad = _greedy_agree(gl, cl, SERVE_TOL)
+        off += bad
+        n += 1
+        if sure < gl.shape[0]:
+            break
+    return n, err, off
+
+
+def _served_line(what, g, c, args, secs, launches) -> None:
+    n, err, off = _served_agree(g, c)
+    log(f"serve {what}: card == cpu for {n} of {len(c.logits)} steps (logit "
+        f"rel err {err:.3g}, tokens off {off}); card prefill "
+        f"{g.prefill_s:.3f} s, decode {g.decode_s / args.gen * 1e3:.3f} ms a "
+        f"step ({args.gen * args.batch / g.decode_s:.1f} tokens/s); cpu "
+        f"prefill {c.prefill_s:.3f} s, decode "
+        f"{c.decode_s / args.gen * 1e3:.3f} ms a step; serve {secs:.3f} s on "
+        f"the card; sample {g.tokens[0, :8].tolist()}; launches {launches}")
+    if n != len(c.logits) or err > SERVE_TOL or off or any(launches.values()):
+        raise AssertionError(f"serve {what}: {n} steps, err {err}, off "
+                             f"{off}, launches {launches}")
+
+
+def _vlm_bounds(cfg, b: int, s: int, t: int) -> dict:
+    """The least times of (c)'s prefill of (b, s) and of one decode step
+    over a t-slot cache: the matmul and attention operations over the
+    card's float32 peak, and the bytes (every weight read once, the caches
+    and vision K/V once) over its memory rate; the larger of the two."""
+    d, v, ff = cfg.d_model, cfg.vocab_size, cfg.d_ff
+    qd, kvd = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    n_super = cfg.n_layers // cfg.cross_attn_every
+    n_self = cfg.n_layers - n_super
+    w_self = 2 * d * qd + 2 * d * kvd + 3 * d * ff
+    w_cross = 2 * d * qd + 3 * d * ff
+    w_trunk = n_self * w_self + n_super * w_cross
+    w_vis = n_super * 2 * cfg.vision_dim * kvd
+    nv = cfg.n_vision_tokens
+    attn = lambda q, k: 4 * b * cfg.n_heads * q * k * cfg.head_dim  # noqa
+    pre_ops = (2 * b * s * w_trunk + 2 * b * nv * w_vis + 2 * b * d * v
+               + n_self * attn(s, s) + n_super * attn(s, nv))
+    pre_bytes = 4 * (w_trunk + w_vis + d * v + b * nv * cfg.vision_dim)
+    dec_ops = (2 * b * w_trunk + 2 * b * d * v + n_self * attn(1, t)
+               + n_super * attn(1, nv))
+    dec_bytes = 4 * (w_trunk + d * v + 2 * b * kvd * (n_self * t
+                                                     + n_super * nv))
+    out = {}
+    for name, ops, nbytes in (("prefill", pre_ops, pre_bytes),
+                              ("decode", dec_ops, dec_bytes)):
+        t_ops, t_bytes = ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+        out[name] = ((t_ops, "operations") if t_ops >= t_bytes
+                     else (t_bytes, "bytes"))
+    return out
+
+
+def _serve_vlm(dev, smi: str) -> None:
+    """Phase 18 (c): llama-3.2-vision-11b at its published widths through
+    ``make_prefill_step`` / ``_load_prefill`` / ``make_decode_step``, then
+    the decode checked against one teacher-forced forward."""
+    import dataclasses
+    from repro_torch import random as trandom
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import transformer as tf
+    cfg = dataclasses.replace(get_config(VLM), n_layers=VLM_DEPTH,
+                              dtype="float32")
+    b, s, n_gen = VLM_B, VLM_PROMPT, VLM_GEN
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params, init_s = wall_s(lambda: tf.init_params(
+        cfg, trandom.PRNGKey(0, dev)))
+    init_peak = torch.cuda.max_memory_allocated() - base
+    n_params = sum(v.numel() for v in params.values())
+    for g in ("gate_attn", "gate_mlp"):
+        params[f"blocks/cross/{g}"].fill_(VLM_GATE)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    vis = torch.randn((b, cfg.n_vision_tokens, cfg.vision_dim),
+                      generator=gen, device=dev)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (b, s)), dtype=torch.int32, device=dev)
+    batch = {"tokens": toks, "vision_embeds": vis}
+    prefill = steps.make_prefill_step(cfg)
+    decode = steps.make_decode_step(cfg, circular=False)
+    log(f"serve (c) {cfg.name} at its published widths (d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads, {cfg.n_kv_heads} kv heads, "
+        f"head_dim {cfg.head_dim}, {cfg.mlp_type} d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, tied {cfg.tie_embeddings}, one cross-attention "
+        f"layer in {cfg.cross_attn_every} over {cfg.n_vision_tokens} vision "
+        f"tokens of {cfg.vision_dim}); cuts: depth 40 -> {cfg.n_layers}, "
+        f"{cfg.dtype} (the config says bfloat16); {n_params} params "
+        f"(param_count {cfg.param_count()}); gates {VLM_GATE}, seeded normal "
+        f"vision embeds; init {init_s:.3f} s, peak {init_peak / 1e9:.3f} GB")
+    bounds = _vlm_bounds(cfg, b, s, s + n_gen)
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        _, warm_s = wall_s(lambda: prefill(params, batch))
+        (logits, pf), pre_s = wall_s(lambda: prefill(params, batch))
+        cache = serve._load_prefill(cfg, tf.init_decode_cache(
+            cfg, b, s + n_gen, device=dev), pf, s)
+        del pf
+        token = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        fed, outs, evs = [], [logits], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n_gen):
+            fed.append(token)
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            logits, cache = decode(params, cache, token, s + i)
+            ev[1].record()
+            evs.append(ev)
+            token = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+            outs.append(logits)
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        step_ms = [a.elapsed_time(e) for a, e in evs]
+        med = float(np.median(step_ms[2:]))
+        del cache
+        # one teacher-forced forward over the prompt and the fed tokens
+        seq = torch.cat([toks] + fed, dim=1)
+        h = tf.forward_trunk(params, cfg, seq, {"vision_embeds": vis},
+                             remat=False)[0]
+        want = tf.unembed(params, cfg, h[:, s - 1:])
+        got = torch.cat(outs, dim=1)
+        err = _rel_err(got, want)
+        sure, off = _greedy_agree(got, want, VLM_TOL)
+    (pb, pby), (db, dby) = bounds["prefill"], bounds["decode"]
+    log(f"serve (c) prefill ({b}, {s}): {pre_s:.4f} s (first call "
+        f"{warm_s:.4f} s), {b * s / pre_s:.1f} tokens/s, bound {pb:.4f} s "
+        f"({pby}), {pre_s / pb:.2f}x the bound; decode {n_gen} steps: "
+        f"{med:.3f} ms a step (CUDA events, median of steps 2-{n_gen - 1}), "
+        f"bound {db * 1e3:.3f} ms ({dby}), {med / (db * 1e3):.2f}x the bound; "
+        f"{b * n_gen / dec_s:.1f} tokens/s ({dec_s:.3f} s on the host clock "
+        f"with the greedy picks); step ms {[round(x, 3) for x in step_ms]}; "
+        f"max_memory_allocated in serving {peak / 1e9:.3f} GB on {smi}")
+    log(f"serve (c) decode vs the teacher-forced forward over ({b}, "
+        f"{s + n_gen}): logit rel err {err:.3g} (tolerance {VLM_TOL}); "
+        f"greedy tokens compared at {sure} of {b * (n_gen + 1)} positions "
+        f"(top-2 gap above the tolerance), {off} differ; generated "
+        f"{torch.cat(fed, 1)[0, :8].tolist()}")
+    if err > VLM_TOL or off or not torch.isfinite(got).all():
+        raise AssertionError(f"serve (c): err {err}, off {off}")
+
+
+def _cluster_line(what, cfg, args, res, secs, got, smi) -> None:
+    (losses, state) = res
+    med = float(np.median(got["step_s"][CLUSTER_TIMED]))
+    d = sum(v.numel() for v in state["params"].values())
+    log(f"serve {what} {cfg.name} ({cfg.n_layers} layers, {cfg.dtype}) "
+        f"through run_cluster: D = {d} (param_count {cfg.param_count()}); "
+        f"{args.mode}/{args.compression}+EF, {args.optimizer}, lr {args.lr}, "
+        f"remat, {args.steps} steps of ({args.batch}, {args.seq_len}); init "
+        f"{got['init'][0]:.3f} s, peak {got['init'][1] / 1e9:.3f} GB; step s "
+        f"{[round(x, 4) for x in got['step_s']]}; s a step (median of steps "
+        f"2-9) {med:.4f}, {args.batch * args.seq_len / med:.1f} tokens/s; "
+        f"max_memory_allocated in the steps {got['peak'] / 1e9:.3f} GB; loss "
+        f"{losses[0]:.6f} -> {losses[-1]:.6f}; run_cluster {secs:.3f} s on "
+        f"{smi}")
+
+
+def run_serve(dev, smi: str) -> dict:
+    """Phase 18: the serving path and the vlm and audio families: serve
+    and circular decode card against CPU (a), run_cluster for both new
+    families card against CPU (b), llama-3.2-vision-11b at its published
+    widths served (c) and trained (d), whisper-base at its published size
+    (e). Returns each kernel's launches across the phase (all must be
+    0)."""
+    import contextlib
+    import dataclasses
+    import io
+    from repro_torch import random as trandom
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve, steps
+    from repro_torch.launch import train as cli
+    from repro_torch.models import transformer as tf
+    zero, read, total = _counting(dict(_row_counters(), **_tile_counters()))
+    zero()
+    part = time.perf_counter()
+
+    def took(what):
+        nonlocal part
+        log(f"serve {what}: {time.perf_counter() - part:.2f} s")
+        part = time.perf_counter()
+
+    # (a) serve --reduced, one config of each family, card against CPU
+    for arch in SERVE_ARCHS:
+        args = serve.parser().parse_args(["--arch", arch] + SERVE_ARGS)
+        zero()
+        with contextlib.redirect_stdout(io.StringIO()):
+            g, secs = wall_s(lambda: serve.serve(args, device=dev))
+            got = read()
+            c = serve.serve(args, device="cpu")
+        _served_line(f"(a) {arch} --reduced", g, c, args, secs, got)
+    for arch in CIRC_ARCHS:
+        cfg = get_config(arch).reduced()
+        pg = tf.init_params(cfg, trandom.PRNGKey(0, dev))
+        pc = {k: v.cpu() for k, v in pg.items()}
+        step = steps.make_decode_step(cfg, circular=True)
+        cg = tf.init_decode_cache(cfg, 2, CIRC_WINDOW, sliding=True,
+                                  device=dev)
+        cc = tf.init_decode_cache(cfg, 2, CIRC_WINDOW, sliding=True)
+        tok = torch.ones((2, 1), dtype=torch.int32)
+        errs = []
+        with torch.no_grad():
+            for pos in CIRC_POS:
+                lg, cg = step(pg, cg, tok.to(dev), pos)
+                lc, cc = step(pc, cc, tok, pos)
+                errs.append(max([_rel_err(lg, lc)] + [
+                    _rel_err(a, b_) for a, b_ in zip(_tree_leaves(cg),
+                                                     _tree_leaves(cc))]))
+        log(f"serve (a) circular decode {arch} --reduced, window "
+            f"{CIRC_WINDOW}, positions {list(CIRC_POS)}: card == cpu, "
+            f"logits and cache rel err by position "
+            f"{[float(f'{e:.3g}') for e in errs]}")
+        if max(errs) > SERVE_TOL:
+            raise AssertionError(f"serve (a) circular {arch}: {errs}")
+    took("(a) serve --reduced")
+
+    # (b) run_cluster --reduced for the vlm and audio families
+    for arch in NEW_FAMILY_ARCHS:
+        args = cli.parser().parse_args(["--arch", arch] + NEW_FAMILY_ARGS)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            (gl, gs), secs = wall_s(lambda: cli.run_cluster(args,
+                                                            device=dev))
+            cl, cs = cli.run_cluster(args, device="cpu")
+        rel = np.abs(np.array(gl) - np.array(cl)) / np.abs(cl)
+        p_err = _rel_l2(gs["params"], cs["params"])
+        log(f"serve (b) run_cluster {arch} --reduced pssgd/int8+EF, 6 steps "
+            f"of (8, 64): loss {np.round(cl, 6).tolist()}; card vs cpu rel "
+            f"diff by step max {rel.max():.3g}, final params relative L2 "
+            f"{p_err:.3g}; {secs:.3f} s on the card")
+        if not (rel.max() <= TRAINER_RTOL and p_err <= TRAINER_RTOL):
+            raise AssertionError(f"serve (b) {arch}: loss {rel}, params "
+                                 f"{p_err}")
+        del gs, cs
+    took("(b) run_cluster --reduced")
+
+    # (c) llama-3.2-vision-11b at its published widths, served
+    _serve_vlm(dev, smi)
+    torch.cuda.empty_cache()
+    took("(c) vlm served")
+
+    # (d) the same widths trained, one superblock
+    cfg = dataclasses.replace(get_config(VLM), n_layers=VLM_TRAIN_DEPTH,
+                              dtype="float32")
+    args = cli.parser().parse_args(VLM_TRAIN_ARGS)
+    with contextlib.redirect_stdout(io.StringIO()):
+        res, secs, got = _timed_cluster(args, cfg, dev)
+    _cluster_line("(d)", cfg, args, res, secs, got, smi)
+    del res
+    torch.cuda.empty_cache()
+    took("(d) vlm trained")
+
+    # (e) whisper-base at its published size
+    cfg = dataclasses.replace(get_config("whisper-base"), dtype="float32")
+    args = serve.parser().parse_args(WHISPER_SERVE_ARGS)
+    with contextlib.redirect_stdout(io.StringIO()):
+        g, secs = wall_s(lambda: serve.serve(args, device=dev, cfg=cfg))
+        c = serve.serve(args, device="cpu", cfg=cfg)
+    _served_line(f"(e) {cfg.name} at its published size ({cfg.n_layers} + "
+                 f"{cfg.n_encoder_layers} layers, d_model {cfg.d_model}, "
+                 f"{cfg.n_audio_frames} frames, vocab {cfg.vocab_size}; cut: "
+                 f"{cfg.dtype})", g, c, args, secs, {})
+    del g, c
+    args = cli.parser().parse_args(WHISPER_TRAIN_ARGS)
+    with contextlib.redirect_stdout(io.StringIO()):
+        res, secs, got = _timed_cluster(args, cfg, dev)
+    _cluster_line("(e)", cfg, args, res, secs, got, smi)
+    del res
+    torch.cuda.empty_cache()
+    took("(e) whisper-base")
+    got = read()
+    log(f"serve kernel launches across phase 18: {got}")
+    if any(got.values()):
+        raise AssertionError(f"serve: kernels launched {got}")
+    return total
+
+
 def main() -> int:
     t0 = time.perf_counter()
     smi = card()
@@ -2477,7 +2864,8 @@ def main() -> int:
               ("gossip", lambda: run_gossip(dev, smi)),
               ("lm", lambda: run_lm(dev, smi)),
               ("families", lambda: run_families(dev, smi)),
-              ("trainer", lambda: run_trainer(dev, smi))]
+              ("trainer", lambda: run_trainer(dev, smi)),
+              ("serve", lambda: run_serve(dev, smi))]
     out = {}
     log(f"phase card: {time.perf_counter() - t0:.2f} s")
     for name, fn in phases:
@@ -2498,6 +2886,7 @@ def main() -> int:
                      "lm_launches": out["lm"][0][name],
                      "families_launches": out["families"][0][name],
                      "trainer_launches": out["trainer"][name],
+                     "serve_launches": out["serve"][name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "device_ms": r["device_ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

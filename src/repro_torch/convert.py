@@ -1,8 +1,8 @@
 """Carry JAX-side values into the port, as numpy arrays: parameter dicts
 (flat, or a transformer's nested tree), PRNG keys, a whole round state, the
 channel, compression, algorithm, fault and privacy parameters, the
-hierarchical and gossip engines' configurations, model configs, and the
-trainer's state and policy. The port
+hierarchical and gossip engines' configurations, model configs, the
+trainer's state and policy, and decode caches. The port
 never imports JAX; callers hand over JAX objects, which are read through
 ``np.asarray`` and their field names."""
 from __future__ import annotations
@@ -76,6 +76,8 @@ def _tree(v, device):
         return None
     if isinstance(v, dict):
         return {k: _tree(x, device) for k, x in v.items()}
+    if isinstance(v, list):
+        return [_tree(x, device) for x in v]
     if isinstance(v, tuple):
         leaves = [_tree(x, device) for x in v]
         if hasattr(v, "_fields"):
@@ -95,6 +97,13 @@ def fl_state_from_jax(state, device=None):
                    _tree(state.server_error, device),
                    _tree(state.server_opt, device),
                    _tree(state.ctrl, device), int(state.round))
+
+
+def decode_cache_from_jax(cache, device=None):
+    """A reference decode or prefill cache (nested dicts of stacked arrays;
+    hybrid's ``rest`` a list of tuples) -> the port's: the same structure,
+    tensors of the same dtypes and values."""
+    return _tree(cache, device)
 
 
 def _named(cls, p, device):

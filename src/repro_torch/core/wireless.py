@@ -76,6 +76,8 @@ def gather_channel_params(cp: ChannelParams,
 # share them.
 _HPI_INV = float.fromhex("0x1.45f306dc9c883p-1")   # 2 / pi
 _HPI = float.fromhex("0x1.921fb54442d18p0")        # pi / 2
+_HPI_HI = float.fromhex("0x1.921fb6p0")             # pi / 2, 24 bits
+_HPI_LO = float.fromhex("-0x1.777a5cf72cecep-25")   # pi / 2 - _HPI_HI
 _COS_C = tuple(float.fromhex(c) for c in (
     "0x1p0", "-0x1.ffffffd0c621cp-2", "0x1.55553e1068f19p-5",
     "-0x1.6c087e89a359dp-10", "0x1.99343027bf8c3p-16"))
@@ -90,13 +92,16 @@ def _sqrt(x: torch.Tensor) -> torch.Tensor:
 
 
 def _cos_sin(theta: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """float32 ``(cos, sin)`` of float32 angles with ``|theta| < 120``, as
-    the C library's cosf/sinf compute them: reduce by pi/2 to ``|x| <=
-    pi/4`` with quadrant n, evaluate the even and odd polynomials, and swap
-    and negate them by the quadrant."""
+    """float32 ``(cos, sin)`` of float32 angles, as the C library's
+    cosf/sinf compute them: reduce by pi/2 to ``|x| <= pi/4`` with quadrant
+    n, evaluate the even and odd polynomials, and swap and negate them by
+    the quadrant. Below ``|theta| = 120`` the reduction is one float64
+    ``x - n * pi/2``; from there the C library reduces exactly (a table of
+    2/pi bits), which pi/2 in two parts matches (``n * hi`` is exact)."""
     x = theta.double()
     n = torch.round(x * _HPI_INV)
-    x = x - n * _HPI
+    x = torch.where(theta.abs() < 120, x - n * _HPI,
+                    (x - n * _HPI_HI) - n * _HPI_LO)
     q = n.to(torch.int64) & 3
     xs = torch.where((q == 1) | (q == 2), -x, x)
     x2 = x * x

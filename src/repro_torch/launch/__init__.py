@@ -1,4 +1,5 @@
 """Command-line entry points of the port: ``python -m
 repro_torch.launch.train`` trains a config federated through the flat
 engine, or with ``--cluster`` through the one-card trainer
-(``launch/steps.py``)."""
+(``launch/steps.py``); ``python -m repro_torch.launch.serve`` prefills
+prompts and decodes greedily with KV and recurrent caches."""

@@ -14,9 +14,9 @@ The reference maps the step over its mesh with ``shard_map``; on one card
 the map is a plain call and every ``pmean`` is over one member (the
 identity), but the compressed all-reduce still quantizes twice. Gradients
 come from autograd on the flat param dict, the layers rematerialized when
-``policy.remat`` asks (``transformer.forward_trunk``). Serving steps
-(``make_prefill_step``, ``make_decode_step``) belong to the serving path,
-ROADMAP queue A item 3.
+``policy.remat`` asks (``transformer.forward_trunk``). The serving steps
+(``make_prefill_step``, ``make_decode_step``) wrap ``transformer.prefill``
+and ``decode_step``.
 
 A step takes its state over, as the reference's jitted step is handed a
 state it then drops: it replaces the state's params, moments and EF leaf
@@ -256,3 +256,25 @@ def _make_fsdp_step(cfg: ModelConfig, policy: TrainPolicy):
         return dict(state, opt=opt, step=state["step"] + 1), {"loss": loss}
 
     return train_step
+
+
+# ===========================================================================
+# Serving steps
+# ===========================================================================
+def make_prefill_step(cfg: ModelConfig, q_chunk: int = 1024):
+    """(params, batch) -> (last-token logits, cache); ``batch`` holds the
+    tokens and any vision / audio embeddings."""
+    def prefill_step(params, batch):
+        extras = {k: v for k, v in batch.items() if k != "tokens"}
+        return tf.prefill(params, cfg, batch["tokens"], extras,
+                          q_chunk=q_chunk)
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig, *, circular: bool):
+    """(params, cache, token, pos) -> (logits, new cache); ``pos`` a Python
+    int."""
+    def decode_step(params, cache, token, pos):
+        return tf.decode_step(params, cfg, cache, token, pos,
+                              circular=circular)
+    return decode_step

@@ -11,9 +11,11 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm-2b \
         --reduced --rounds 50 --policy age --compressor topk
 
-Trains the dense, moe, ssm and hybrid families; the vlm and audio families
-raise (ROADMAP queue A item 2), as does a mesh of more than one card
-(``--mesh-data`` / ``--mesh-model`` above 1, item 5).
+Trains all six families; ``--cluster`` feeds the vlm and audio families
+zero vision / audio embeddings, as the reference does, and the federated
+path feeds none, so it fails on them with the reference's ``KeyError``. A
+mesh of more than one card (``--mesh-data`` / ``--mesh-model`` above 1)
+raises (ROADMAP queue A item 5).
 """
 from __future__ import annotations
 
@@ -72,6 +74,14 @@ def run_cluster(args, cfg=None, device="cuda"):
     for step in range(args.steps):
         batch = {k: torch.as_tensor(v, device=dev)
                  for k, v in next(it).items()}
+        if cfg.family == "vlm":
+            batch["vision_embeds"] = torch.zeros(
+                (args.batch, cfg.n_vision_tokens, cfg.vision_dim),
+                dtype=torch.float32, device=dev)
+        if cfg.family == "audio":
+            batch["audio_embeds"] = torch.zeros(
+                (args.batch, cfg.n_audio_frames, cfg.d_model),
+                dtype=torch.float32, device=dev)
         t0 = time.time()
         state, metrics = step_fn(state, batch)
         loss = float(metrics["loss"])

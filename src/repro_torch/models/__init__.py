@@ -1,3 +1,4 @@
-"""Models of the port: the decoder-only transformer LMs of the dense, moe,
-ssm and hybrid families (layers, attention, moe, scan_utils, ssm, rglru,
-transformer), at a config's published widths or ``reduced()``."""
+"""Models of the port: the transformer stacks of all six families (dense,
+moe, ssm, hybrid, vlm and audio; layers, attention, moe, scan_utils, ssm,
+rglru, transformer), trained or served (prefill and decode with KV and
+recurrent caches), at a config's published widths or ``reduced()``."""

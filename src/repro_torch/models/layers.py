@@ -14,12 +14,15 @@ Conventions
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch import random as trandom
+from repro_torch.core.wireless import _cos_sin
+from repro_torch.models import xla_math
 
 Params = Dict[str, Any]
 
@@ -58,7 +61,11 @@ def apply_norm(p: Params, x: torch.Tensor, norm_type: str,
 # ---------------------------------------------------------------------------
 # RoPE
 # ---------------------------------------------------------------------------
+@functools.lru_cache(maxsize=None)
 def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    """The (head_dim / 2,) inverse frequencies, made once per head_dim,
+    theta and device (a decode step would otherwise copy theta to the card
+    and wait for it twice a layer); callers only read it."""
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
                         device=device) / head_dim
     return 1.0 / (torch.tensor(theta, dtype=torch.float32,
@@ -122,14 +129,17 @@ def embed_tokens(table: torch.Tensor, tokens: torch.Tensor,
 
 
 def sinusoidal_positions(n_pos: int, d: int, device=None) -> torch.Tensor:
-    """Whisper-style sinusoidal table (float32)."""
+    """Whisper-style sinusoidal table (float32), bitwise the reference's
+    CPU table: XLA's ``log`` and ``exp``, a true division, and the C
+    library's ``sinf`` / ``cosf``."""
     half = d // 2
-    log_base = torch.log(torch.tensor(10_000.0, device=device))
-    freq = torch.exp(-log_base * torch.arange(half, dtype=torch.float32,
-                                              device=device) / (half - 1))
+    log_base = xla_math.log(torch.tensor(10_000.0, device=device))
+    freq = xla_math.exp(-log_base * torch.arange(
+        half, dtype=torch.float32, device=device) / (half - 1))
     args = torch.arange(n_pos, dtype=torch.float32,
                         device=device)[:, None] * freq[None, :]
-    return torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
+    cos, sin = _cos_sin(args)
+    return torch.cat([sin, cos], dim=-1)
 
 
 # ---------------------------------------------------------------------------

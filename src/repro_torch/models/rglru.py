@@ -7,12 +7,13 @@ RG-LRU:
     i_t = sigmoid(x_t W_x + b_x)              (input gate)
     log a_t = -c * softplus(Lambda) * r_t     (c = 8)
     h_t = a_t h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
-Computed with the shared chunked scan. The prefill state and the one-token
-decode step serve inference and are not ported here.
+Computed with the shared chunked scan. ``rglru_forward`` also takes an
+incoming state and returns the final one (prefill), and
+``rglru_decode_step`` advances the state by one token (decode).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -22,7 +23,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import xla_math
 from repro_torch.models.layers import dense_init
 from repro_torch.models.scan_utils import (causal_depthwise_conv,
-                                           chunked_linear_recurrence)
+                                           chunked_linear_recurrence,
+                                           conv_step)
 from repro_torch.models.ssm import softplus
 
 Params = Dict[str, torch.Tensor]
@@ -64,14 +66,47 @@ def _gates(p: Params, xc: torch.Tensor):
 
 
 def rglru_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
-                  chunk: int = 256) -> torch.Tensor:
-    """x: (B,S,d) -> (B,S,d), from a zero state."""
+                  chunk: int = 256, state: Optional[Tuple] = None,
+                  return_state: bool = False):
+    """x: (B,S,d) -> (B,S,d). ``state`` = (conv_state, h): the recurrence
+    starts from its h (the conv from zeros, as the reference's does);
+    ``return_state`` also returns the final state, the conv's last
+    ``d_conv - 1`` inputs and h."""
     gate = F.gelu((x @ p["in_gate"]).to(torch.float32), approximate="tanh")
     xb = x @ p["in_x"]
     xc = causal_depthwise_conv(xb, p["conv_w"], p["conv_b"])
     a, b = _gates(p, xc)
-    h0 = torch.zeros((x.shape[0], cfg.lru_width), dtype=torch.float32,
-                     device=x.device)
-    h_all, _ = chunked_linear_recurrence(a, b, h0, chunk=chunk)
+    h0 = (state[1] if state is not None else
+          torch.zeros((x.shape[0], cfg.lru_width), dtype=torch.float32,
+                      device=x.device))
+    h_all, h_last = chunked_linear_recurrence(a, b, h0, chunk=chunk)
     y = (h_all * gate).to(x.dtype)
-    return y @ p["out_proj"]
+    out = y @ p["out_proj"]
+    if return_state:
+        return out, (xb[:, -(cfg.d_conv - 1):, :], h_last)
+    return out
+
+
+def rglru_decode_step(p: Params, x: torch.Tensor, state: Tuple,
+                      cfg: ModelConfig):
+    """x: (B,1,d); state = (conv_state (B,K-1,w), h (B,w)). Returns
+    (out (B,1,d), new state)."""
+    conv_state, h = state
+    x0 = x[:, 0]
+    gate = F.gelu((x0 @ p["in_gate"]).to(torch.float32), approximate="tanh")
+    xb = x0 @ p["in_x"]
+    conv_state, xc = conv_step(conv_state.to(xb.dtype), xb, p["conv_w"],
+                               p["conv_b"])
+    a, b = _gates(p, xc)
+    h = a * h + b
+    y = (h * gate).to(x.dtype)
+    return (y @ p["out_proj"])[:, None, :], (conv_state, h)
+
+
+def init_rglru_state(batch: int, cfg: ModelConfig, dtype, device=None
+                     ) -> Tuple:
+    conv_state = torch.zeros((batch, cfg.d_conv - 1, cfg.lru_width),
+                             dtype=dtype, device=device)
+    h = torch.zeros((batch, cfg.lru_width), dtype=torch.float32,
+                    device=device)
+    return conv_state, h

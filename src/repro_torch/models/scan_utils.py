@@ -1,5 +1,6 @@
 """Chunked linear recurrences for the SSM and RG-LRU layers, and the causal
-depthwise conv in front of them. Port of ``repro/models/scan_utils.py``.
+depthwise conv in front of them (whole sequences, and one decode step at a
+time). Port of ``repro/models/scan_utils.py``.
 
 h_t = a_t * h_{t-1} + b_t (elementwise) runs as a Python loop over
 sequence chunks of ``chunk`` steps, carrying h, with a log-step
@@ -61,3 +62,20 @@ def causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor,
     if b is not None:
         out = out + b
     return out
+
+
+def conv_step(conv_state: torch.Tensor, x_new: torch.Tensor, w: torch.Tensor,
+              b: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decode step of the causal depthwise conv.
+
+    conv_state: (B, K-1, C) previous inputs; x_new: (B, C).
+    Returns (new_conv_state, y (B, C)).
+    """
+    k = w.shape[0]
+    window = torch.cat([conv_state, x_new[:, None, :]], dim=1)  # (B,K,C)
+    y = torch.einsum("bkc,kc->bc", window, w)
+    if b is not None:
+        y = y + b
+    new_state = window[:, 1:] if k > 1 else conv_state
+    return new_state, y

@@ -4,12 +4,13 @@ Port of ``repro/models/ssm.py``.
 State-space recurrence (per channel c, state n):
     h_t = exp(dt_t * A) * h_{t-1} + dt_t * B_t * x_t
     y_t = <C_t, h_t> + D * x_t
-with input-dependent (selective) dt, B, C. The prefill state and the
-one-token decode step serve inference and are not ported here.
+with input-dependent (selective) dt, B, C. ``mamba_forward`` also takes an
+incoming state and returns the final one (prefill), and
+``mamba_decode_step`` advances the state by one token (decode).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -19,7 +20,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import xla_math
 from repro_torch.models.layers import dense_init
 from repro_torch.models.scan_utils import (causal_depthwise_conv,
-                                           chunked_linear_recurrence)
+                                           chunked_linear_recurrence,
+                                           conv_step)
 
 Params = Dict[str, torch.Tensor]
 
@@ -66,18 +68,60 @@ def _selective_terms(p: Params, xc: torch.Tensor, cfg: ModelConfig):
 
 
 def mamba_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
-                  chunk: int = 256) -> torch.Tensor:
-    """x: (B,S,d) -> (B,S,d), from a zero state."""
+                  chunk: int = 256, state: Optional[Tuple] = None,
+                  return_state: bool = False):
+    """x: (B,S,d) -> (B,S,d). ``state`` = (conv_state, ssm_state): the
+    recurrence starts from its ``ssm_state`` (the conv starts from zeros, as
+    the reference's does); ``return_state`` also returns the final state,
+    the conv's last ``d_conv - 1`` inputs and h."""
     bsz = x.shape[0]
     xz = x @ p["in_proj"]
     x_ssm, z = xz.chunk(2, dim=-1)
     xc = causal_depthwise_conv(x_ssm, p["conv_w"], p["conv_b"])
     xc = F.silu(xc).to(torch.float32)
     a_bar, bx, c_in = _selective_terms(p, xc, cfg)
-    h0 = torch.zeros((bsz, cfg.d_inner, cfg.ssm_state), dtype=torch.float32,
-                     device=x.device)
-    h_all, _ = chunked_linear_recurrence(a_bar, bx, h0, chunk=chunk)
+    h0 = (state[1] if state is not None else
+          torch.zeros((bsz, cfg.d_inner, cfg.ssm_state), dtype=torch.float32,
+                      device=x.device))
+    h_all, h_last = chunked_linear_recurrence(a_bar, bx, h0, chunk=chunk)
     y = torch.einsum("bsdn,bsn->bsd", h_all, c_in.to(torch.float32))
     y = y + p["D"].to(torch.float32) * xc
     y = (y * F.silu(z.to(torch.float32))).to(x.dtype)
-    return y @ p["out_proj"]
+    out = y @ p["out_proj"]
+    if return_state:
+        return out, (x_ssm[:, -(cfg.d_conv - 1):, :], h_last)
+    return out
+
+
+def mamba_decode_step(p: Params, x: torch.Tensor, state: Tuple,
+                      cfg: ModelConfig):
+    """x: (B,1,d); state = (conv_state (B,K-1,di), ssm_state (B,di,n)).
+    Returns (out (B,1,d), new state). One token's ``a_bar`` and ``bx`` in
+    the reference's order of operations (not through ``_selective_terms``)."""
+    conv_state, h = state
+    n, dtr = cfg.ssm_state, cfg.dt_rank_eff
+    xz = x[:, 0] @ p["in_proj"]
+    x_ssm, z = xz.chunk(2, dim=-1)  # (B,di)
+    conv_state, xc = conv_step(conv_state.to(x_ssm.dtype), x_ssm,
+                               p["conv_w"], p["conv_b"])
+    xc = F.silu(xc).to(torch.float32)  # (B,di)
+    proj = xc @ p["x_proj"].to(xc.dtype)
+    dt_in, b_in, c_in = torch.split(proj, [dtr, n, n], dim=-1)
+    dt = softplus(dt_in @ p["dt_proj"].to(xc.dtype)
+                  + p["dt_bias"].to(torch.float32))
+    a = -torch.exp(p["A_log"].to(torch.float32))
+    a_bar = torch.exp(dt[..., None] * a)  # (B,di,n)
+    bx = (dt * xc)[..., None] * b_in[:, None, :]  # (B,di,n)
+    h = a_bar * h + bx
+    y = torch.einsum("bdn,bn->bd", h, c_in) + p["D"].to(torch.float32) * xc
+    y = (y * F.silu(z.to(torch.float32))).to(x.dtype)
+    return (y @ p["out_proj"])[:, None, :], (conv_state, h)
+
+
+def init_mamba_state(batch: int, cfg: ModelConfig, dtype, device=None
+                     ) -> Tuple:
+    conv_state = torch.zeros((batch, cfg.d_conv - 1, cfg.d_inner),
+                             dtype=dtype, device=device)
+    ssm_state = torch.zeros((batch, cfg.d_inner, cfg.ssm_state),
+                            dtype=torch.float32, device=device)
+    return conv_state, ssm_state

@@ -1,6 +1,8 @@
-"""Decoder-only transformer LMs: the dense, moe, ssm (mamba) and hybrid
-(RG-LRU + local attention) families. Port of the training path of
-``repro/models/transformer.py``.
+"""Transformer stacks for all six families: dense, moe, ssm (mamba), hybrid
+(RG-LRU + local attention), vlm (gated cross-attention layers over vision
+embeddings) and audio (whisper's encoder-decoder). Port of
+``repro/models/transformer.py``: init, the training forward and loss,
+prefill and one-token decode with KV and recurrent caches.
 
 The port's parameters are a flat dict whose keys are the reference's tree
 paths joined with ``/`` (``"blocks/attn/wq"``, ``"embed"``,
@@ -10,16 +12,17 @@ because ``/`` sorts below every letter, digit and ``_``, so the engine's
 flat (D,) message is the reference's coordinate for coordinate. Layers keep
 the reference's leading layer axis (``blocks/*`` leaves are ``(L, ...)``;
 hybrid's ``blocks/p{i}_{kind}/*`` are ``(L // period, ...)``, one entry per
-pattern period), and ``forward_trunk`` runs them in a Python loop where the
-reference scans.
+pattern period; the vlm's ``blocks/self/*`` are ``(L // every, every - 1,
+...)`` and ``blocks/cross/*`` ``(L // every, ...)``), and the stacks run
+in Python loops where the reference scans.
 
-The vlm and audio families (fed vision or audio embeddings, which only the
-cluster trainer makes), prefill and decode raise or are absent (ROADMAP
-queue A). ``remat`` recomputes each layer in the backward
-(``torch.utils.checkpoint``) where autograd records the forward, as the
-reference's ``jax.checkpoint`` of its scan body does; under ``torch.func``
-(the federated engine's per-client grads) the layers run as they are. The
-numbers are the same either way.
+``remat`` recomputes each layer in the backward (``torch.utils.checkpoint``)
+where autograd records the forward, as the reference's ``jax.checkpoint``
+of its scan body does; under ``torch.func`` (the federated engine's
+per-client grads) the layers run as they are. The numbers are the same
+either way. Caches are the reference's pytrees: nested dicts of stacked
+tensors and, for hybrid's ``rest``, a list of tuples. A decode step takes
+its position as a Python int and returns a new cache, its input untouched.
 """
 from __future__ import annotations
 
@@ -29,26 +32,27 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import random as trandom
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import LONG_CONTEXT_WINDOW, ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xla_math
 from repro_torch.models.layers import (apply_mlp, apply_norm, dense_init,
                                        embed_tokens, init_embedding, init_mlp,
-                                       init_norm, stacked_init, torch_dtype)
+                                       init_norm, sinusoidal_positions,
+                                       stacked_init, torch_dtype)
 
 Params = Dict[str, Any]
+PyTree = Any
 
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: the port "
-            f"runs the {', '.join(FAMILIES)} families (ROADMAP queue A)")
+        raise ValueError(f"unknown family {cfg.family}")
 
 
 def flatten_params(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
@@ -99,6 +103,14 @@ def _unstack(tree, n: int) -> list:
     return tree.unbind(0)
 
 
+def _stack(layers: list) -> Any:
+    """Per-layer cache entries (tensors, or tuples of them) -> one stack a
+    leaf, as the reference's scan stacks them."""
+    if isinstance(layers[0], tuple):
+        return tuple(_stack(list(parts)) for parts in zip(*layers))
+    return torch.stack(layers)
+
+
 # ===========================================================================
 # init_params
 # ===========================================================================
@@ -118,6 +130,22 @@ def _init_attn_layer(key, cfg: ModelConfig, dtype, use_moe: bool = False
     return p
 
 
+def _init_cross_layer(key, cfg: ModelConfig, dtype) -> Params:
+    """Gated cross-attention layer (llama-3.2-vision style); both gates
+    start at zero."""
+    k1, k2, k3, k4 = trandom.split(key, 4)
+    return {
+        "norm1": init_norm(k1, cfg.d_model, cfg.norm_type, dtype),
+        "attn": attn.init_attention(k2, cfg.d_model, cfg.n_heads,
+                                    cfg.n_kv_heads, cfg.head_dim, dtype,
+                                    kv_input_dim=cfg.vision_dim),
+        "norm2": init_norm(k3, cfg.d_model, cfg.norm_type, dtype),
+        "mlp": init_mlp(k4, cfg.d_model, cfg.d_ff, cfg.mlp_type, dtype),
+        "gate_attn": torch.zeros((), dtype=dtype, device=key.device),
+        "gate_mlp": torch.zeros((), dtype=dtype, device=key.device),
+    }
+
+
 def _init_mamba_layer(key, cfg: ModelConfig, dtype) -> Params:
     k1, k2 = trandom.split(key)
     return {"norm": init_norm(k1, cfg.d_model, cfg.norm_type, dtype),
@@ -130,6 +158,22 @@ def _init_rglru_layer(key, cfg: ModelConfig, dtype) -> Params:
             "rec": rglru_mod.init_rglru_block(k2, cfg, dtype),
             "norm2": init_norm(k3, cfg.d_model, cfg.norm_type, dtype),
             "mlp": init_mlp(k4, cfg.d_model, cfg.d_ff, cfg.mlp_type, dtype)}
+
+
+def _init_dec_layer(key, cfg: ModelConfig, dtype) -> Params:
+    """Whisper decoder layer: self-attn + cross-attn + mlp."""
+    k1, k2, k3, k4, k5, k6 = trandom.split(key, 6)
+    return {
+        "norm1": init_norm(k1, cfg.d_model, cfg.norm_type, dtype),
+        "self_attn": attn.init_attention(k2, cfg.d_model, cfg.n_heads,
+                                         cfg.n_kv_heads, cfg.head_dim, dtype),
+        "norm2": init_norm(k3, cfg.d_model, cfg.norm_type, dtype),
+        "cross_attn": attn.init_attention(k4, cfg.d_model, cfg.n_heads,
+                                          cfg.n_kv_heads, cfg.head_dim,
+                                          dtype),
+        "norm3": init_norm(k5, cfg.d_model, cfg.norm_type, dtype),
+        "mlp": init_mlp(k6, cfg.d_model, cfg.d_ff, cfg.mlp_type, dtype),
+    }
 
 
 def init_params(cfg: ModelConfig, key: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -156,7 +200,7 @@ def init_params(cfg: ModelConfig, key: torch.Tensor) -> Dict[str, torch.Tensor]:
     elif fam == "ssm":
         params["blocks"] = stacked_init(
             lambda k: _init_mamba_layer(k, cfg, dtype), keys[4], cfg.n_layers)
-    else:  # hybrid: one stack per pattern position, the remainder listed
+    elif fam == "hybrid":  # one stack per pattern position, the rest listed
         pat = cfg.block_pattern
         n_super, rem = divmod(cfg.n_layers, len(pat))
         init = {"rglru": _init_rglru_layer, "attn": _init_attn_layer}
@@ -167,47 +211,184 @@ def init_params(cfg: ModelConfig, key: torch.Tensor) -> Dict[str, torch.Tensor]:
             for i, kind in enumerate(pat)}
         params["rest"] = [init[pat[j]](trandom.fold_in(keys[5], j), cfg,
                                        dtype) for j in range(rem)]
+    elif fam == "vlm":
+        n_self_per = cfg.cross_attn_every - 1
+        n_super = cfg.n_layers // cfg.cross_attn_every
+        params["blocks"] = {
+            "self": stacked_init(
+                lambda k: stacked_init(
+                    lambda kk: _init_attn_layer(kk, cfg, dtype), k,
+                    n_self_per), keys[4], n_super),
+            "cross": stacked_init(
+                lambda k: _init_cross_layer(k, cfg, dtype), keys[5], n_super),
+        }
+    else:  # audio
+        params["encoder"] = {
+            "blocks": stacked_init(
+                lambda k: _init_attn_layer(k, cfg, dtype), keys[4],
+                cfg.n_encoder_layers),
+            "final_norm": init_norm(keys[6], cfg.d_model, cfg.norm_type,
+                                    dtype),
+        }
+        params["blocks"] = stacked_init(
+            lambda k: _init_dec_layer(k, cfg, dtype), keys[5], cfg.n_layers)
     return flatten_params(params)
 
 
 # ===========================================================================
-# Blocks, embedding, unembedding
+# Blocks (one layer each)
 # ===========================================================================
 def _attn_block_fwd(p: Params, x, cfg: ModelConfig, *, window,
-                    q_chunk: int = 1024):
+                    q_chunk: int = 1024, causal: bool = True,
+                    return_kv: bool = False):
     h = apply_norm(p["norm1"], x, cfg.norm_type)
-    x = x + attn.self_attention(
-        p["attn"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-        head_dim=cfg.head_dim, use_rope=cfg.use_rope,
-        rope_theta=cfg.rope_theta, window=window, softcap=cfg.logit_softcap,
-        q_chunk=q_chunk)
+    if causal:
+        res = attn.self_attention(
+            p["attn"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+            head_dim=cfg.head_dim, use_rope=cfg.use_rope,
+            rope_theta=cfg.rope_theta, window=window,
+            softcap=cfg.logit_softcap, q_chunk=q_chunk, return_kv=return_kv)
+    else:
+        res = _bidir_attn(p, h, cfg, q_chunk)
+    if return_kv:
+        res, kv = res
+    x = x + res
     h2 = apply_norm(p["norm2"], x, cfg.norm_type)
     if cfg.family == "moe" and "router" in p["mlp"]:
         out, aux = moe_mod.moe_forward(p["mlp"], h2, cfg)
     else:
         out = apply_mlp(p["mlp"], h2, cfg.mlp_type)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if return_kv:
+        return x + out, aux, kv
     return x + out, aux
 
 
-def _rglru_block_fwd(p: Params, x, cfg: ModelConfig):
+def _bidir_attn(p: Params, h, cfg: ModelConfig, q_chunk: int):
+    """Whisper encoder: bidirectional self-attention (no mask, no rope)."""
+    b, s, _ = h.shape
+    q = attn.project_q(p["attn"], h, cfg.n_heads, cfg.head_dim)
+    k, v = attn.project_kv(p["attn"], h, cfg.n_kv_heads, cfg.head_dim)
+    out = attn.attention_core(q, k, v, n_kv_heads=cfg.n_kv_heads,
+                              causal=False, q_chunk=q_chunk)
+    return out.reshape(b, s, cfg.n_heads * cfg.head_dim) @ p["attn"]["wo"]
+
+
+def _attn_block_decode(p: Params, x, ck, cv, pos: int, cfg: ModelConfig, *,
+                       circular: bool):
     h = apply_norm(p["norm1"], x, cfg.norm_type)
-    x = x + rglru_mod.rglru_forward(p["rec"], h, cfg)
+    res, (ck, cv) = attn.decode_self_attention(
+        p["attn"], h, ck, cv, pos, n_heads=cfg.n_heads,
+        n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+        use_rope=cfg.use_rope, rope_theta=cfg.rope_theta, circular=circular,
+        softcap=cfg.logit_softcap)
+    x = x + res
     h2 = apply_norm(p["norm2"], x, cfg.norm_type)
-    return x + apply_mlp(p["mlp"], h2, cfg.mlp_type)
+    if cfg.family == "moe" and "router" in p["mlp"]:
+        out, _ = moe_mod.moe_forward(p["mlp"], h2, cfg)
+    else:
+        out = apply_mlp(p["mlp"], h2, cfg.mlp_type)
+    return x + out, ck, cv
 
 
-def _mamba_block_fwd(p: Params, x, cfg: ModelConfig):
+def _gate(g: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A cross layer's gate, ``tanh`` as the reference's XLA computes it."""
+    return xla_math.tanh(g.to(torch.float32)).to(like.dtype)
+
+
+def _cross_block_fwd(p: Params, x, vis_k, vis_v, cfg: ModelConfig,
+                     q_chunk: int = 1024):
+    h = apply_norm(p["norm1"], x, cfg.norm_type)
+    res = attn.cross_attention(p["attn"], h, vis_k, vis_v,
+                               n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                               head_dim=cfg.head_dim, q_chunk=q_chunk)
+    x = x + _gate(p["gate_attn"], x) * res
+    h2 = apply_norm(p["norm2"], x, cfg.norm_type)
+    out = apply_mlp(p["mlp"], h2, cfg.mlp_type)
+    return x + _gate(p["gate_mlp"], x) * out
+
+
+def _cross_layer_fwd(p: Params, x, vis, cfg: ModelConfig,
+                     q_chunk: int = 1024):
+    """A vlm superblock's cross layer: the vision k/v, then the block;
+    returns (x, (k, v))."""
+    vk, vv = attn.project_kv(p["attn"], vis, cfg.n_kv_heads, cfg.head_dim)
+    return _cross_block_fwd(p, x, vk, vv, cfg, q_chunk=q_chunk), (vk, vv)
+
+
+def _rglru_block_fwd(p: Params, x, cfg: ModelConfig, *, state=None,
+                     return_state: bool = False):
+    h = apply_norm(p["norm1"], x, cfg.norm_type)
+    res = rglru_mod.rglru_forward(p["rec"], h, cfg, state=state,
+                                  return_state=return_state)
+    if return_state:
+        res, st = res
+    x = x + res
+    h2 = apply_norm(p["norm2"], x, cfg.norm_type)
+    x = x + apply_mlp(p["mlp"], h2, cfg.mlp_type)
+    return (x, st) if return_state else x
+
+
+def _rglru_block_decode(p: Params, x, state, cfg: ModelConfig):
+    h = apply_norm(p["norm1"], x, cfg.norm_type)
+    res, state = rglru_mod.rglru_decode_step(p["rec"], h, state, cfg)
+    x = x + res
+    h2 = apply_norm(p["norm2"], x, cfg.norm_type)
+    return x + apply_mlp(p["mlp"], h2, cfg.mlp_type), state
+
+
+def _mamba_block_fwd(p: Params, x, cfg: ModelConfig, *, state=None,
+                     return_state: bool = False):
     h = apply_norm(p["norm"], x, cfg.norm_type)
-    return x + ssm_mod.mamba_forward(p["mamba"], h, cfg)
+    res = ssm_mod.mamba_forward(p["mamba"], h, cfg, state=state,
+                                return_state=return_state)
+    if return_state:
+        return x + res[0], res[1]
+    return x + res
 
 
-def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor):
+def _dec_layer_fwd(p: Params, x, enc_k, enc_v, cfg: ModelConfig, *,
+                   q_chunk: int = 1024, return_kv: bool = False):
+    h = apply_norm(p["norm1"], x, cfg.norm_type)
+    res = attn.self_attention(
+        p["self_attn"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.head_dim, use_rope=cfg.use_rope,
+        rope_theta=cfg.rope_theta, q_chunk=q_chunk, return_kv=return_kv)
+    if return_kv:
+        res, kv = res
+    x = x + res
+    h2 = apply_norm(p["norm2"], x, cfg.norm_type)
+    x = x + attn.cross_attention(p["cross_attn"], h2, enc_k, enc_v,
+                                 n_heads=cfg.n_heads,
+                                 n_kv_heads=cfg.n_kv_heads,
+                                 head_dim=cfg.head_dim, q_chunk=q_chunk)
+    h3 = apply_norm(p["norm3"], x, cfg.norm_type)
+    x = x + apply_mlp(p["mlp"], h3, cfg.mlp_type)
+    return (x, kv) if return_kv else x
+
+
+def _audio_layer_fwd(p: Params, x, enc_h, cfg: ModelConfig, *,
+                     q_chunk: int = 1024, return_kv: bool = False):
+    """A whisper decoder layer over its own k/v of the encoder's output;
+    with ``return_kv`` returns (x, (self k, v), (encoder k, v))."""
+    ek, ev = attn.project_kv(p["cross_attn"], enc_h, cfg.n_kv_heads,
+                             cfg.head_dim)
+    out = _dec_layer_fwd(p, x, ek, ev, cfg, q_chunk=q_chunk,
+                         return_kv=return_kv)
+    return (*out, (ek, ev)) if return_kv else out
+
+
+# ===========================================================================
+# Embedding / unembedding
+# ===========================================================================
+def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+           pos_offset: int = 0):
     x = embed_tokens(params["embed"], tokens, scale_by_dim=cfg.tie_embeddings)
     if cfg.pos_embed == "learned":
         table = params["pos_embed"]
-        idx = torch.arange(tokens.shape[1],
-                           device=tokens.device) % table.shape[0]
+        idx = (pos_offset + torch.arange(tokens.shape[1],
+                                         device=tokens.device)
+               ) % table.shape[0]
         x = x + table[idx][None, :, :]
     return x
 
@@ -220,7 +401,7 @@ def unembed(params: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
 
 
 # ===========================================================================
-# Forward (train trunk) and loss
+# Forward (train / prefill trunk) and loss
 # ===========================================================================
 def _remat(fn: Callable, remat: bool) -> Callable:
     """``fn``, recomputed in the backward instead of keeping its
@@ -237,41 +418,140 @@ def _remat(fn: Callable, remat: bool) -> Callable:
 
 def forward_trunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                   extras: Optional[Dict[str, torch.Tensor]] = None, *,
-                  remat: bool = True, q_chunk: int = 1024):
-    """Embedding + all blocks; returns (hidden (B,S,d), aux, None).
-    ``extras`` is accepted for the reference's signature; ``remat``
-    recomputes each layer in the backward."""
-    del extras
+                  collect_cache: bool = False, remat: bool = True,
+                  q_chunk: int = 1024):
+    """Embedding + all blocks; returns (hidden (B,S,d), aux, cache|None).
+    ``extras`` holds the vlm's ``vision_embeds`` (B, n_vis, vision_dim) or
+    the audio family's ``audio_embeds`` (B, frames, d_model).
+    ``collect_cache`` also returns the prefill cache (remat off, as the
+    reference turns it off); ``remat`` recomputes each layer in the
+    backward."""
     _check_family(cfg)
+    extras = extras or {}
     params = nest_params(params)
     x = _embed(params, cfg, tokens)
     window = cfg.sliding_window if cfg.attn_type == "sliding" else None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     blocks, fam = params["blocks"], cfg.family
+    remat = remat and not collect_cache
     attn_fwd = _remat(_attn_block_fwd, remat)
+    kw = dict(window=window, q_chunk=q_chunk, return_kv=collect_cache)
+    cache = None
     if fam in ("dense", "moe"):
+        kvs = []
         for p_l in _unstack(blocks, cfg.n_layers):
-            x, a = attn_fwd(p_l, x, cfg, window=window, q_chunk=q_chunk)
+            x, a, *kv = attn_fwd(p_l, x, cfg, **kw)
             aux = aux + a
+            kvs += kv
+        if collect_cache:
+            cache = dict(zip(("k", "v"), _stack(kvs)))  # (L,B,S,K,hd)
     elif fam == "ssm":
         mamba_fwd = _remat(_mamba_block_fwd, remat)
+        sts = []
         for p_l in _unstack(blocks, cfg.n_layers):
-            x = mamba_fwd(p_l, x, cfg)
-    else:  # hybrid: the pattern periods, then the remainder
-        n_super = cfg.n_layers // len(cfg.block_pattern)
-        stacks = [_unstack(blocks[f"p{i}_{kind}"], n_super)
-                  for i, kind in enumerate(cfg.block_pattern)]
-        layers = [(kind, stacks[i][n]) for n in range(n_super)
-                  for i, kind in enumerate(cfg.block_pattern)]
-        layers += [("rglru" if "rec" in p_l else "attn", p_l)
-                   for p_l in params.get("rest", [])]
-        rglru_fwd = _remat(_rglru_block_fwd, remat)
-        for kind, p_l in layers:
-            if kind == "rglru":
-                x = rglru_fwd(p_l, x, cfg)
+            if collect_cache:
+                x, st = mamba_fwd(p_l, x, cfg, return_state=True)
+                sts.append(st)
             else:
-                x, _ = attn_fwd(p_l, x, cfg, window=window, q_chunk=q_chunk)
-    return x, aux, None
+                x = mamba_fwd(p_l, x, cfg)
+        if collect_cache:
+            cache = dict(zip(("conv", "ssm"), _stack(sts)))  # (L,B,...)
+    elif fam == "hybrid":  # the pattern periods, then the remainder
+        x, cache = _hybrid_trunk(params, cfg, x, remat, collect_cache, kw)
+    elif fam == "vlm":
+        x, cache = _vlm_trunk(blocks, cfg, x, extras, remat, collect_cache,
+                              kw)
+    else:  # audio
+        enc_h = encode_audio(params, cfg, extras["audio_embeds"],
+                             q_chunk=q_chunk)
+        layer_fwd = _remat(_audio_layer_fwd, remat)
+        outs = []
+        for p_l in _unstack(blocks, cfg.n_layers):
+            out = layer_fwd(p_l, x, enc_h, cfg, q_chunk=q_chunk,
+                            return_kv=collect_cache)
+            if collect_cache:
+                x, kv, ekv = out
+                outs.append((*kv, *ekv))
+            else:
+                x = out
+        if collect_cache:
+            cache = dict(zip(("k", "v", "cross_k", "cross_v"), _stack(outs)))
+    return x, aux, cache
+
+
+def _hybrid_trunk(params: Params, cfg: ModelConfig, x, remat: bool,
+                  collect_cache: bool, kw: dict):
+    pat = cfg.block_pattern
+    n_super = cfg.n_layers // len(pat)
+    stacks = [_unstack(params["blocks"][f"p{i}_{kind}"], n_super)
+              for i, kind in enumerate(pat)]
+    attn_fwd = _remat(_attn_block_fwd, remat)
+    rglru_fwd = _remat(_rglru_block_fwd, remat)
+
+    def layer(kind, p_l, x):
+        """-> (x, the layer's cache entry as a tuple, or None)."""
+        if kind == "rglru":
+            if collect_cache:
+                return rglru_fwd(p_l, x, cfg, return_state=True)
+            return rglru_fwd(p_l, x, cfg), None
+        x, _, *kv = attn_fwd(p_l, x, cfg, **kw)
+        return x, (tuple(kv[0]) if kv else None)
+
+    sup = {}
+    for n in range(n_super):
+        for i, kind in enumerate(pat):
+            x, st = layer(kind, stacks[i][n], x)
+            if collect_cache:
+                names = ("conv", "h") if kind == "rglru" else ("k", "v")
+                for name, t in zip(names, st):
+                    sup.setdefault(f"p{i}_{name}", []).append(t)
+    rest = []
+    for p_l in params.get("rest", []):
+        x, st = layer("rglru" if "rec" in p_l else "attn", p_l, x)
+        rest.append(st)
+    if not collect_cache:
+        return x, None
+    return x, {"super": {k: torch.stack(v) for k, v in sup.items()},
+               "rest": rest}
+
+
+def _vlm_trunk(blocks: Params, cfg: ModelConfig, x, extras: dict,
+               remat: bool, collect_cache: bool, kw: dict):
+    """Each superblock: its self layers, then the cross layer over its own
+    k/v of the vision embeddings."""
+    vis = extras["vision_embeds"].to(x.dtype)  # (B, n_vis, vision_dim)
+    n_super = cfg.n_layers // cfg.cross_attn_every
+    attn_fwd = _remat(_attn_block_fwd, remat)
+    cross_fwd = _remat(_cross_layer_fwd, remat)
+    self_kv, cross_kv = [], []
+    for p_self, p_cross in zip(_unstack(blocks["self"], n_super),
+                               _unstack(blocks["cross"], n_super)):
+        kvs = []
+        for p_l in _unstack(p_self, cfg.cross_attn_every - 1):
+            x, _, *kv = attn_fwd(p_l, x, cfg, **kw)
+            kvs += kv
+        x, vkv = cross_fwd(p_cross, x, vis, cfg, q_chunk=kw["q_chunk"])
+        if collect_cache:
+            self_kv.append(_stack(kvs))
+            cross_kv.append(vkv)
+    if not collect_cache:
+        return x, None
+    (k, v), (ck, cv) = _stack(self_kv), _stack(cross_kv)
+    return x, {"k": k, "v": v, "cross_k": ck, "cross_v": cv}
+
+
+def encode_audio(params: Params, cfg: ModelConfig, audio_embeds,
+                 q_chunk: int = 1024):
+    """Whisper encoder over stub frame embeddings (B, frames, d)."""
+    params = nest_params(params)
+    x = audio_embeds.to(torch_dtype(cfg.dtype))
+    pos = sinusoidal_positions(x.shape[1], cfg.d_model,
+                               device=x.device).to(x.dtype)
+    x = x + pos[None]
+    for p_l in _unstack(params["encoder"]["blocks"], cfg.n_encoder_layers):
+        x, _ = _attn_block_fwd(p_l, x, cfg, window=None, q_chunk=q_chunk,
+                               causal=False)
+    return apply_norm(params["encoder"]["final_norm"], x, cfg.norm_type)
 
 
 def chunked_xent(params: Params, cfg: ModelConfig, h: torch.Tensor,
@@ -294,10 +574,186 @@ def chunked_xent(params: Params, cfg: ModelConfig, h: torch.Tensor,
 def lm_loss(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             *, remat: bool = True
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Full forward + loss. batch: tokens, labels."""
+    """Full forward + loss. batch: tokens, labels (+ vision/audio extras)."""
     extras = {k: v for k, v in batch.items() if k not in ("tokens", "labels")}
     h, aux, _ = forward_trunk(params, cfg, batch["tokens"], extras,
                               remat=remat)
     xent = chunked_xent(params, cfg, h, batch["labels"])
     loss = xent + cfg.router_aux_weight * aux
     return loss, {"xent": xent, "aux": aux}
+
+
+# ===========================================================================
+# Prefill / decode
+# ===========================================================================
+def init_decode_cache(cfg: ModelConfig, batch: int, length: int, *,
+                      sliding: bool = False, device=None) -> PyTree:
+    """Zeroed cache pytree for decode, on ``device``. ``length`` = context
+    size; ``sliding`` caps attention caches at LONG_CONTEXT_WINDOW (ring
+    buffers), and a sliding-attention config at its window."""
+    _check_family(cfg)
+    dtype = torch_dtype(cfg.dtype)
+    t_attn = min(length, LONG_CONTEXT_WINDOW) if sliding else length
+    if cfg.attn_type == "sliding":
+        t_attn = min(t_attn, cfg.sliding_window)
+    fam = cfg.family
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    def kv(*lead):
+        shape = (*lead, batch, t_attn, cfg.n_kv_heads, cfg.head_dim)
+        return zeros(*shape), zeros(*shape)
+
+    if fam in ("dense", "moe"):
+        return dict(zip(("k", "v"), kv(cfg.n_layers)))
+    if fam == "ssm":
+        return {"conv": zeros(cfg.n_layers, batch, cfg.d_conv - 1,
+                              cfg.d_inner),
+                "ssm": zeros(cfg.n_layers, batch, cfg.d_inner, cfg.ssm_state,
+                             dt=torch.float32)}
+    if fam == "hybrid":
+        pat = cfg.block_pattern
+        n_super, rem = divmod(cfg.n_layers, len(pat))
+        sup = {}
+        for i, kind in enumerate(pat):
+            if kind == "rglru":
+                sup[f"p{i}_conv"] = zeros(n_super, batch, cfg.d_conv - 1,
+                                          cfg.lru_width)
+                sup[f"p{i}_h"] = zeros(n_super, batch, cfg.lru_width,
+                                       dt=torch.float32)
+            else:
+                sup[f"p{i}_k"], sup[f"p{i}_v"] = kv(n_super)
+        rest = [(zeros(batch, cfg.d_conv - 1, cfg.lru_width),
+                 zeros(batch, cfg.lru_width, dt=torch.float32))
+                if pat[j] == "rglru" else kv() for j in range(rem)]
+        return {"super": sup, "rest": rest}
+    if fam == "vlm":
+        n_super = cfg.n_layers // cfg.cross_attn_every
+        k, v = kv(n_super, cfg.cross_attn_every - 1)
+        cross = (n_super, batch, cfg.n_vision_tokens, cfg.n_kv_heads,
+                 cfg.head_dim)
+        return {"k": k, "v": v, "cross_k": zeros(*cross),
+                "cross_v": zeros(*cross)}
+    k, v = kv(cfg.n_layers)  # audio
+    cross = (cfg.n_layers, batch, cfg.n_audio_frames, cfg.n_kv_heads,
+             cfg.head_dim)
+    return {"k": k, "v": v, "cross_k": zeros(*cross),
+            "cross_v": zeros(*cross)}
+
+
+def decode_step(params: Params, cfg: ModelConfig, cache: PyTree,
+                token: torch.Tensor, pos: int, *, circular: bool = False):
+    """One decode step. token: (B,1) integers; pos: the absolute position,
+    a Python int. Returns (logits (B,1,V), new cache); ``cache`` is left as
+    it was."""
+    _check_family(cfg)
+    pos = int(pos)
+    params = nest_params(params)
+    x = _embed(params, cfg, token, pos_offset=pos)
+    fam, blocks = cfg.family, params["blocks"]
+    # attention caches are circular when they are ring buffers (sliding
+    # decode or architecturally local attention)
+    circ = circular or cfg.attn_type == "sliding"
+
+    if fam in ("dense", "moe"):
+        kvs = []
+        for p_l, ck, cv in zip(_unstack(blocks, cfg.n_layers), cache["k"],
+                               cache["v"]):
+            x, ck, cv = _attn_block_decode(p_l, x, ck, cv, pos, cfg,
+                                           circular=circ)
+            kvs.append((ck, cv))
+        cache = dict(zip(("k", "v"), _stack(kvs)))
+    elif fam == "ssm":
+        sts = []
+        for p_l, cs, hs in zip(_unstack(blocks, cfg.n_layers),
+                               cache["conv"], cache["ssm"]):
+            h = apply_norm(p_l["norm"], x, cfg.norm_type)
+            res, st = ssm_mod.mamba_decode_step(p_l["mamba"], h, (cs, hs),
+                                                cfg)
+            x = x + res
+            sts.append(st)
+        cache = dict(zip(("conv", "ssm"), _stack(sts)))
+    elif fam == "hybrid":
+        x, cache = _hybrid_decode(blocks, params.get("rest", []), cfg, cache,
+                                  x, pos)
+    elif fam == "vlm":
+        n_super = cfg.n_layers // cfg.cross_attn_every
+        sup_kvs = []
+        for n, (p_self, pc) in enumerate(zip(
+                _unstack(blocks["self"], n_super),
+                _unstack(blocks["cross"], n_super))):
+            kvs = []
+            for p_l, ck, cv in zip(_unstack(p_self, cfg.cross_attn_every - 1),
+                                   cache["k"][n], cache["v"][n]):
+                x, ck, cv = _attn_block_decode(p_l, x, ck, cv, pos, cfg,
+                                               circular=circ)
+                kvs.append((ck, cv))
+            sup_kvs.append(_stack(kvs))
+            x = _cross_block_fwd(pc, x, cache["cross_k"][n],
+                                 cache["cross_v"][n], cfg)
+        ks, vs = _stack(sup_kvs)
+        cache = dict(cache, k=ks, v=vs)
+    else:  # audio
+        kvs = []
+        for i, p_l in enumerate(_unstack(blocks, cfg.n_layers)):
+            h = apply_norm(p_l["norm1"], x, cfg.norm_type)
+            res, kv = attn.decode_self_attention(
+                p_l["self_attn"], h, cache["k"][i], cache["v"][i], pos,
+                n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                head_dim=cfg.head_dim, use_rope=cfg.use_rope,
+                rope_theta=cfg.rope_theta, circular=circ)
+            kvs.append(kv)
+            x = x + res
+            h2 = apply_norm(p_l["norm2"], x, cfg.norm_type)
+            x = x + attn.cross_attention(
+                p_l["cross_attn"], h2, cache["cross_k"][i],
+                cache["cross_v"][i], n_heads=cfg.n_heads,
+                n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim)
+            h3 = apply_norm(p_l["norm3"], x, cfg.norm_type)
+            x = x + apply_mlp(p_l["mlp"], h3, cfg.mlp_type)
+        ks, vs = _stack(kvs)
+        cache = dict(cache, k=ks, v=vs)
+    return unembed(params, cfg, x), cache
+
+
+def _hybrid_decode(blocks: Params, rest_params: list, cfg: ModelConfig,
+                   cache: PyTree, x, pos: int):
+    """Hybrid decode: its local attention caches are always ring buffers."""
+    pat = cfg.block_pattern
+    n_super = cfg.n_layers // len(pat)
+    stacks = [_unstack(blocks[f"p{i}_{kind}"], n_super)
+              for i, kind in enumerate(pat)]
+    c, sup = cache["super"], {}
+    for n in range(n_super):
+        for i, kind in enumerate(pat):
+            names = ("conv", "h") if kind == "rglru" else ("k", "v")
+            st = tuple(c[f"p{i}_{name}"][n] for name in names)
+            if kind == "rglru":
+                x, st = _rglru_block_decode(stacks[i][n], x, st, cfg)
+            else:
+                x, *st = _attn_block_decode(stacks[i][n], x, *st, pos, cfg,
+                                            circular=True)
+            for name, t in zip(names, st):
+                sup.setdefault(f"p{i}_{name}", []).append(t)
+    rest = []
+    for p_l, c_l in zip(rest_params, cache["rest"]):
+        if "rec" in p_l:
+            x, st = _rglru_block_decode(p_l, x, c_l, cfg)
+        else:
+            x, *st = _attn_block_decode(p_l, x, *c_l, pos, cfg,
+                                        circular=True)
+        rest.append(tuple(st))
+    return x, {"super": {k: torch.stack(sup[k]) for k in c}, "rest": rest}
+
+
+def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            extras: Optional[Dict[str, torch.Tensor]] = None, *,
+            q_chunk: int = 1024):
+    """Prefill: the full forward; returns (last-token logits (B,1,V), the
+    populated cache). For attention families the per-layer (k, v) of the
+    forward is the cache; recurrent families carry their final state."""
+    h, _, cache = forward_trunk(params, cfg, tokens, extras,
+                                collect_cache=True, remat=False,
+                                q_chunk=q_chunk)
+    return unembed(params, cfg, h[:, -1:, :]), cache

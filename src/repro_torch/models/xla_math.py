@@ -1,8 +1,9 @@
-"""float32 ``log``, ``log1p``, ``exp``, ``expm1`` and ``linspace`` as the
-reference's CPU backend computes them, so that the recurrent blocks'
-constant inits (mamba's ``A_log``, RG-LRU's ``Lambda``) and the normal and
-exponential draws (``random.erfinv``, ``random.exponential``) are bitwise
-the reference's.
+"""float32 ``log``, ``log1p``, ``exp``, ``tanh``, ``expm1`` and
+``linspace`` as the reference's CPU backend computes them, so that the
+recurrent blocks' constant inits (mamba's ``A_log``, RG-LRU's ``Lambda``),
+the normal and exponential draws (``random.erfinv``,
+``random.exponential``) and the vlm's cross-attention gates are bitwise the
+reference's.
 
 XLA's CPU backend does not call libm for these: it emits Cephes-style
 polynomials (``log`` a degree-8 polynomial after a frexp split, ``log1p``
@@ -60,10 +61,6 @@ _LOG1P_P = [_f(h) for h in ("3F07BC0960000000", "3FDFE818A0000000",
 _LOG1P_Q = [_f(h) for h in ("402E2035A0000000", "4054C30B60000000",
                             "406BB865A0000000", "4073519460000000",
                             "406B0DB140000000", "404E0F3040000000")]
-
-
-def _c(v: float, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(v, dtype=torch.float32, device=like.device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -140,14 +137,13 @@ def log1p(x: torch.Tensor) -> torch.Tensor:
 def _exp_parts(x: torch.Tensor):
     """Cephes ``exp(x) = (1 + r + r^2 poly(r)) * 2^n``: returns the
     mantissa part and ``2^n`` (their product is ``exp``)."""
-    c = lambda v: _c(v, x)  # noqa: E731
     xc = torch.clamp(x, _EXP_LO, _EXP_HI)
-    n = torch.floor(_fma(xc, c(_LOG2E), c(0.5))).clamp(-127.0, 127.0)
-    r = _fma(n, c(-_LN2_LO), _fma(n, c(-_LN2_HI), xc))
-    y = _fma(r, c(_EXP_P[0]), c(_EXP_P[1]))
+    n = torch.floor(_fma(xc, _LOG2E, 0.5)).clamp(-127.0, 127.0)
+    r = _fma(n, -_LN2_LO, _fma(n, -_LN2_HI, xc))
+    y = _fma(r, _EXP_P[0], _EXP_P[1])
     for p in _EXP_P[2:] + [0.5]:
-        y = _fma(r, y, c(p))
-    y = _fma(y, r * r, r) + c(1.0)
+        y = _fma(r, y, p)
+    y = _fma(y, r * r, r) + 1.0
     pow2 = ((n.to(torch.int32) << 23) + 1065353216).view(torch.float32)
     return y, pow2
 
@@ -159,18 +155,22 @@ def exp(x: torch.Tensor) -> torch.Tensor:
 
 
 def _tanh(x: torch.Tensor) -> torch.Tensor:
-    c = lambda v: _c(v, x)  # noqa: E731
     xc = torch.clamp(x, -_TANH_CLAMP, _TANH_CLAMP)
     x2 = xc * xc
-    num = _fma(x2, c(_TANH_N[0]), c(_TANH_N[1]))
+    num = _fma(x2, _TANH_N[0], _TANH_N[1])
     for p in _TANH_N[2:]:
-        num = _fma(x2, num, c(p))
+        num = _fma(x2, num, p)
     num = xc * num
-    den = _fma(x2, c(_TANH_D[0]), c(_TANH_D[1]))
+    den = _fma(x2, _TANH_D[0], _TANH_D[1])
     for p in _TANH_D[2:]:
-        den = _fma(x2, den, c(p))
-    t = torch.where(x.abs() < c(_TANH_TINY), x, num / den)
-    return torch.where(x.abs() >= c(20.0), torch.sign(x), t)
+        den = _fma(x2, den, p)
+    t = torch.where(x.abs() < _TANH_TINY, x, num / den)
+    return torch.where(x.abs() >= 20.0, torch.sign(x), t)
+
+
+def tanh(x: torch.Tensor) -> torch.Tensor:
+    """XLA CPU's float32 ``tanh``: a 13/6 rational on ``|x| < 7.99``."""
+    return _tanh(x.to(torch.float32))
 
 
 def expm1(x: torch.Tensor) -> torch.Tensor:
@@ -179,8 +179,7 @@ def expm1(x: torch.Tensor) -> torch.Tensor:
     x = x.to(torch.float32)
     y, pow2 = _exp_parts(x)
     e = y * pow2
-    out = torch.where(x.abs() > _c(0.5, x), e + _c(-1.0, x),
-                      _tanh(x * _c(0.5, x)) * (e + _c(1.0, x)))
+    out = torch.where(x.abs() > 0.5, e - 1.0, _tanh(x * 0.5) * (e + 1.0))
     return torch.where(x == 0, x, out)
 
 

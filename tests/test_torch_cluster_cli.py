@@ -10,7 +10,8 @@ package's, on the CPU. The reference runs on the Auto-axis mesh of
     line equal; its checkpoint loaded by ``repro.checkpoint.load_checkpoint``
     (the params within a relative L2 error of 1e-3 of the reference's own,
     as ``test_torch_steps.py`` holds the steps) and by the port's, bitwise;
-    meshes of more than one card and the vlm and audio families raise.
+    meshes of more than one card raise, and the vlm and audio families
+    train.
 (b) ``train_fl_100m`` at its mini size for 3 steps against the reference's
     example: the model line and the printed losses equal; both raise the
     example's assertion (3 steps do not lower the loss by 0.3); the full
@@ -85,16 +86,21 @@ def test_cluster_main_matches_reference(arch, comp, tmp_path, monkeypatch,
         assert torch.equal(ours[k], v), k
 
 
-def test_cluster_raises_for_meshes_and_unported_families():
+def test_cluster_raises_for_meshes_and_runs_every_family():
+    """Meshes of more than one card raise; the vlm and audio families train
+    (on zero embeddings, as the reference's CLI feeds them;
+    ``tests/test_torch_vlm_audio.py`` holds them against it)."""
     for flags in (["--mesh-data", "2"], ["--mesh-model", "4"]):
         with pytest.raises(NotImplementedError, match="queue A item 5"):
             ttrain.main(["--arch", "gemma-2b", "--reduced", "--cluster"]
                         + flags, device="cpu")
     for arch in ("llama-3.2-vision-11b", "whisper-base"):
-        args = ttrain.parser().parse_args(["--arch", arch, "--reduced",
-                                           "--cluster", "--steps", "1"])
-        with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
-            ttrain.run_cluster(args, device="cpu")
+        args = ttrain.parser().parse_args(
+            ["--arch", arch, "--reduced", "--cluster", "--steps", "4",
+             "--seq-len", "16", "--batch", "8", "--lr", "3e-3"])
+        losses, state = ttrain.run_cluster(args, device="cpu")
+        assert len(losses) == 4 and losses[-1] < losses[0]
+        assert all(torch.isfinite(v).all() for v in state["params"].values())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             ttrain.main(["--arch", "gemma-2b", "--reduced", "--cluster"])

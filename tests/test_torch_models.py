@@ -3,8 +3,7 @@ the CPU.
 
 (a) All ten configs field for field, their ``param_count`` /
     ``active_param_count``, their ``reduced()`` variants, ``SHAPES``,
-    ``LONG_CONTEXT_WINDOW`` and ``ARCHS``; the vlm and audio families, which
-    the port does not run, raise ``NotImplementedError``.
+    ``LONG_CONTEXT_WINDOW`` and ``ARCHS``; every family builds and runs.
 (b) Layers (rmsnorm, layernorm, RoPE, the three MLPs with their inits,
     embeddings with gemma's scaling, the sinusoidal table, ``dense_init`` and
     ``stacked_init``) and attention (MHA, GQA, MQA, sliding window, softcap,
@@ -102,22 +101,27 @@ def test_registry_and_shapes_match_reference():
 
 
 @pytest.mark.parametrize("arch", OTHER)
-def test_unported_family_raises(arch):
-    """The vlm and audio families raise; moe, ssm and hybrid, ported since
-    (``tests/test_torch_train_cli.py`` holds them against the reference),
-    build and run."""
+def test_every_family_builds_and_runs(arch):
+    """The moe, ssm, hybrid, vlm and audio families build and run (the vlm
+    and audio families with their embeddings); ``tests/
+    test_torch_train_cli.py`` and ``test_torch_vlm_audio.py`` hold them
+    against the reference."""
     cfg = configs.get_config(arch).reduced()
     tokens = torch.zeros((1, 4), dtype=torch.int32)
-    if cfg.family in ("vlm", "audio"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
-            ttf.init_params(cfg, trandom.PRNGKey(0))
-        with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
-            ttf.forward_trunk({}, cfg, tokens)
-        return
+    extras = {}
+    if cfg.family == "vlm":
+        extras["vision_embeds"] = torch.ones(
+            (1, cfg.n_vision_tokens, cfg.vision_dim))
+    if cfg.family == "audio":
+        extras["audio_embeds"] = torch.ones(
+            (1, cfg.n_audio_frames, cfg.d_model))
     h, aux, _ = ttf.forward_trunk(ttf.init_params(cfg, trandom.PRNGKey(0)),
-                                  cfg, tokens)
+                                  cfg, tokens, extras)
     assert h.shape == (1, 4, cfg.d_model) and torch.isfinite(h).all()
     assert (float(aux) > 0) == (cfg.family == "moe")
+    with pytest.raises(ValueError, match="unknown family"):
+        ttf.init_params(dataclasses.replace(cfg, family="cnn"),
+                        trandom.PRNGKey(0))
 
 
 # ---------------------------------------------------------------------------
