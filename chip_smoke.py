@@ -4,7 +4,8 @@
 
 Phases (any failure exits non-zero):
 
-1. card: require CUDA; print the card's name and power limit (nvidia-smi);
+1. card: require CUDA; print the card's name and power limit (nvidia-smi)
+   and the versions of torch, CUDA, Python and numpy;
 2. build: compile every ``src/repro_torch/kernels/csrc/*.cu`` with nvcc for
    sm_90a (one nvcc per source, in parallel) and print the build time and
    the compiler's register report;
@@ -236,7 +237,22 @@ Phases (any failure exits non-zero):
    a step, tokens/s, peak; (e) whisper-base at its published size in
    float32: ``serve`` (4, 64) + 64 steps card against CPU, and
    ``run_cluster`` for 10 steps of (8, 128); ``serve_launches`` in the
-   kernels line.
+   kernels line;
+19. leaf: the per-leaf compressors and the numpy reference layer, which
+   reach no kernel: (a) the nine operators (sign, scaled sign, blockwise
+   scaled sign, ternary, QSGD, random sparsification, top-k, R-top-K,
+   rand-k) on every leaf of gemma-2b's reduced() tree, float32 and bf16,
+   and ``tree_ef_compress`` with each, card against CPU (the bitwise
+   operators equal, the others within LEAF_RTOL, flips only at their
+   thresholds, counted); (b) gemma-2b's published parameter tree (11
+   leaves, 2 506 172 416 elements, bfloat16) with a float32 EF, one
+   ``tree_ef_compress`` a compressor: s a call, peak GB, c + e' = x + e,
+   exactly k kept, top-k a k-contraction, random sparsification's variance
+   within its budget; (c) the numpy channel and policies at N = 10^5
+   against their torch twins on the card (the greedies at N = 256) and the
+   update-success analytics over bench_rs_rr_pf.py's grid; (d) the position
+   codec on embed's top 0.1%, encode and decode timed; ``leaf_launches`` in
+   the kernels line.
 
 Phase 3 also holds ``qsgd_rows`` given its norms at (6, 744 497 152), rows
 x d past 2^32 (the flat pass), against its plain version row by row.
@@ -247,6 +263,7 @@ kernel table as JSON and the result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import subprocess
@@ -421,6 +438,31 @@ WHISPER_SERVE_ARGS = ["--arch", "whisper-base", "--batch", "4",
 WHISPER_TRAIN_ARGS = ["--arch", "whisper-base", "--cluster", "--mode",
                       "pssgd", "--compression", "int8", "--steps", "10"]
 CLUSTER_TIMED = slice(2, 10)
+# phase 19, the per-leaf compressors and the numpy reference layer: the
+# nine operators at k = max(1, ceil(1% of the leaf)), r = min(4k, d), 256
+# levels, blocks of 4096, eps 1, one key for every leaf
+LEAF_ARCH, LEAF_SEED = "gemma-2b", 19
+LEAF_FRAC, LEAF_LEVELS, LEAF_BLOCK, LEAF_EPS = 0.01, 256, 4096, 1.0
+LEAF_OPS = ("sign", "scaled_sign", "blockwise_scaled_sign", "ternary", "qsgd",
+            "random_sparsify", "topk", "rtopk", "randk")
+LEAF_BITWISE = ("sign", "ternary", "topk", "rtopk", "randk")
+LEAF_SPARSE = ("topk", "rtopk", "randk")
+# (a) card against CPU: values of the operators that sum over a leaf within
+# LEAF_RTOL (float32; one bfloat16 ulp), dither and keep flips within
+# QSGD_MARGIN * levels of the fraction or KEEP_MARGIN of the probability,
+# at most LEAF_MAX_FLIPS an operator over both trees
+LEAF_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}
+QSGD_MARGIN, KEEP_MARGIN, LEAF_MAX_FLIPS = 8 * 2.0 ** -24, 2e-5, 16
+# (b) gemma-2b's published parameter tree in its bfloat16 with a float32 EF
+# of std 0.01, drawn leaf by leaf from a seeded generator on the card; (d)
+# the codec on embed's top 0.1%
+LEAF_E_STD, CODEC_FRAC = 0.01, 0.001
+# (c) the numpy layer at the fleet's N = 10^5 (k = 256) against the torch
+# twins on the card; the greedy policies' numpy loops are quadratic, so
+# they run at N = 256; bench_rs_rr_pf.py's K, N, alpha and regimes, and the
+# reference test's gamma 1 (tests/test_wireless.py:47)
+LEAF_N, LEAF_K, GREEDY_N = 100_000, 256, 256
+RSRRPF_K, RSRRPF_N, RSRRPF_ALPHA, RSRRPF_DB = 4, 20, 4.0, (20.0, -25.0, 0.0)
 ROWS_SRC = "src/repro_torch/kernels/csrc/rows.cu"
 TILES_SRC = "src/repro_torch/kernels/csrc/tiles.cu"
 
@@ -515,7 +557,7 @@ def card() -> str:
         timeout=60, check=True).stdout.strip().splitlines()[0]
     log(f"card: {smi}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
-        f"python {sys.version.split()[0]}")
+        f"python {sys.version.split()[0]} numpy {np.__version__}")
     return smi
 
 
@@ -2841,6 +2883,378 @@ def run_serve(dev, smi: str) -> dict:
     return total
 
 
+def _leaf_k(x) -> int:
+    return max(1, math.ceil(x.numel() * LEAF_FRAC))
+
+
+def _leaf_ops(key) -> dict:
+    """The nine per-leaf operators at phase 19's parameters, keyed."""
+    from repro_torch.core.compression import quantize as q
+    from repro_torch.core.compression import sparsify as sp
+    return {
+        "sign": q.sign_compress,
+        "scaled_sign": q.scaled_sign,
+        "blockwise_scaled_sign": lambda x: q.blockwise_scaled_sign(
+            x, LEAF_BLOCK),
+        "ternary": lambda x: q.ternary(key, x),
+        "qsgd": lambda x: q.qsgd(key, x, LEAF_LEVELS),
+        "random_sparsify": lambda x: sp.random_sparsify(key, x, LEAF_EPS),
+        "topk": lambda x: sp.topk_sparsify(x, _leaf_k(x)),
+        "rtopk": lambda x: sp.rtopk_sparsify(
+            key, x, min(4 * _leaf_k(x), x.numel()), _leaf_k(x)),
+        "randk": lambda x: sp.randk_sparsify(key, x, _leaf_k(x)),
+    }
+
+
+def _leaf_tree(cfg, device, dtype, gen) -> dict:
+    """``cfg``'s parameter tree (the port's flat dict) as normal draws of
+    ``dtype`` from ``gen``, leaf by leaf; shapes from a one-layer init on
+    the meta device, the stacked leaves' depth restored."""
+    import dataclasses
+    from repro_torch import random as trandom
+    from repro_torch.models import transformer as tf
+    meta = tf.init_params(dataclasses.replace(cfg, n_layers=1),
+                          trandom.PRNGKey(0, "meta"))
+    return {k: torch.randn(((cfg.n_layers,) + tuple(v.shape[1:])
+                            if k.startswith("blocks/") else v.shape),
+                           generator=gen, device=device, dtype=dtype)
+            for k, v in sorted(meta.items())}
+
+
+def _leaf_diff(name, got, want, rtol) -> tuple:
+    """A card result (or mask) against the CPU's: (where they differ beyond
+    ``rtol``, the largest relative error elsewhere); the bitwise operators
+    must be equal."""
+    got = got.cpu()
+    if name in LEAF_BITWISE or got.dtype == torch.bool:
+        off = got != want
+        if name in LEAF_BITWISE and off.any():
+            raise AssertionError(f"leaf (a) {name}: {int(off.sum())} "
+                                 f"entries differ, card vs cpu")
+        return off, 0.0
+    g, w = got.double(), want.double()
+    close = torch.isclose(g, w, rtol=rtol, atol=0.0)
+    rel = ((g - w).abs() / w.abs().clamp_min(1e-300))[close]
+    return ~close, float(rel.max()) if rel.numel() else 0.0
+
+
+def _leaf_near(name, x, key, off) -> bool:
+    """Do the flips ``off`` of a dithered operator on the CPU leaf ``x`` lie
+    on their thresholds (QSGD's fraction, random_sparsify's p)?"""
+    from repro_torch import random as trandom
+    from repro_torch.core.compression import sparsify as sp
+    if name not in ("qsgd", "random_sparsify"):
+        return False
+    u = trandom.uniform(key, x.shape).double()[off]
+    if name == "qsgd":
+        x64 = x.double()
+        frac = (x64.abs() / x64.square().sum().sqrt() * LEAF_LEVELS) % 1.0
+        gap = (u - frac[off]).abs()
+        return bool((torch.minimum(gap, 1.0 - gap)
+                     < QSGD_MARGIN * LEAF_LEVELS).all())
+    p = sp._keep_probability(x, LEAF_EPS).double()[off]
+    return bool(((u - p).abs() < KEEP_MARGIN).all())
+
+
+def _leaf_card_vs_cpu(dev) -> None:
+    """(a): each operator on every leaf of gemma-2b's reduced() tree, and
+    tree_ef_compress with it, on the card against the CPU."""
+    from repro_torch import random as trandom
+    from repro_torch.configs import get_config
+    from repro_torch.core.compression import error_feedback as ef
+    cfg = get_config(LEAF_ARCH).reduced()
+    gen = torch.Generator().manual_seed(LEAF_SEED)
+    base = _leaf_tree(cfg, "cpu", torch.float32, gen)
+    e_cpu = {k: v.clone().normal_(0.0, 0.1, generator=gen)
+             for k, v in base.items()}
+    e_dev = {k: v.to(dev) for k, v in e_cpu.items()}
+    k_cpu, k_dev = trandom.PRNGKey(LEAF_SEED), trandom.PRNGKey(LEAF_SEED, dev)
+    ops_cpu, ops_dev = _leaf_ops(k_cpu), _leaf_ops(k_dev)
+    flips = dict.fromkeys(LEAF_OPS, 0)
+    errs = dict.fromkeys(LEAF_OPS, 0.0)
+    for dtype in (torch.float32, torch.bfloat16):
+        x_cpu = {k: v.to(dtype) for k, v in base.items()}
+        x_dev = {k: v.to(dev) for k, v in x_cpu.items()}
+        rtol = LEAF_RTOL[dtype]
+        for name in LEAF_OPS:
+            for k in sorted(x_cpu):
+                got, want = ops_dev[name](x_dev[k]), ops_cpu[name](x_cpu[k])
+                off, rel = _leaf_diff(name, got[0], want[0], rtol)
+                if not isinstance(want[1], float):  # the masks
+                    off = off | _leaf_diff(name, got[1], want[1], rtol)[0]
+                if off.any() and not _leaf_near(name, x_cpu[k], k_cpu, off):
+                    raise AssertionError(f"leaf (a) {name} {k} {dtype}: "
+                                         f"{int(off.sum())} flips off their "
+                                         f"thresholds")
+                flips[name] += int(off.sum())
+                errs[name] = max(errs[name], rel)
+            (cg, eg), (cc, ec) = (
+                ef.tree_ef_compress(ops_dev[name], x_dev, e_dev),
+                ef.tree_ef_compress(ops_cpu[name], x_cpu, e_cpu))
+            for k in sorted(cc):
+                off, rel = _leaf_diff(name, cg[k], cc[k], rtol)
+                tol = rtol * float(cc[k].float().abs().max().clamp_min(
+                    1e-30))
+                e_off = ((eg[k].cpu() - ec[k]).abs() > tol) & ~off
+                if e_off.any() or (off.any() and name not in (
+                        "qsgd", "random_sparsify")):
+                    raise AssertionError(f"leaf (a) EF {name} {k} {dtype}: "
+                                         f"{int(e_off.sum())} errors differ")
+                flips[name] += int(off.sum())
+                errs[name] = max(errs[name], rel)
+    log(f"leaf (a) {cfg.name} tree ({sum(v.numel() for v in base.values())} "
+        f"elements, {len(base)} leaves), float32 and bfloat16, each operator "
+        f"and tree_ef_compress, card vs cpu: flips {flips}; max rel err "
+        f"elsewhere {{{', '.join(f'{n}: {v:.3g}' for n, v in errs.items())}}}")
+    if max(flips.values()) > LEAF_MAX_FLIPS:
+        raise AssertionError(f"leaf (a): flips {flips}")
+
+
+def _leaf_invariants(name, x, e, c, e2) -> str:
+    """(b)'s checks of one tree_ef_compress: c + e' = x + e to float32
+    rounding on every leaf; top-k, rand-k and R-top-K keep exactly k a
+    leaf; top-k is a k-contraction on every leaf; random_sparsify's
+    variance within (1 + eps) ||g||^2 of its input g = x + e."""
+    from repro_torch.core.compression import error_feedback as ef
+    from repro_torch.core.compression import sparsify as sp
+    worst, ratio = 0.0, 0.0
+    for k in sorted(x):
+        cf = c[k].float()
+        err = (cf + e2[k] - (x[k].float() + e[k])).abs()
+        bound = (cf.abs() + e2[k].abs()).mul_(2.0 ** -22)
+        worst = max(worst, float((err / bound.clamp_min(1e-38)).max()))
+        if bool((err > bound).any()):
+            raise AssertionError(f"leaf (b) {name} {k}: c + e' != x + e")
+        del cf, err, bound
+        kk = _leaf_k(x[k])
+        if name in LEAF_SPARSE and int(torch.count_nonzero(c[k])) != kk:
+            raise AssertionError(f"leaf (b) {name} {k}: "
+                                 f"{int(torch.count_nonzero(c[k]))} kept, "
+                                 f"not {kk}")
+        if name == "topk" and not bool(ef.is_k_contraction(
+                lambda v: sp.topk_sparsify(v, kk), x[k], kk)):
+            raise AssertionError(f"leaf (b) topk {k}: not a k-contraction")
+        if name == "random_sparsify":
+            g = (x[k].float() + e[k]).to(x[k].dtype).float()
+            p = sp._keep_probability(g, LEAF_EPS)
+            var = torch.where(p > 0, g * g / p.clamp_min(1e-30), 0.0).sum()
+            budget = (1.0 + LEAF_EPS) * (g * g).sum()
+            ratio = max(ratio, float(var / budget))
+            if ratio > 1.0 + 1e-5:
+                raise AssertionError(f"leaf (b) random_sparsify {k}: "
+                                     f"variance {ratio} of its budget")
+    out = f"c + e' vs x + e at most {worst:.3g} of the float32 bound"
+    if name == "random_sparsify":
+        out += f"; variance at most {ratio:.6f} of (1 + eps) ||g||^2"
+    if name in LEAF_SPARSE:
+        out += "; exactly k kept a leaf"
+    if name == "topk":
+        out += "; a k-contraction on every leaf"
+    return out
+
+
+def _leaf_full(dev, smi: str) -> None:
+    """(b) and (d): gemma-2b's published parameter tree through
+    tree_ef_compress once per operator, then the codec on embed."""
+    from repro_torch import random as trandom
+    from repro_torch.configs import get_config
+    from repro_torch.core.compression import coding
+    from repro_torch.core.compression import error_feedback as ef
+    from repro_torch.core.compression import sparsify as sp
+    cfg = get_config(LEAF_ARCH)
+    dtype = getattr(torch, cfg.dtype)
+    gen = torch.Generator(device=dev).manual_seed(LEAF_SEED)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    x, secs = wall_s(lambda: _leaf_tree(cfg, dev, dtype, gen))
+    e = ef.tree_init_error(x)
+    for v in e.values():
+        v.normal_(0.0, LEAF_E_STD, generator=gen)
+    n = sum(v.numel() for v in x.values())
+    held = torch.cuda.memory_allocated() / 1e9
+    big = max(x, key=lambda k: x[k].numel())
+    log(f"leaf (b) {cfg.name} published tree ({cfg.source}): {len(x)} "
+        f"leaves, {n} elements, {cfg.dtype}; largest {big} "
+        f"{tuple(x[big].shape)}; tree + float32 EF {held:.3f} GB on the card, "
+        f"drawn in {secs:.3f} s; {smi}")
+    if n != 2_506_172_416 or len(x) != 11:
+        raise AssertionError(f"leaf (b): {len(x)} leaves, {n} elements")
+    ops = _leaf_ops(trandom.PRNGKey(LEAF_SEED, dev))
+    for name in LEAF_OPS:
+        torch.cuda.reset_peak_memory_stats()
+        (c, e2), secs = wall_s(lambda: ef.tree_ef_compress(ops[name], x, e))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        checks = _leaf_invariants(name, x, e, c, e2)
+        log(f"leaf (b) tree_ef_compress {name}: {secs:.3f} s a call, peak "
+            f"{peak:.3f} GB (tree + EF held {held:.3f} GB, the call's two "
+            f"trees {held:.3f} GB more); {checks}; {smi}")
+        del c, e2
+        torch.cuda.empty_cache()
+
+    # (d) the codec on embed's top 0.1%
+    emb = x["embed"]
+    d, k = emb.numel(), math.ceil(emb.numel() * CODEC_FRAC)
+    mask, secs = wall_s(lambda: sp.topk_mask(emb, k))
+    t0 = time.perf_counter()
+    idx = coding.mask_to_indices(mask.cpu().numpy())
+    t_idx = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bits, bs = coding.encode_positions(idx, d)
+    t_enc = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = coding.decode_positions(bits, d, bs)
+    t_dec = time.perf_counter() - t0
+    want = coding.sparse_message_bits(d, k, 0.0)
+    log(f"leaf (d) codec on embed {tuple(emb.shape)} top {CODEC_FRAC:.1%} "
+        f"({k} indices, d = {d}): top-k mask {secs:.3f} s on the card, "
+        f"mask_to_indices {t_idx:.3f} s, encode {t_enc:.3f} s, decode "
+        f"{t_dec:.3f} s; block {bs}, {len(bits)} bits (sparse_message_bits "
+        f"{want:.0f}); decode == input {back == idx.tolist()}")
+    if len(idx) != k or back != idx.tolist() or len(bits) != want:
+        raise AssertionError(f"leaf (d): {len(idx)} indices, {len(bits)} "
+                             f"bits against {want}")
+    del x, e, mask
+    torch.cuda.empty_cache()
+
+
+def _leaf_numpy(dev) -> None:
+    """(c): the numpy channel and policies at N = 10^5 against their torch
+    twins on the card, the greedies at N = 256, and the update-success
+    analytics over bench_rs_rr_pf.py's grid."""
+    from repro_torch import random as trandom
+    from repro_torch.core import scheduling as sch
+    from repro_torch.core import wireless as w
+    rng = np.random.default_rng(LEAF_SEED)
+    cfg = w.WirelessConfig(n_devices=LEAF_N)
+    cp = w.channel_params(cfg, dev)
+    dist = w.sample_positions(rng, cfg).astype(np.float32)
+    fad = w.sample_fading(rng, LEAF_N).astype(np.float32)
+    td, tf = torch.from_numpy(dist).to(dev), torch.from_numpy(fad).to(dev)
+    bw = cfg.bandwidth_hz
+    t0 = time.perf_counter()
+    s32 = w.snr_jax(td, tf, cp).cpu().numpy()
+    r32 = w.shannon_rate_jax(torch.from_numpy(s32).to(dev),
+                             cp.bandwidth_hz).cpu().numpy()
+    l32 = w.comm_latency_jax(1e6, torch.from_numpy(r32).to(dev)).cpu().numpy()
+    pairs = (("path_gain", w.path_gain_jax(td, cp).cpu().numpy(),
+              w.path_gain(dist.astype(np.float64), cfg), 1e-5, 0.0),
+             ("snr", s32, w.snr(dist.astype(np.float64),
+                                fad.astype(np.float64), cfg), 1e-5, 0.0),
+             ("shannon_rate", r32, w.shannon_rate(s32.astype(np.float64), bw),
+              1e-6, bw * 2.0 ** -22),
+             ("comm_latency", l32, w.comm_latency(1e6, r32.astype(np.float64)),
+              1e-6, 0.0))
+    errs = {}
+    for name, got, want, rtol, atol in pairs:
+        np.testing.assert_allclose(got, want, rtol=rtol, atol=atol,
+                                   err_msg=name)
+        errs[name] = float(np.max(np.abs(got - want) / np.abs(want)))
+    shown = ", ".join(f"{k}: {v:.3g}" for k, v in errs.items())
+    log(f"leaf (c) channel at N = {LEAF_N}, numpy vs the torch twins on the "
+        f"card, max rel err {{{shown}}} "
+        f"(tolerances rtol 1e-5, 1e-5, 1e-6 + {bw * 2.0 ** -22:.3g} b/s, "
+        f"1e-6); {time.perf_counter() - t0:.3f} s")
+
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    avg, comp = f32(s32 * rng.exponential(1.0, LEAF_N)), f32(
+        rng.exponential(0.3, LEAF_N))
+    norms = f32(rng.random(LEAF_N))
+    ages = rng.integers(0, 12, LEAF_N).astype(np.float32)
+    on = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    pc = sch.PolicyConfig(n_devices=LEAF_N, n_scheduled=LEAF_K,
+                          model_bits=1e6, deadline_s=5.0)
+    st = sch.RoundState(t=3, key=trandom.PRNGKey(0, dev), snr_lin=on(s32),
+                        avg_snr=on(avg), rates=on(r32), comm_lat=on(l32),
+                        comp_lat=on(comp), ages=on(ages),
+                        update_norms=on(norms))
+    dp = int(pc.model_bits / 32)
+    t0 = time.perf_counter()
+    want = {"round_robin": (sch.round_robin(3, LEAF_N, LEAF_K), None),
+            "pf": (sch.proportional_fair(s32, avg, LEAF_K),
+                   s32 / np.maximum(avg, 1e-12)),
+            "latency": (sch.latency_minimal(l32, comp, LEAF_K),
+                        -(l32 + comp)),
+            "best_channel": (sch.best_channel(s32, LEAF_K), s32),
+            "bn2": (sch.best_norm(norms, LEAF_K), norms),
+            "bc_bn2": (sch.bc_bn2(s32, norms, 2 * LEAF_K, LEAF_K), s32),
+            "bn2_c": (sch.bn2_c(norms, r32, dp, pc.deadline_s, LEAF_K),
+                      sch.quantized_norm(norms, r32, dp, pc.deadline_s))}
+    ties = {}
+    for name, (mask, score) in want.items():
+        got = sch.get_policy(name)(pc, st).cpu().numpy()
+        kth = None if score is None else np.sort(score)[::-1][LEAF_K - 1]
+        ties[name] = 0 if kth is None else int((score == kth).sum()) - 1
+        off = int((got != mask).sum())
+        if off > 2 * ties[name]:
+            raise AssertionError(f"leaf (c) {name}: {off} devices differ, "
+                                 f"{ties[name]} ties at the k-th score")
+    m = GREEDY_N
+    pc_m = sch.PolicyConfig(n_devices=m, n_scheduled=LEAF_K, deadline_s=2.0)
+    st_m = st._replace(comm_lat=st.comm_lat[:m], comp_lat=st.comp_lat[:m],
+                       snr_lin=st.snr_lin[:m])
+    dl = sch.get_policy("deadline")(pc_m, st_m).cpu().numpy()
+    snr_w = f32(rng.exponential(1.0, (m, 20)) * s32[:m, None])
+    ag = sch.age_greedy_jax(on(ages[:m]), on(snr_w), 2e5, 1e6).cpu().numpy()
+    if not (np.array_equal(dl, sch.deadline_greedy(l32[:m], comp[:m], 2.0))
+            and np.array_equal(ag, sch.age_based_greedy(
+                ages[:m], snr_w, 2e5, 1e6, 20)[0])):
+        raise AssertionError("leaf (c): a greedy policy differs")
+    sched = on(s32 > np.median(s32))
+    if not (np.array_equal(sch.update_ages_jax(on(ages), sched).cpu().numpy(),
+                           sch.update_ages(ages, s32 > np.median(s32)))
+            and np.allclose(sch._f_alpha(on(ages + 1), 1.0).cpu().numpy(),
+                            sch.f_alpha(ages + 1, 1.0), rtol=1e-6)):
+        raise AssertionError("leaf (c): ages or f_alpha differ")
+    log(f"leaf (c) policies, numpy vs the torch twins on the card: "
+        f"{', '.join(want)} at N = {LEAF_N}, k = {LEAF_K} select the same "
+        f"sets (ties at the k-th score {ties}); deadline ({int(dl.sum())} "
+        f"scheduled) and age ({int(ag.sum())}) greedy at N = {m} equal; "
+        f"update_ages and f_alpha equal; {time.perf_counter() - t0:.3f} s")
+
+    k_, n_, alpha = RSRRPF_K, RSRRPF_N, RSRRPF_ALPHA
+    for db in RSRRPF_DB:
+        gamma = 10 ** (db / 10)
+        v = w.interference_functional(gamma, alpha)
+        u = (w.update_success_rs(k_, n_, v), w.update_success_rr(v),
+             w.update_success_pf(k_, n_, gamma, alpha))
+        t = (w.rounds_required(u[0]), w.rounds_required_rr(u[1], k_, n_),
+             w.rounds_required(u[2]))
+        log(f"leaf (c) update success at K = {k_}, N = {n_}, alpha {alpha}, "
+            f"gamma* {db:+.0f} dB: V {v:.6g}; U rs {u[0]:.6g}, rr "
+            f"{u[1]:.6g}, pf {u[2]:.6g}; rounds rs {t[0]:.6g}, rr {t[1]:.6g},"
+            f" pf {t[2]:.6g}; T_pf / T_rr {t[2] / t[1]:.4g}")
+        if not (0 < u[0] < u[1] <= 1 and u[2] >= 0.9 * u[0]):
+            raise AssertionError(f"leaf (c) at {db} dB: order {u}")
+
+
+def run_leaf(dev, smi: str) -> dict:
+    """Phase 19: the per-leaf compressors and the numpy reference layer:
+    card against CPU on the reduced tree (a), gemma-2b's published tree
+    through tree_ef_compress (b), the numpy layer at the fleet's size (c),
+    the codec on embed (d). Returns each kernel's launches across the phase
+    (all must be 0)."""
+    zero, read, total = _counting(dict(_row_counters(), **_tile_counters()))
+    zero()
+    part = time.perf_counter()
+
+    def took(what):
+        nonlocal part
+        log(f"leaf {what}: {time.perf_counter() - part:.2f} s")
+        part = time.perf_counter()
+
+    _leaf_card_vs_cpu(dev)
+    took("(a) card vs cpu")
+    _leaf_numpy(dev)
+    took("(c) numpy layer")
+    _leaf_full(dev, smi)
+    took("(b, d) published tree and codec")
+    got = read()
+    log(f"leaf kernel launches across phase 19: {got}")
+    if any(got.values()):
+        raise AssertionError(f"leaf: kernels launched {got}")
+    return total
+
+
 def main() -> int:
     t0 = time.perf_counter()
     smi = card()
@@ -2865,7 +3279,8 @@ def main() -> int:
               ("lm", lambda: run_lm(dev, smi)),
               ("families", lambda: run_families(dev, smi)),
               ("trainer", lambda: run_trainer(dev, smi)),
-              ("serve", lambda: run_serve(dev, smi))]
+              ("serve", lambda: run_serve(dev, smi)),
+              ("leaf", lambda: run_leaf(dev, smi))]
     out = {}
     log(f"phase card: {time.perf_counter() - t0:.2f} s")
     for name, fn in phases:
@@ -2887,6 +3302,7 @@ def main() -> int:
                      "families_launches": out["families"][0][name],
                      "trainer_launches": out["trainer"][name],
                      "serve_launches": out["serve"][name],
+                     "leaf_launches": out["leaf"][name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "device_ms": r["device_ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

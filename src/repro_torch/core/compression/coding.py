@@ -1,14 +1,101 @@
-"""Bit-cost accounting of sparse messages (paper Alg. 4), the traced twins of
-``repro/core/compression/coding.py`` (``sparse_bits_jax``,
-``elias_gamma_bits_jax``) on float32 tensors, and the finite-field codec of
-secure aggregation (``field_scale``, ``to_field``, ``from_field``).
+"""Sparse position coding (paper §II.A.5, Alg. 4) and bit accounting, port
+of ``repro/core/compression/coding.py``: the bit-level encoder and decoder
+and the analytic costs (Python and numpy, copied), their traced twins
+(``sparse_bits_jax``, ``elias_gamma_bits_jax``) on float32 tensors, and the
+finite-field codec of secure aggregation (``field_scale``, ``to_field``,
+``from_field``).
 
-The small epsilon protects ``ceil``/``floor`` of float32 ``log2`` at exact
-powers of two (``log2(16.)`` may come out as 4.0000002).
+Block position coding: a sparse vector of dimension d at sparsity level
+phi = nnz/d is split into blocks of size 1/phi; each non-zero costs
+1 + log2(1/phi) bits (flag + intra-block offset) and each block costs one
+end-of-block bit -> total = nnz*(1 + log2(1/phi)) + phi*d bits.
+
+The small epsilon of the twins protects ``ceil``/``floor`` of float32
+``log2`` at exact powers of two (``log2(16.)`` may come out as 4.0000002).
 """
 from __future__ import annotations
 
+import math
+from typing import List, Sequence, Tuple
+
+import numpy as np
 import torch
+
+
+def _block_size(d: int, nnz: int) -> int:
+    """1/phi rounded up to a power of two (so offsets are whole bits)."""
+    phi = max(nnz, 1) / d
+    return 1 << max(0, math.ceil(math.log2(1.0 / phi)))
+
+
+def encode_positions(indices: Sequence[int], d: int) -> Tuple[str, int]:
+    """Alg. 4 encoder. Returns (bitstring, block_size).
+
+    Per block: for each non-zero inside, '1' + offset bits; then '0' to close
+    the block. Indices must be sorted & unique.
+    """
+    idx = sorted(set(int(i) for i in indices))
+    assert all(0 <= i < d for i in idx), "index out of range"
+    bs = _block_size(d, len(idx))
+    off_bits = int(math.log2(bs))
+    n_blocks = -(-d // bs)
+    bits: List[str] = []
+    ptr = 0
+    for b in range(n_blocks):
+        lo, hi = b * bs, (b + 1) * bs
+        while ptr < len(idx) and lo <= idx[ptr] < hi:
+            bits.append("1")
+            bits.append(format(idx[ptr] - lo, f"0{off_bits}b") if off_bits else "")
+            ptr += 1
+        bits.append("0")  # end-of-block
+    return "".join(bits), bs
+
+
+def decode_positions(bitstring: str, d: int, block_size: int) -> List[int]:
+    """Alg. 4 decoder (pointer walk)."""
+    off_bits = int(math.log2(block_size))
+    out: List[int] = []
+    block_index = 0
+    pointer = 0
+    n = len(bitstring)
+    while pointer < n:
+        if bitstring[pointer] == "0":
+            block_index += 1
+            pointer += 1
+        else:
+            pointer += 1
+            off = int(bitstring[pointer:pointer + off_bits], 2) if off_bits else 0
+            out.append(block_size * block_index + off)
+            pointer += off_bits
+    return out
+
+
+def sparse_message_bits(d: int, nnz: int, value_bits: float = 32.0) -> float:
+    """Analytic total bits for one sparse message under Alg. 4 coding."""
+    if nnz == 0:
+        return 0.0
+    bs = _block_size(d, nnz)
+    n_blocks = -(-d // bs)
+    return nnz * (1 + math.log2(bs) + value_bits) + n_blocks
+
+
+def naive_sparse_bits(d: int, nnz: int, value_bits: float = 32.0) -> float:
+    """log2(d) bits per index (the baseline Alg. 4 improves on)."""
+    return nnz * (math.ceil(math.log2(max(d, 2))) + value_bits)
+
+
+def elias_gamma_bits(gaps: Sequence[int]) -> float:
+    """Analytic Elias-gamma cost of encoding index gaps [30]."""
+    return float(sum(2 * math.floor(math.log2(g)) + 1 for g in gaps if g >= 1))
+
+
+def mask_to_indices(mask: np.ndarray) -> np.ndarray:
+    return np.nonzero(np.asarray(mask).reshape(-1))[0]
+
+
+# ---------------------------------------------------------------------------
+# Traced twins: the same analytic formulas on float32 tensors
+# ---------------------------------------------------------------------------
 
 _LOG2_EPS = 1e-6
 

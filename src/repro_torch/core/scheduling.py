@@ -1,22 +1,214 @@
-"""Client scheduling policies of the engine, port of the jnp half of
+"""Device selection / scheduling policies (paper §III), port of
 ``repro/core/scheduling.py``.
 
-A policy maps a static :class:`PolicyConfig` and the round's
-:class:`RoundState` to an (N,) bool mask of scheduled devices. Rankings are
-stable sorts, so ties break by device index as in the reference; the two
-greedy policies (``deadline``, ``age``) are the reference's fixed-trip loops,
-which stop early here once they are done (later trips change nothing).
+Two layers, as in the reference:
+
+* **numpy reference policies** (top half, copied): host-side per-round
+  logic mapping channel gains, ages, update norms and latencies to a 0/1
+  participation mask;
+* **the engine's policy registry** (bottom half): a policy maps a static
+  :class:`PolicyConfig` and the round's :class:`RoundState` to an (N,) bool
+  mask of scheduled devices. Rankings are stable sorts, so ties break by
+  device index as in the reference; the two greedy policies (``deadline``,
+  ``age``) are the reference's fixed-trip loops, which stop early here once
+  they are done (later trips change nothing).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, NamedTuple, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import random as trandom
 
 
+def _mask(n: int, idx: np.ndarray) -> np.ndarray:
+    m = np.zeros(n, dtype=bool)
+    m[np.asarray(idx, dtype=int)] = True
+    return m
+
+
+# ---------------------------------------------------------------------------
+# Baselines
+# ---------------------------------------------------------------------------
+def random_schedule(rng: np.random.Generator, n: int, k: int) -> np.ndarray:
+    return _mask(n, rng.choice(n, size=k, replace=False))
+
+
+def round_robin(t: int, n: int, k: int) -> np.ndarray:
+    """G = N/K groups scheduled cyclically."""
+    n_groups = max(1, n // k)
+    g = t % n_groups
+    idx = np.arange(g * k, min((g + 1) * k, n))
+    return _mask(n, idx)
+
+
+def proportional_fair(inst_snr: np.ndarray, avg_snr: np.ndarray, k: int
+                      ) -> np.ndarray:
+    """Top-K of instantaneous/time-averaged SNR ratio (§III.2)."""
+    ratio = inst_snr / np.maximum(avg_snr, 1e-12)
+    idx = np.argsort(-ratio)[:k]
+    return _mask(len(inst_snr), idx)
+
+
+def latency_minimal(comm_latency: np.ndarray, comp_latency: np.ndarray, k: int
+                    ) -> np.ndarray:
+    """Eq. (37) with fixed power: schedule the K devices minimizing
+    max(L_comm + L_comp)."""
+    total = comm_latency + comp_latency
+    idx = np.argsort(total)[:k]
+    return _mask(len(total), idx)
+
+
+def best_channel(gains: np.ndarray, k: int) -> np.ndarray:
+    """BC policy (§III.3)."""
+    idx = np.argsort(-gains)[:k]
+    return _mask(len(gains), idx)
+
+
+# ---------------------------------------------------------------------------
+# Update-aware policies [62] (§III.3)
+# ---------------------------------------------------------------------------
+def best_norm(update_norms: np.ndarray, k: int) -> np.ndarray:
+    """BN2: top-K l2 norms of the local updates."""
+    idx = np.argsort(-update_norms)[:k]
+    return _mask(len(update_norms), idx)
+
+
+def bc_bn2(gains: np.ndarray, update_norms: np.ndarray, k_c: int, k: int
+           ) -> np.ndarray:
+    """BC-BN2: preselect K_c by channel, pick K of those by norm."""
+    pre = np.argsort(-gains)[:k_c]
+    chosen = pre[np.argsort(-update_norms[pre])[:k]]
+    return _mask(len(gains), chosen)
+
+
+def quantized_norm(update_norms: np.ndarray, rates_bps: np.ndarray,
+                   d_params: int, round_seconds: float) -> np.ndarray:
+    """Post-quantization update fidelity model for BN2-C: a device that can
+    push b bits/param keeps ~(1 - 2^-b) of its update norm (uniform
+    quantization SNR). Sole-transmitter assumption per [62]."""
+    bits_total = rates_bps * round_seconds
+    bits_per_param = np.maximum(bits_total / max(d_params, 1), 1e-3)
+    fidelity = 1.0 - 2.0 ** (-np.minimum(bits_per_param, 32.0))
+    return update_norms * fidelity
+
+
+def bn2_c(update_norms: np.ndarray, rates_bps: np.ndarray, d_params: int,
+          round_seconds: float, k: int) -> np.ndarray:
+    """BN2-C: rank by the norm each device would deliver *after* channel-
+    driven quantization, were it the sole transmitter."""
+    eff = quantized_norm(update_norms, rates_bps, d_params, round_seconds)
+    idx = np.argsort(-eff)[:k]
+    return _mask(len(update_norms), idx)
+
+
+# ---------------------------------------------------------------------------
+# Age-based scheduling [58] (§III.1, P2/P3 greedy)
+# ---------------------------------------------------------------------------
+def f_alpha(x: np.ndarray, alpha: float) -> np.ndarray:
+    """Fairness utility (eq. after (38))."""
+    x = np.asarray(x, dtype=float)
+    if alpha == 1.0:
+        return np.log1p(x)
+    return (x ** (1.0 - alpha)) / (1.0 - alpha)
+
+
+def update_ages(ages: np.ndarray, scheduled: np.ndarray) -> np.ndarray:
+    """Age recursion: 0 if scheduled else age+1."""
+    return np.where(scheduled, 0, ages + 1)
+
+
+def min_subchannels(snr_per_sub: np.ndarray, r_min: float, sub_bw: float,
+                    max_sub: int) -> int:
+    """P3 greedy: allocate best subchannels (equal power) until the Shannon
+    sum-rate clears R_min. Returns the count, or max_sub+1 if infeasible."""
+    order = np.argsort(-snr_per_sub)
+    rate = 0.0
+    for j, s in enumerate(order[:max_sub], start=1):
+        # equal power split across the j allocated subchannels
+        rate = j * sub_bw * np.log2(1.0 + snr_per_sub[order[:j]].mean() / j)
+        if rate >= r_min:
+            return j
+    return max_sub + 1
+
+
+def age_based_greedy(ages: np.ndarray, snr_matrix: np.ndarray, r_min: float,
+                     sub_bw: float, n_subchannels: int, alpha: float = 1.0
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """Two-phase greedy of [58] for P2.
+
+    snr_matrix: (N, W) per-device per-subchannel SNR. Iteratively add the
+    device maximizing f_alpha(age)/|W_i| (eq. 45), removing its subchannels,
+    until no device fits. Returns (scheduled mask, n_subchannels used per dev).
+    """
+    n = len(ages)
+    available = np.ones(n_subchannels, dtype=bool)
+    scheduled = np.zeros(n, dtype=bool)
+    used = np.zeros(n, dtype=int)
+    while True:
+        best_dev, best_ratio, best_need = -1, -np.inf, 0
+        n_avail = int(available.sum())
+        if n_avail == 0:
+            break
+        for i in range(n):
+            if scheduled[i]:
+                continue
+            need = min_subchannels(snr_matrix[i, available], r_min, sub_bw, n_avail)
+            if need > n_avail:
+                continue
+            ratio = f_alpha(np.array([ages[i] + 1.0]), alpha)[0] / need
+            if ratio > best_ratio:
+                best_dev, best_ratio, best_need = i, ratio, need
+        if best_dev < 0:
+            break
+        # P3 for the winner: take its best available subchannels
+        avail_idx = np.nonzero(available)[0]
+        order = np.argsort(-snr_matrix[best_dev, avail_idx])[:best_need]
+        available[avail_idx[order]] = False
+        scheduled[best_dev] = True
+        used[best_dev] = best_need
+    return scheduled, used
+
+
+# ---------------------------------------------------------------------------
+# Deadline-constrained selection P4 [61] (§III.2)
+# ---------------------------------------------------------------------------
+def deadline_greedy(comm_latency: np.ndarray, comp_latency: np.ndarray,
+                    t_max: float, candidates: Optional[np.ndarray] = None
+                    ) -> np.ndarray:
+    """Nishio-Yonetani greedy for P4 (eqs. 57-58): iteratively append the
+    device adding the least extra round time, where computation overlaps the
+    cumulative upload time of earlier devices (devices upload one-by-one)."""
+    n = len(comm_latency)
+    pool = list(np.nonzero(candidates)[0]) if candidates is not None else list(range(n))
+    chosen: list[int] = []
+
+    def round_time(order: list[int]) -> float:
+        t_upload = 0.0
+        for i in order:
+            start = max(t_upload, comp_latency[i])  # can't upload before computed
+            t_upload = start + comm_latency[i]
+        return t_upload
+
+    while pool:
+        best, best_t = None, np.inf
+        for i in pool:
+            t = round_time(chosen + [i])
+            if t < best_t:
+                best, best_t = i, t
+        if best is None or best_t > t_max:
+            break
+        chosen.append(best)
+        pool.remove(best)
+    return _mask(n, np.array(chosen, dtype=int))
+
+
+# ===========================================================================
+# The engine's policy registry
+# ===========================================================================
 class RoundState(NamedTuple):
     """Per-round inputs every policy sees."""
     t: int                       # round index

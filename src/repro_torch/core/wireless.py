@@ -1,9 +1,16 @@
-"""Wireless channel of the engine (paper §III), port of the jnp twins in
-``repro/core/wireless.py``: large-scale path loss, Rayleigh block fading and
-Shannon rates, driven by threefry keys. Function names mirror the reference.
+"""Wireless channel simulation and update-success analytics (paper §III),
+port of ``repro/core/wireless.py``.
 
-Static integers stay on :class:`WirelessConfig`; the continuous parameters
-are float32 scalar tensors in :class:`ChannelParams`.
+Two halves, as in the reference:
+
+* **numpy reference** (top): large-scale path loss, Rayleigh block fading,
+  Shannon rates over orthogonal subchannels, and the PPP/SINR update-success
+  analytics of eqs. (47)-(56) [59], copied (eq. (51)'s integrand is garbled
+  in the source text; the standard Rayleigh/PPP interference functional of
+  [59] is implemented, a documented deviation with the same RS/RR/PF order);
+* **torch twins** (``*_jax``, below): the engine's channel, driven by
+  threefry keys. Static integers stay on :class:`WirelessConfig`; the
+  continuous parameters are float32 scalar tensors in :class:`ChannelParams`.
 """
 from __future__ import annotations
 
@@ -11,6 +18,7 @@ import dataclasses
 import math
 from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import random as trandom
@@ -29,6 +37,115 @@ class WirelessConfig:
     path_loss_exponent: float = 3.0
     ref_loss_db: float = 30.0        # loss at 1 m
     n_subchannels: int = 20
+
+
+def dbm_to_watt(dbm: float) -> float:
+    return 10 ** ((dbm - 30) / 10)
+
+
+def db_to_lin(db: float) -> float:
+    return 10 ** (db / 10)
+
+
+# ---------------------------------------------------------------------------
+# Topology + fading
+# ---------------------------------------------------------------------------
+def sample_positions(rng: np.random.Generator, cfg: WirelessConfig) -> np.ndarray:
+    """Uniform in the disk of radius R (distances to the BS at origin)."""
+    r = cfg.cell_radius_m * np.sqrt(rng.random(cfg.n_devices))
+    return np.maximum(r, 1.0)
+
+
+def path_gain(dist_m: np.ndarray, cfg: WirelessConfig) -> np.ndarray:
+    """Linear large-scale gain: -ref_loss - 10*alpha*log10(d)."""
+    loss_db = cfg.ref_loss_db + 10 * cfg.path_loss_exponent * np.log10(dist_m)
+    return db_to_lin(-loss_db)
+
+
+def sample_fading(rng: np.random.Generator, n: int) -> np.ndarray:
+    """Rayleigh block fading power |h|^2 ~ Exp(1), i.i.d. per round."""
+    return rng.exponential(1.0, size=n)
+
+
+def snr(dist_m: np.ndarray, fading: np.ndarray, cfg: WirelessConfig,
+        bandwidth_hz: float | None = None) -> np.ndarray:
+    bw = bandwidth_hz if bandwidth_hz is not None else cfg.bandwidth_hz
+    p = dbm_to_watt(cfg.tx_power_dbm)
+    n0 = db_to_lin(cfg.noise_dbw_per_hz) * bw
+    return p * path_gain(dist_m, cfg) * fading / n0
+
+
+def shannon_rate(snr_lin: np.ndarray, bandwidth_hz: float) -> np.ndarray:
+    """bits/s (eq. 40 up to the orthogonal-subchannel split)."""
+    return bandwidth_hz * np.log2(1.0 + snr_lin)
+
+
+def comm_latency(bits: float, rate_bps: np.ndarray) -> np.ndarray:
+    """L_comm = d / R (paper §III). A non-positive rate is an *outage*:
+    the payload never arrives, so the latency is ``inf`` (not the absurd
+    finite number a silent rate clamp used to produce) — deadline-aware
+    policies then exclude the device instead of scheduling a phantom."""
+    rate = np.asarray(rate_bps, dtype=np.float64)
+    with np.errstate(divide="ignore"):
+        return np.where(rate > 0.0, bits / np.maximum(rate, 1e-300), np.inf)
+
+
+def subchannel_rate(snr_per_sub: np.ndarray, cfg: WirelessConfig,
+                    n_alloc: int) -> np.ndarray:
+    """Rate when n_alloc orthogonal subchannels are allocated (eq. 40),
+    equal power split."""
+    sub_bw = cfg.bandwidth_hz / cfg.n_subchannels
+    return n_alloc * sub_bw * np.log2(1.0 + snr_per_sub / max(n_alloc, 1))
+
+
+# ---------------------------------------------------------------------------
+# Update-success analytics (eqs. 47-56), [59]
+# ---------------------------------------------------------------------------
+def interference_functional(gamma_star: float, alpha: float,
+                            noise_term: float = 0.0) -> float:
+    """V(gamma*, alpha): mean interference functional under Rayleigh fading
+    and unit-density PPP interferers,
+        V = gamma*^{2/alpha} * integral_{gamma*^{-2/alpha}}^inf du/(1+u^{alpha/2})
+    plus an additive noise term. (Deviation note in the module docstring.)
+    """
+    lo = gamma_star ** (-2.0 / alpha)
+    us = np.linspace(lo, lo + 5_000.0, 200_000)
+    integrand = 1.0 / (1.0 + us ** (alpha / 2.0))
+    integral = np.trapezoid(integrand, us)
+    return float(gamma_star ** (2.0 / alpha) * integral + noise_term)
+
+
+def update_success_rs(k: int, n: int, v: float) -> float:
+    """Eq. (50): U_n ~= (K/N) / (1+V)."""
+    return (k / n) / (1.0 + v)
+
+
+def update_success_rr(v: float) -> float:
+    """Eq. (53), conditioned on being scheduled."""
+    return 1.0 / (1.0 + v)
+
+
+def update_success_pf(k: int, n: int, gamma_star: float, alpha: float,
+                      noise_term: float = 0.0) -> float:
+    """Eq. (55): opportunistic gain via the binomial alternating sum."""
+    m = n - k + 1
+    total = 0.0
+    for i in range(1, m + 1):
+        vi = interference_functional(i * gamma_star, alpha, noise_term)
+        total += math.comb(m, i) * ((-1) ** (i + 1)) * (n / k) / (1.0 + vi)
+    # eq. (55) is a per-scheduled-slot probability; clamp to [0,1)
+    return min(max(total * (k / n), 0.0), 0.999999)
+
+
+def rounds_required(u: float) -> float:
+    """Required iterations ~ 1/|log(1-U)| (eqs. 52/54/56 up to constants)."""
+    return 1.0 / abs(math.log(max(1.0 - u, 1e-12)))
+
+
+def rounds_required_rr(u_scheduled: float, k: int, n: int) -> float:
+    """Eq. (54): RR pays the N/K scheduling duty cycle on top of the
+    per-scheduled-round success probability."""
+    return (n / k) * rounds_required(u_scheduled)
 
 
 class ChannelParams(NamedTuple):

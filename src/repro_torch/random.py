@@ -101,8 +101,38 @@ def bits(key: torch.Tensor, shape: Shape) -> torch.Tensor:
 
 
 def _unit_floats(key, shape) -> torch.Tensor:
-    fbits = ((bits(key, shape) >> 9) | 0x3F800000).to(torch.int32)
+    return _floats_of(bits(key, shape))
+
+
+def _floats_of(b: torch.Tensor) -> torch.Tensor:
+    """32-bit words -> float32 in [0, 1): 23 mantissa bits under 1.0."""
+    fbits = ((b >> 9) | 0x3F800000).to(torch.int32)
     return fbits.view(torch.float32) - 1.0
+
+
+# A draw over a whole tensor for one key is made CHUNK elements at a time
+# (the counters are the flat index), so that a 6e8-element leaf holds its
+# int64 threefry words for one chunk, not six 4.8 GB buffers at once.
+CHUNK = 1 << 24
+
+
+def _bits_range(key: torch.Tensor, start: int, stop: int) -> torch.Tensor:
+    """``bits(key, shape).reshape(-1)[start:stop]`` for one key ``(2,)`` and
+    any shape of at least ``stop`` elements."""
+    idx = torch.arange(start, stop, dtype=torch.int64, device=key.device)
+    b1, b2 = threefry2x32(key[0], key[1], idx >> 32, idx & MASK)
+    return b1.bitwise_xor_(b2)
+
+
+def uniform_below(key: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """``uniform(key, p.shape) < p`` for one key, as a bool tensor, drawn
+    CHUNK elements at a time."""
+    flat = p.reshape(-1)
+    out = torch.empty(flat.shape, dtype=torch.bool, device=p.device)
+    for a in range(0, flat.numel(), CHUNK):
+        b = min(a + CHUNK, flat.numel())
+        torch.lt(_floats_of(_bits_range(key, a, b)), flat[a:b], out=out[a:b])
+    return out.reshape(p.shape)
 
 
 def uniform(key: torch.Tensor, shape: Shape = (), minval: float = 0.0,
@@ -167,9 +197,19 @@ def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
     rounds = math.ceil(3 * math.log(max(1, n)) / math.log(MASK))
     for _ in range(rounds):
         key, sub = split(key)
-        order = torch.argsort(bits(sub, (n,)), stable=True)
+        order = torch.argsort(_sort_keys(sub, n), stable=True)
         x = x[order]
     return x
+
+
+def _sort_keys(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``bits(key, (n,))`` as int32 ``bits - 2^31`` (the same order, half
+    the bytes to sort), CHUNK elements at a time."""
+    out = torch.empty(n, dtype=torch.int32, device=key.device)
+    for a in range(0, n, CHUNK):
+        b = min(a + CHUNK, n)
+        out[a:b] = _bits_range(key, a, b) - (1 << 31)
+    return out
 
 
 def randint(key: torch.Tensor, shape: Shape, minval: int,
