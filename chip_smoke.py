@@ -254,6 +254,30 @@ Phases (any failure exits non-zero):
    codec on embed's top 0.1%, encode and decode timed; ``leaf_launches`` in
    the kernels line.
 
+20. cluster: the cluster side, on members that are processes sharing the
+   one card over gloo (``torch.multiprocessing`` spawn; the numbers test
+   the code, the placement and the wire, not the speed of several cards):
+   (a) the compressed collectives, every method with and without EF on
+   (pod 2, data 2) and (data 4), a (4096, 1024) leaf a member: every
+   member's output bitwise the others', card == CPU (none, bf16, int8
+   bitwise; sign within the collectives tests' tolerances), the bytes a
+   member sends, the gloo ops that take CUDA tensors and those staged
+   through host memory; (b) the ring gossip on 4 members, card == CPU
+   bitwise; (c) the trainer at ``--reduced``, card members against CPU
+   members: gemma-2b pssgd int8 + EF on (data 2), localsgd int8 at H = 2
+   with the pod sync on (pod 2, data 2) through ``launch/steps.py``, fsdp on
+   (data 2) with each member's bytes at rest, qwen2-moe-a2.7b pssgd on
+   (data 1, model 2) through ``moe_forward_ep``; (d) gemma-2b at its
+   published widths, depth 18 -> 4, float32, pssgd int8 + EF on (data 2),
+   global batch (8, 128), 3 steps: per member s a step (CUDA events and
+   wall clock), peak GB, wire bytes, params bitwise alike after every step,
+   the EF identity within the float32 bound; (e) qwen2-moe-a2.7b at its
+   published widths, 2 layers, one (4, 128) batch's loss and gradient
+   through ``moe_forward_ep`` on (data 1, model 4) against the
+   one-process ``moe_forward``; (f) the fleet config's top-k sweep over 2
+   members, bitwise the one-process sweep, ``topk_rows`` launches a member
+   summing to its launches; ``cluster_launches`` in the kernels line.
+
 Phase 3 also holds ``qsgd_rows`` given its norms at (6, 744 497 152), rows
 x d past 2^32 (the flat pass), against its plain version row by row.
 
@@ -463,6 +487,42 @@ LEAF_E_STD, CODEC_FRAC = 0.01, 0.001
 # reference test's gamma 1 (tests/test_wireless.py:47)
 LEAF_N, LEAF_K, GREEDY_N = 100_000, 256, 256
 RSRRPF_K, RSRRPF_N, RSRRPF_ALPHA, RSRRPF_DB = 4, 20, 4.0, (20.0, -25.0, 0.0)
+# phase 20, the cluster side: members are processes (torch.multiprocessing
+# spawn, gloo) that share the one card (NCCL refuses two ranks on one
+# device), so its numbers test the code, the data placement and the wire,
+# not the speed of several cards. (a) a (4096, 1024) float32 leaf a member,
+# every method with and without EF, on each mesh, card against CPU; (b) a
+# (1, 1024, 1024) block a member around the ring
+CLUSTER_LEAF, RING_BLOCK = (4096, 1024), (1, 1024, 1024)
+CLUSTER_METHODS = ("none", "bf16", "int8", "sign")
+CLUSTER_MESHES = (((2, 2), ("pod", "data")), ((4,), ("data",)))
+# tests/test_torch_collectives.py's tolerances for scaled sign
+CLUSTER_SCALE_RTOL, CLUSTER_SIGN_ATOL = 1e-4, 1e-6
+# (c) --reduced, 3 steps of (8, 64) at lr 3e-3, card members against CPU
+# members: (what, arch, mode, compression, mesh shape, axes); (data, model)
+# meshes through run_cluster, the pod mesh through launch/steps.py
+CLUSTER_ARGS = ["--reduced", "--cluster", "--steps", "3", "--seq-len", "64",
+                "--batch", "8", "--local-steps", "2", "--lr", "3e-3"]
+CLUSTER_TRAIN_FOUR = (
+    ("localsgd int8 + EF, H = 2, pod sync, on (pod 2, data 2)", "gemma-2b",
+     "localsgd", "int8", (2, 2, 1), ("pod", "data", "model")),)
+CLUSTER_TRAIN_TWO = (
+    ("pssgd int8 + EF on (data 2)", "gemma-2b", "pssgd", "int8", (2, 1),
+     ("data", "model")),
+    ("fsdp on (data 2)", "gemma-2b", "fsdp", "none", (2, 1),
+     ("data", "model")),
+    ("pssgd int8 + EF on (data 1, model 2), moe_forward_ep",
+     "qwen2-moe-a2.7b", "pssgd", "int8", (1, 2), ("data", "model")))
+# (d) gemma-2b at its published widths, depth 18 -> 4 so that two members'
+# float32 states fit on the card (~23 GB each; one member's init draw peaks
+# near 60 GB, so the members draw in turns), pssgd int8 + EF, adamw at the
+# CLI's lr 1e-3, remat, global batch (8, 128), 3 steps
+GEMMA_WIDE_DEPTH, GEMMA_WIDE_B, GEMMA_WIDE_SEQ, GEMMA_WIDE_STEPS = (4, 8,
+                                                                    128, 3)
+# (e) qwen2-moe-a2.7b at its published widths, 2 layers (as phase 16(c)),
+# one (4, 128) batch
+MOE_WIDE_DEPTH, MOE_WIDE_B, MOE_WIDE_SEQ = 2, 4, 128
+CLUSTER_TIMEOUT = 600  # s a member may wait in a collective before failing
 ROWS_SRC = "src/repro_torch/kernels/csrc/rows.cu"
 TILES_SRC = "src/repro_torch/kernels/csrc/tiles.cu"
 
@@ -3255,6 +3315,565 @@ def run_leaf(dev, smi: str) -> dict:
     return total
 
 
+def _digest(tensors: dict, chunk: int = 1 << 26) -> dict:
+    """Two sums of each leaf's bits (int64, and float64 of their squares),
+    a chunk at a time: equal digests on two members say their leaves agree
+    bit for bit."""
+    out = {}
+    for k, v in tensors.items():
+        flat = v.detach().contiguous().reshape(-1).view(
+            {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+             8: torch.int64}[v.element_size()])
+        s1, s2 = 0, 0.0
+        for i in range(0, flat.numel(), chunk):
+            bits = flat[i:i + chunk].to(torch.int64)
+            s1 += int(bits.sum())
+            s2 += float(bits.double().pow(2).sum())
+        out[k] = (s1, s2)
+    return out
+
+
+def _to(tree, device):
+    """Every tensor of a state (dicts, ``OptState``) on ``device``."""
+    if torch.is_tensor(tree):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return type(tree)(*(_to(v, device) for v in tree))
+    return tree
+
+
+def _in_turns(rank: int, world: int, make, dev):
+    """``make()`` on one member at a time, the members that are done
+    waiting in host memory (a draw peaks at several times its output, and
+    the members share one card); then everyone's result on ``dev``."""
+    import torch.distributed as dist
+    out = None
+    for r in range(world):
+        if r == rank:
+            out = make()
+            torch.cuda.synchronize()
+            if r < world - 1:
+                out = _to(out, "cpu")
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return _to(out, dev)
+
+
+def _member_counts() -> dict:
+    counters = dict(_row_counters(), **_tile_counters())
+    out = {n: fn.launches for n, fn in counters.items()}
+    for fn in counters.values():
+        fn.launches = 0
+    return out
+
+
+def _cluster_collectives(rank: int, dev) -> dict:
+    """(a): every method with and without EF on each mesh, the card's call
+    against the same call on CPU tensors."""
+    from repro_torch.core import collectives as coll
+    from repro_torch.launch.mesh import make_mesh
+    res = {}
+    gen = np.random.default_rng([20, rank])
+    g = gen.standard_normal(CLUSTER_LEAF).astype(np.float32)
+    e = (0.1 * gen.standard_normal(CLUSTER_LEAF)).astype(np.float32)
+    g.reshape(-1)[::7] = 0.0
+    for shape, axes in CLUSTER_MESHES:
+        mesh = make_mesh(shape, axes)
+        for method in CLUSTER_METHODS:
+            for with_e in (True, False):
+                runs = {}
+                for where in ("cuda", "cpu"):
+                    d = dev if where == "cuda" else torch.device("cpu")
+                    coll.WIRE.reset()
+                    (o, en), secs = wall_s(lambda: coll.hierarchical_allreduce(
+                        {"w": torch.as_tensor(g, device=d)}, axes, method,
+                        {"w": torch.as_tensor(e, device=d)} if with_e
+                        else None, mesh=mesh))
+                    runs[where] = (o["w"].cpu(), None if en is None
+                                   else en["w"].cpu(), secs,
+                                   coll.WIRE.total, sorted(coll.WIRE.staged))
+                (go, ge, secs, wire, staged), (co, ce, *_) = (runs["cuda"],
+                                                             runs["cpu"])
+                if method == "sign":
+                    ok = (torch.equal(torch.sign(go), torch.sign(co))
+                          and torch.allclose(go, co, rtol=CLUSTER_SCALE_RTOL,
+                                             atol=0)
+                          and (ge is None or torch.allclose(
+                              ge, ce, rtol=0, atol=CLUSTER_SIGN_ATOL)))
+                else:
+                    ok = torch.equal(go, co) and (ge is None
+                                                  or torch.equal(ge, ce))
+                rel = float(((go - co).abs() / co.abs().clamp_min(
+                    1e-30)).max())
+                res[(axes, method, with_e)] = dict(
+                    ok=ok, rel=rel, secs=secs, wire=wire, staged=staged,
+                    digest=_digest({"o": go}))
+    return res
+
+
+def _cluster_ring(rank: int, dev) -> dict:
+    """(b): the ring on 4 members, float32 and bf16, card against CPU."""
+    from repro_torch.fl.decentralized import ring_gossip_shard_map
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((4,), ("data",))
+    x = torch.as_tensor(np.random.default_rng([21, rank]).standard_normal(
+        RING_BLOCK).astype(np.float32))
+    mix = ring_gossip_shard_map(mesh, "data")
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        got, secs = wall_s(lambda: mix({"x": x.to(dev, dt)})["x"].cpu())
+        want = mix({"x": x.to(dt)})["x"]
+        out[str(dt)] = dict(ok=torch.equal(got, want), secs=secs)
+    return out
+
+
+def _batches(cfg, steps: int, batch: int, seq: int, device):
+    from repro_torch.data import SyntheticLMDataset, batch_iterator
+    it = batch_iterator(SyntheticLMDataset(cfg.vocab_size, seq, 4096,
+                                           seed=0), batch, seed=0)
+    return [{k: torch.as_tensor(v, device=device)
+             for k, v in next(it).items()} for _ in range(steps)]
+
+
+def _steps_run(cfg, policy, mesh, device, steps: int, batch: int,
+               seq: int) -> tuple:
+    """``launch/steps.py`` as ``run_cluster`` drives it: (losses, this
+    member's state)."""
+    from repro_torch import random as trandom
+    from repro_torch.launch import steps as tsteps
+    state = tsteps.make_init_fn(cfg, policy, mesh)(
+        trandom.PRNGKey(0, device))
+    step = tsteps.make_train_step(cfg, policy, mesh)
+    losses = []
+    for b in _batches(cfg, steps, batch, seq, device):
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+    return losses, state
+
+
+def _held_bytes(state) -> int:
+    opt = state["opt"]
+    return sum(v.numel() * v.element_size() for t in (
+        state["params"], opt.m, opt.v) if t is not None for v in t.values())
+
+
+def _cluster_trainer(rank: int, dev, cases) -> dict:
+    """(c): each case card against CPU on these members: (what, arch,
+    mode, compression, mesh shape, axes); the data-and-model ones through
+    ``run_cluster``, the others through ``launch/steps.py``."""
+    import contextlib
+    import io
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.launch import train as cli
+    from repro_torch.launch.mesh import make_mesh
+    res = {}
+    for what, arch, mode, comp, shape, axes in cases:
+        cfg = get_config(arch).reduced()
+        runs = {}
+        for where in ("cuda", "cpu"):
+            d = dev if where == "cuda" else "cpu"
+            t0 = time.perf_counter()
+            if axes == ("data", "model"):
+                args = cli.parser().parse_args(
+                    ["--arch", arch, "--mode", mode, "--compression", comp,
+                     "--mesh-data", str(shape[0]), "--mesh-model",
+                     str(shape[1])] + CLUSTER_ARGS)
+                with contextlib.redirect_stdout(io.StringIO()):
+                    losses, state = cli.run_cluster(args, device=d)
+            else:
+                pol = tsteps.TrainPolicy(
+                    mode=mode, compression=comp,
+                    error_feedback=comp in ("int8", "sign"),
+                    local_steps=2, lr=3e-3, total_steps=3, remat=False)
+                losses, state = _steps_run(cfg, pol, make_mesh(shape, axes),
+                                           d, 3, 8, 64)
+            if where == "cuda":
+                torch.cuda.synchronize()
+            runs[where] = (losses, {k: v.cpu() for k, v in
+                                    state["params"].items()},
+                           time.perf_counter() - t0, _held_bytes(state))
+        (gl, gp, secs, held), (cl, cp, _, _) = runs["cuda"], runs["cpu"]
+        rel = float(np.max(np.abs(np.array(gl) - cl) / np.abs(cl)))
+        num = sum(float(((gp[k].double() - cp[k].double()) ** 2).sum())
+                  for k in cp)
+        den = sum(float((cp[k].double() ** 2).sum()) for k in cp)
+        whole = sum(math.prod(p.shape) * 4 for p in
+                    tsteps.param_shapes(cfg).values()) * 3
+        res[what] = dict(loss=cl, rel=rel, p_err=(num / den) ** 0.5,
+                         secs=secs, held=held, whole=whole,
+                         digest=_digest({k: v for k, v in gp.items()
+                                         if "/mlp/w_" not in k}))
+    return res
+
+
+def _ef_checked(orig, worst: list):
+    """``compressed_allreduce_leaf`` that records, for each int8 leaf with
+    EF, the largest |sent + e' - corrected| (sent = q * scale, in float64)
+    over the float32 bound 2^-24 max|corrected|."""
+    from repro_torch.core import collectives as coll
+
+    def leaf(g, axis="data", method="none", e=None, min_size=65_536,
+             mesh=None):
+        out, e_new = orig(g, axis, method, e, min_size, mesh)
+        if e is not None and method == "int8" and g.numel() >= min_size:
+            c = g.float().reshape(-1) + e.reshape(-1)
+            scale = torch.clamp_min(c.abs().max(), 1e-20) * coll._INV127
+            bad, chunk = 0.0, 1 << 26
+            for i in range(0, c.numel(), chunk):
+                ci = c[i:i + chunk]
+                q = torch.clamp(torch.round(ci / scale), -127, 127)
+                d = (q.double() * scale.double()
+                     + e_new.reshape(-1)[i:i + chunk].double() - ci.double())
+                bad = max(bad, float(d.abs().max()))
+            worst.append(bad / (2.0 ** -24 * float(c.abs().max())))
+        return out, e_new
+    return leaf
+
+
+def _cluster_gemma(rank: int, dev) -> dict:
+    """(d): gemma-2b at its published widths, depth cut, float32, pssgd
+    int8 + EF on (data 2): s a step, peak, wire bytes, the params' digests
+    after every step and the EF identity."""
+    import dataclasses
+    from repro_torch import random as trandom
+    from repro_torch.configs import get_config
+    from repro_torch.core import collectives as coll
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.launch.mesh import make_local_mesh
+    cfg = dataclasses.replace(get_config("gemma-2b"),
+                              n_layers=GEMMA_WIDE_DEPTH, dtype="float32")
+    pol = tsteps.TrainPolicy(mode="pssgd", compression="int8",
+                             error_feedback=True, lr=1e-3,
+                             total_steps=GEMMA_WIDE_STEPS, remat=True)
+    mesh = make_local_mesh(2, 1)
+    init = tsteps.make_init_fn(cfg, pol, mesh)
+    state, init_s = wall_s(lambda: _in_turns(
+        rank, 2, lambda: init(trandom.PRNGKey(0, dev)), dev))
+    step = tsteps.make_train_step(cfg, pol, mesh)
+    worst, orig = [], coll.compressed_allreduce_leaf
+    coll.compressed_allreduce_leaf = _ef_checked(orig, worst)
+    out = dict(init_s=init_s, step_s=[], event_s=[], peak=[], wire=[],
+               digests=[], loss=[], ef_worst=[],
+               d=sum(v.numel() for v in state["params"].values()))
+    try:
+        for b in _batches(cfg, GEMMA_WIDE_STEPS, GEMMA_WIDE_B, GEMMA_WIDE_SEQ,
+                          dev):
+            torch.cuda.reset_peak_memory_stats()
+            coll.WIRE.reset()
+            worst.clear()
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            (state, m), secs = wall_s(lambda: step(state, b))
+            ev[1].record()
+            torch.cuda.synchronize()
+            out["step_s"].append(secs)
+            out["event_s"].append(ev[0].elapsed_time(ev[1]) / 1e3)
+            out["peak"].append(torch.cuda.max_memory_allocated())
+            out["wire"].append(coll.WIRE.total)
+            out["loss"].append(float(m["loss"]))
+            out["ef_worst"].append(max(worst))
+            out["digests"].append(_digest(state["params"]))
+    finally:
+        coll.compressed_allreduce_leaf = orig
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _cluster_moe_wide(rank: int, dev) -> dict:
+    """(e): qwen2-moe-a2.7b at its published widths, MOE_WIDE_DEPTH layers,
+    one batch's loss and gradient through ``moe_forward_ep`` on (data 1,
+    model 4), each member holding 16 of the 64 padded experts a layer;
+    rank 0 holds it against the one-process ``moe_forward`` on the card
+    with the same params."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch import random as trandom
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding as shard_rules
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import moe, transformer as tf
+    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b"),
+                              n_layers=MOE_WIDE_DEPTH, dtype="float32")
+    mesh = make_local_mesh(1, 4)
+    shapes = tf.init_params(cfg, trandom.PRNGKey(0, "meta"))
+    specs = {k: shard_rules.param_spec(k, tuple(v.shape), cfg, mesh,
+                                       fsdp=False)
+             for k, v in shapes.items()
+             if shard_rules.is_expert_stack(k, v.shape, cfg)}
+    experts = sorted(specs)
+    toks = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(2, MOE_WIDE_B, MOE_WIDE_SEQ))
+    batch = {"tokens": torch.as_tensor(toks[0], dtype=torch.int32,
+                                       device=dev),
+             "labels": torch.as_tensor(toks[1], dtype=torch.int32,
+                                       device=dev)}
+
+    def value_grad(p):
+        leaves = {k: v.detach().requires_grad_() for k, v in p.items()}
+        loss, _ = tf.lm_loss(leaves, cfg, batch, remat=False)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        return float(loss.detach()), dict(zip(leaves, grads))
+    parts, t = {}, time.perf_counter()
+
+    def took(what):
+        nonlocal t
+        torch.cuda.synchronize()
+        parts[what] = round(time.perf_counter() - t, 3)
+        t = time.perf_counter()
+    # rank 0 draws the params once, takes the one-process gradient, and
+    # hands the params out leaf by leaf (every member's draw would be the
+    # same, and a draw peaks at several times its output on the shared
+    # card); each member keeps its experts
+    drawn, out = {}, {}
+    if rank == 0:
+        drawn = tf.init_params(cfg, trandom.PRNGKey(0, dev))
+        took("draw")
+        (out["ref_loss"], ref), out["ref_secs"] = wall_s(
+            lambda: value_grad(drawn))
+        took("one process")
+    params = {}
+    for k, v in shapes.items():
+        x = drawn.pop(k) if rank == 0 else torch.empty(
+            v.shape, dtype=v.dtype, device=dev)
+        dist.broadcast(x, 0)
+        params[k] = shard_rules.shard(x, specs[k], mesh) if k in specs else x
+        del x
+    torch.cuda.empty_cache()
+    took("hand out")
+    moe.set_expert_parallel_mesh(mesh)
+    try:
+        (loss, grads), secs = wall_s(lambda: value_grad(params))
+    finally:
+        moe.set_expert_parallel_mesh(None)
+    took("moe_forward_ep")
+    out.update(loss=loss, secs=secs,
+               expert_bytes=sum(params[k].numel() * 4 for k in experts),
+               all_bytes=sum(v.numel() * 4 for v in params.values()))
+    del params
+    num = den = 0.0
+    for k in list(grads):   # the expert stacks gathered whole, leaf by leaf
+        g = grads.pop(k)
+        if k in specs:
+            g = shard_rules.gather(g, specs[k], mesh)
+        if rank == 0:
+            r = ref.pop(k).double()
+            num += float(((g.double() - r) ** 2).sum())
+            den += float((r ** 2).sum())
+        del g
+    if rank == 0:
+        out["grad_err"] = (num / den) ** 0.5
+    took("compare")
+    out["parts"] = parts
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def _cluster_sweep(rank: int, dev) -> dict:
+    """(f): the fleet configuration's top-k sweep over the members."""
+    import torch.distributed as dist
+    from repro_torch.core.algorithms import registry as algos
+    from repro_torch.fl import runtime as rt
+    cfg = rt.SimConfig(rounds=FLEET_SWEEP_ROUNDS, datagen=_datagen(),
+                       algo_params=algos.algo_params(lr=0.05),
+                       compression="topk", **FLEET)
+    _member_counts()
+    out, secs = wall_s(lambda: rt.run_sweep(
+        cfg, _loss, {"w": np.zeros(D_FLEET, np.float32)}, None,
+        seeds=FLEET_SEEDS, policies=FLEET_POLICIES, compressions=("topk",),
+        devices=dist.get_world_size(), device=dev))
+    return dict(logs={k: {f: getattr(v, f) for f in rt._LOG_FIELDS}
+                      for k, v in out.items()},
+                secs=secs, launches=_member_counts())
+
+
+def _members_four(rank: int, device: str) -> dict:
+    """Spawn A: 4 members sharing the card (gloo)."""
+    dev = torch.device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _member_counts()
+    out = {}
+    parts = (("a", lambda: _cluster_collectives(rank, dev)),
+             ("b", lambda: _cluster_ring(rank, dev)),
+             ("c", lambda: _cluster_trainer(rank, dev, CLUSTER_TRAIN_FOUR)),
+             ("e", lambda: _cluster_moe_wide(rank, dev)))
+    for name, fn in parts:
+        out[name], out[name + "_s"] = wall_s(fn)
+    out["launches"] = _member_counts()
+    return out
+
+
+def _members_two(rank: int, device: str) -> dict:
+    """Spawn B: 2 members sharing the card (gloo)."""
+    dev = torch.device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _member_counts()
+    out = {}
+    parts = (("c", lambda: _cluster_trainer(rank, dev, CLUSTER_TRAIN_TWO)),
+             ("d", lambda: _cluster_gemma(rank, dev)))
+    for name, fn in parts:
+        out[name], out[name + "_s"] = wall_s(fn)
+    out["launches"] = _member_counts()
+    out["f"], out["f_s"] = wall_s(lambda: _cluster_sweep(rank, dev))
+    return out
+
+
+def _fleet_sweep_once(dev) -> tuple:
+    """The one-process sweep (f) is held to, and its launches."""
+    from repro_torch.core.algorithms import registry as algos
+    from repro_torch.fl import runtime as rt
+    cfg = rt.SimConfig(rounds=FLEET_SWEEP_ROUNDS, datagen=_datagen(),
+                       algo_params=algos.algo_params(lr=0.05),
+                       compression="topk", **FLEET)
+    _member_counts()
+    out, secs = wall_s(lambda: rt.run_sweep(
+        cfg, _loss, {"w": np.zeros(D_FLEET, np.float32)}, None,
+        seeds=FLEET_SEEDS, policies=FLEET_POLICIES, compressions=("topk",),
+        device=dev))
+    return out, secs, _member_counts()
+
+
+def run_cluster_phase(dev, smi: str) -> dict:
+    """Phase 20: the cluster side on members that share the card (see the
+    module docstring). Returns each kernel's launches summed over the
+    members (only (f)'s sweep launches one)."""
+    from repro_torch.core import collectives as coll
+    from repro_torch.fl import runtime as rt
+    from repro_torch.launch import members
+    part = time.perf_counter()
+
+    def took(what):
+        nonlocal part
+        log(f"cluster {what}: {time.perf_counter() - part:.2f} s")
+        part = time.perf_counter()
+
+    torch.cuda.empty_cache()
+    log(f"cluster: members are processes sharing {smi}, backend "
+        f"{members.choose_backend('cuda', 2)} (nccl refuses two ranks on one "
+        f"device); the numbers test the code, the placement and the wire, "
+        f"not the speed of several cards. gloo ops that take CUDA tensors "
+        f"(torch {torch.__version__}): {coll.GLOO_CUDA_OPS}")
+    a = members.spawn(_members_four, 4, (dev.type,), threads=2,
+                      timeout_s=CLUSTER_TIMEOUT)
+    took("spawn A (4 members)")
+    for key in a[0]["a"]:
+        axes, method, with_e = key
+        rows = [m["a"][key] for m in a]
+        alike = all(r["digest"] == rows[0]["digest"] for r in rows)
+        log(f"cluster (a) {axes} {method} EF={with_e}: members bitwise "
+            f"alike {alike}; card == cpu {all(r['ok'] for r in rows)} (max "
+            f"rel {max(r['rel'] for r in rows):.3g}); wire bytes a member "
+            f"{rows[0]['wire']}; {max(r['secs'] for r in rows):.4f} s on the "
+            f"card; staged through host {rows[0]['staged']}")
+        if not (alike and all(r["ok"] for r in rows)):
+            raise AssertionError(f"cluster (a) {key}: {rows}")
+    for dt in a[0]["b"]:
+        ok = all(m["b"][dt]["ok"] for m in a)
+        log(f"cluster (b) ring {dt} {RING_BLOCK} a member: card == cpu "
+            f"bitwise {ok}, {max(m['b'][dt]['secs'] for m in a):.4f} s")
+        if not ok:
+            raise AssertionError(f"cluster (b) ring {dt}")
+    _check_trainer(a, "c", CLUSTER_TRAIN_FOUR)
+    e = [m["e"] for m in a]
+    r0 = e[0]
+    loss_err = abs(r0["loss"] - r0["ref_loss"]) / abs(r0["ref_loss"])
+    log(f"cluster (e) qwen2-moe-a2.7b at its published widths, "
+        f"{MOE_WIDE_DEPTH} layers, float32, ({MOE_WIDE_B}, {MOE_WIDE_SEQ}): "
+        f"moe_forward_ep on (data 1, model 4): loss {r0['loss']:.6f} vs one "
+        f"process {r0['ref_loss']:.6f} (rel {loss_err:.3g}), gradient "
+        f"relative L2 {r0['grad_err']:.3g}; members' losses "
+        f"{[m['loss'] for m in e]}; expert bytes a member "
+        f"{[m['expert_bytes'] for m in e]} of {e[0]['all_bytes']} held; "
+        f"{max(m['secs'] for m in e):.3f} s (one process "
+        f"{r0['ref_secs']:.3f} s) on {smi}; rank 0's parts s {r0['parts']}")
+    if not (loss_err <= 1e-5 and r0["grad_err"] <= 1e-5
+            and len({m["loss"] for m in e}) == 1):
+        raise AssertionError(f"cluster (e): {r0}")
+    log(f"cluster spawn A parts s: "
+        f"{ {k: round(a[0][k + '_s'], 2) for k in 'abce'} }; launches a "
+        f"member {[m['launches'] for m in a]}")
+    one, one_s, one_counts = _fleet_sweep_once(dev)
+    took("(f) the one-process sweep")
+    torch.cuda.empty_cache()
+    b = members.spawn(_members_two, 2, (dev.type,), threads=4,
+                      timeout_s=CLUSTER_TIMEOUT)
+    took("spawn B (2 members)")
+    _check_trainer(b, "c", CLUSTER_TRAIN_TWO)
+    d = [m["d"] for m in b]
+    for r, m in enumerate(d):
+        log(f"cluster (d) gemma-2b at its published widths, depth 18 -> "
+            f"{GEMMA_WIDE_DEPTH}, float32, pssgd int8 + EF on (data 2), "
+            f"global batch ({GEMMA_WIDE_B}, {GEMMA_WIDE_SEQ}), member {r}: D "
+            f"= {m['d']}; init (in turns) {m['init_s']:.3f} s; s a step "
+            f"{[round(x, 4) for x in m['step_s']]} (CUDA events "
+            f"{[round(x, 4) for x in m['event_s']]}); peak GB "
+            f"{[round(x / 1e9, 3) for x in m['peak']]}; wire bytes a step "
+            f"{m['wire']}; loss {m['loss']}; EF identity worst share of the "
+            f"float32 bound {[round(x, 4) for x in m['ef_worst']]} on {smi}")
+    same = [d[0]["digests"][i] == d[1]["digests"][i]
+            for i in range(GEMMA_WIDE_STEPS)]
+    log(f"cluster (d) members' params bitwise alike after each step: {same}")
+    if not (all(same) and all(x <= 1.0 for m in d for x in m["ef_worst"])
+            and all(np.isfinite(m["loss"]).all() for m in d)):
+        raise AssertionError(f"cluster (d): {same} {d[0]['ef_worst']}")
+    f = [m["f"] for m in b]
+    for key, logs in one.items():
+        for m in f:
+            for fld in rt._LOG_FIELDS:
+                if not np.array_equal(m["logs"][key][fld],
+                                      getattr(logs, fld)):
+                    raise AssertionError(f"cluster (f) {key} {fld}: the "
+                                         "members' sweep differs")
+    per = [m["launches"]["topk_rows"] for m in f]
+    log(f"cluster (f) the fleet config's top-k sweep ({len(FLEET_POLICIES)} "
+        f"policies x {len(FLEET_SEEDS)} seeds x {FLEET_SWEEP_ROUNDS} rounds, "
+        f"N={FLEET['n_devices']}) over 2 members: bitwise the one-process "
+        f"sweep; topk_rows launches a member {per} (one process "
+        f"{one_counts['topk_rows']}); {max(m['secs'] for m in f):.3f} s "
+        f"(one process {one_s:.3f} s)")
+    if sum(per) != one_counts["topk_rows"]:
+        raise AssertionError(f"cluster (f): launches {per} vs {one_counts}")
+    log(f"cluster spawn B parts s: "
+        f"{ {k: round(b[0][k + '_s'], 2) for k in 'cdf'} }")
+    total = dict.fromkeys(one_counts, 0)
+    for m in a + b:
+        for n, v in m["launches"].items():
+            total[n] += v
+        if any(m["launches"].values()):
+            raise AssertionError(f"cluster: trainer, EP, ring or collectives "
+                                 f"launched kernels {m['launches']}")
+    for m in f:
+        for n, v in m["launches"].items():
+            total[n] += v
+    log(f"cluster kernel launches summed over the members: {total}")
+    return total
+
+
+def _check_trainer(res: list, key: str, cases) -> None:
+    """(c): each case card == CPU within TRAINER_RTOL, and the members'
+    replicated params bitwise alike."""
+    for what, arch, mode, comp, shape, axes in cases:
+        rows = [m[key][what] for m in res]
+        r0 = rows[0]
+        alike = mode == "fsdp" or all(r["digest"] == r0["digest"]
+                                      for r in rows)
+        log(f"cluster (c) {arch} --reduced {what}: loss "
+            f"{np.round(r0['loss'], 6).tolist()}; card vs cpu rel diff by "
+            f"step max {max(r['rel'] for r in rows):.3g}, params relative "
+            f"L2 {max(r['p_err'] for r in rows):.3g}; members' replicated "
+            f"params bitwise alike {alike}; bytes at rest a member "
+            f"{[r['held'] for r in rows]} of {r0['whole']} (params and "
+            f"moments whole); {max(r['secs'] for r in rows):.3f} s")
+        if not (alike and all(r["rel"] <= TRAINER_RTOL
+                              and r["p_err"] <= TRAINER_RTOL for r in rows)):
+            raise AssertionError(f"cluster (c) {what}: {rows}")
+
+
 def main() -> int:
     t0 = time.perf_counter()
     smi = card()
@@ -3280,7 +3899,8 @@ def main() -> int:
               ("families", lambda: run_families(dev, smi)),
               ("trainer", lambda: run_trainer(dev, smi)),
               ("serve", lambda: run_serve(dev, smi)),
-              ("leaf", lambda: run_leaf(dev, smi))]
+              ("leaf", lambda: run_leaf(dev, smi)),
+              ("cluster", lambda: run_cluster_phase(dev, smi))]
     out = {}
     log(f"phase card: {time.perf_counter() - t0:.2f} s")
     for name, fn in phases:
@@ -3303,6 +3923,7 @@ def main() -> int:
                      "trainer_launches": out["trainer"][name],
                      "serve_launches": out["serve"][name],
                      "leaf_launches": out["leaf"][name],
+                     "cluster_launches": out["cluster"][name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "device_ms": r["device_ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

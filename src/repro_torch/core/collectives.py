@@ -1,40 +1,162 @@
-"""Compressed collectives, the port of ``repro/core/collectives.py`` for an
-axis of one member (one card).
+"""Compressed collectives, the port of ``repro/core/collectives.py``: a
+gradient leaf all-reduced over a mesh axis (``launch/mesh.py``) with a
+compressed wire format, one process a member over ``torch.distributed``.
 
-The reference all-reduces a gradient leaf over a mesh axis inside
-``shard_map`` with a compressed wire format: the uplink quantizes the local
-leaf, all-to-alls its chunks and reduces them; the downlink requantizes
-the reduced chunk, all-gathers it and dequantizes. On one member the
-all-to-all and the all-gathers move nothing, but both quantizations still
-happen, so the one-card trainer is not the identity: int8 rounds the leaf
-to 127 levels of ``max|x|`` twice (the second scale from the dequantized
-first), and scaled sign sends ``mean|x| * sign`` twice (the second scale
-the mean over the leaf padded to a multiple of 8 rows). The error state is
-what the uplink dropped: ``corrected - local_deq``. Scaled sign's local
-copy takes ``torch.sign`` (0 at 0) while its wire packs ``x >= 0`` (+1 at
-0), as the reference's does. Leaves under ``min_size`` elements take the
-plain mean and return an error of zeros.
+The uplink quantizes the local leaf, all-to-alls its chunks (the
+reduce-scatter phase) and reduces them; the downlink requantizes the
+reduced chunk, all-gathers it and dequantizes. Every member receives the
+same output bit for bit: the local arithmetic is the reference's
+(``_sub_product``, the scales, pack and unpack), and a sum over members
+adds them one by one in rank order (``_ordered_sum``), as the reference's
+CPU ``psum`` does, so it does not depend on the backend's algorithm. On an
+axis of one member nothing moves, but both quantizations still happen: int8
+rounds the leaf to 127 levels of ``max|x|`` twice (the second scale from
+the dequantized first), and scaled sign sends ``mean|x| * sign`` twice (the
+second scale the mean over the leaf padded to a multiple of ``8 n`` rows).
+The error state is what the uplink dropped: ``corrected - local_deq``.
+Scaled sign's local copy takes ``torch.sign`` (0 at 0) while its wire packs
+``x >= 0`` (+1 at 0), as the reference's does. Leaves under ``min_size``
+elements take the plain mean and return an error of zeros.
 
-Methods: none (float32 mean), bf16 (the wire in bf16), int8, sign. An axis
-of ``n > 1`` members (several cards over ``torch.distributed``) is ROADMAP
-queue A item 5 and raises.
+Methods: none (float32 mean), bf16 (the wire in bf16, summed in float32
+and rounded to bf16, as the reference's CPU ``psum`` of bf16 does), int8,
+sign. ``WIRE`` counts the bytes a member sends; a gloo op that does not
+take CUDA tensors copies its message through host memory
+(``GLOO_CUDA_OPS``).
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 Tree = Dict[str, torch.Tensor]
 
 _POW2 = (1, 2, 4, 8, 16, 32, 64, 128)
+# XLA divides by a constant as a multiply by its float32 reciprocal
+_INV127 = float(torch.tensor(1.0 / 127.0, dtype=torch.float32))
+
+# The gloo ops that take CUDA tensors, found on torch 2.11 with an H100
+# (``chip_smoke.py`` phase 20 prints the table): the collectives copy
+# through host memory inside gloo, but a point-to-point send reads the
+# device pointer as host memory and aborts the process, so ``send_recv``
+# stages its message through host memory here.
+GLOO_CUDA_OPS = {"all_gather": True, "all_to_all": True, "send_recv": False}
 
 
-def _one_member(axis: str, n: int) -> None:
-    if n != 1:
-        raise NotImplementedError(
-            f"a compressed all-reduce over {n} members of axis {axis!r} runs "
-            f"across cards: ROADMAP queue A item 5 (the port runs one card)")
+class WireCounter:
+    """Bytes this member sent, by op, and the ops that went through host
+    memory (a message to each other member counted once)."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.bytes: Dict[str, int] = {}
+        self.staged: set = set()
+
+    def add(self, op: str, nbytes: int) -> None:
+        self.bytes[op] = self.bytes.get(op, 0) + int(nbytes)
+
+    @property
+    def total(self) -> int:
+        return sum(self.bytes.values())
+
+
+WIRE = WireCounter()
+
+
+def _host_staged(op: str, x: torch.Tensor, group) -> bool:
+    staged = (x.is_cuda and dist.get_backend(group) == "gloo"
+              and not GLOO_CUDA_OPS[op])
+    if staged:
+        WIRE.staged.add(op)
+    return staged
+
+
+def _group(mesh, axis):
+    return None if mesh is None else mesh.group(axis)
+
+
+def all_gather(x: torch.Tensor, mesh=None, axis="data") -> torch.Tensor:
+    """(n, *x.shape): every member's ``x`` along ``axis``, in rank order."""
+    group = _group(mesh, axis)
+    if group is None:
+        return x[None]
+    n = dist.get_world_size(group)
+    host = _host_staged("all_gather", x, group)
+    src = (x.cpu() if host else x).contiguous()
+    outs = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(outs, src, group=group)
+    WIRE.add("all_gather", (n - 1) * src.numel() * src.element_size())
+    return torch.stack(outs).to(x.device)
+
+
+def all_to_all(x: torch.Tensor, mesh=None, axis="data") -> torch.Tensor:
+    """x: (n*c, ...) -> (n, c, ...), chunk i from member i: the
+    reduce-scatter wire phase."""
+    group = _group(mesh, axis)
+    n = 1 if group is None else dist.get_world_size(group)
+    if group is None:
+        return x.reshape(n, x.shape[0] // n, *x.shape[1:])
+    host = _host_staged("all_to_all", x, group)
+    src = (x.cpu() if host else x).contiguous()
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=group)
+    WIRE.add("all_to_all", (n - 1) * (src.numel() // n) * src.element_size())
+    return out.to(x.device).reshape(n, x.shape[0] // n, *x.shape[1:])
+
+
+def _ordered_sum(parts: torch.Tensor) -> torch.Tensor:
+    """float32 sum over dim 0, one member after another from member 0."""
+    s = parts[0].float()
+    for p in parts[1:]:
+        s = s + p.float()
+    return s
+
+
+def psum(x: torch.Tensor, mesh=None, axis="data") -> torch.Tensor:
+    """The sum of ``x`` over ``axis`` in ``x``'s dtype (a bf16 sum is
+    taken in float32 and rounded once)."""
+    if _group(mesh, axis) is None:
+        return x
+    return _ordered_sum(all_gather(x, mesh, axis)).to(x.dtype)
+
+
+def pmean(x: torch.Tensor, mesh=None, axis="data") -> torch.Tensor:
+    """The reference's ``lax.pmean``: ``psum`` then a division by n in
+    ``x``'s dtype."""
+    n = 1 if mesh is None else mesh.n(axis)
+    if n == 1:
+        return x
+    return psum(x, mesh, axis) / n
+
+
+def ring_exchange(x: torch.Tensor, mesh, axis: str
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(left, right): member i - 1's ``x`` and member i + 1's, around the
+    ring of ``axis`` (the reference's two ``ppermute``s)."""
+    group = _group(mesh, axis)
+    if group is None:
+        return x, x
+    n = dist.get_world_size(group)
+    i = mesh.index(axis)
+    host = _host_staged("send_recv", x, group)
+    src = (x.cpu() if host else x).contiguous()
+    left, right = torch.empty_like(src), torch.empty_like(src)
+    nxt = dist.get_global_rank(group, (i + 1) % n)
+    prv = dist.get_global_rank(group, (i - 1) % n)
+    ops = [dist.P2POp(dist.isend, src, nxt, group),
+           dist.P2POp(dist.irecv, left, prv, group),
+           dist.P2POp(dist.isend, src, prv, group),
+           dist.P2POp(dist.irecv, right, nxt, group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    WIRE.add("send_recv", 2 * src.numel() * src.element_size())
+    if host:
+        left, right = left.to(x.device), right.to(x.device)
+    return left, right
 
 
 def _pow2(like: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -64,6 +186,26 @@ def _pad_dim0(x: torch.Tensor, multiple: int) -> Tuple[torch.Tensor, int]:
     return x, d0
 
 
+def _scaled_mean(recv: torch.Tensor, scales: torch.Tensor,
+                 chunk: int = 1 << 24) -> torch.Tensor:
+    """float32 mean over dim 0 of ``recv[i] * scales[i]`` (``recv`` int8
+    codes or +-1 signs, (n, c, ...)) in the reference's compiled order: its
+    fused reduction takes member 0's product, then adds each next one by a
+    fused multiply-add (exact products in float64, one rounding a step), a
+    chunk of elements at a time; then divides by n."""
+    n = recv.shape[0]
+    flat = recv.reshape(n, -1)
+    out = torch.empty(flat.shape[1], dtype=torch.float32, device=recv.device)
+    s64 = scales.double()
+    for i in range(0, flat.shape[1], chunk):
+        j = slice(i, i + chunk)
+        acc = flat[0, j].float() * scales[0]
+        for m in range(1, n):
+            acc = (flat[m, j].double() * s64[m] + acc.double()).float()
+        out[j] = acc
+    return (out / n).reshape(recv.shape[1:])
+
+
 def _sub_product(c: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
                  chunk: int = 1 << 24) -> torch.Tensor:
     """float32 ``c - q * scale`` rounded once, as the reference's compiled
@@ -80,30 +222,27 @@ def _sub_product(c: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     return out
 
 
-def _a2a_chunks(x: torch.Tensor, n: int) -> torch.Tensor:
-    """x: (n*c, ...) -> received (n, c, ...): on one member, the one
-    chunk."""
-    return x.reshape(n, x.shape[0] // n, *x.shape[1:])
-
-
 def compressed_allreduce_leaf(
     g: torch.Tensor, axis: str = "data", method: str = "none",
-    e: Optional[torch.Tensor] = None, min_size: int = 65_536, n: int = 1,
+    e: Optional[torch.Tensor] = None, min_size: int = 65_536, mesh=None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """All-reduce-mean of ``g`` over the ``n`` members of ``axis`` with a
-    compressed wire format. Returns (the mean as every member receives it,
-    the new error state, or None without ``e``)."""
-    _one_member(axis, n)
+    """All-reduce-mean of ``g`` over the members of ``mesh``'s ``axis``
+    (one member without a mesh) with a compressed wire format. Returns (the
+    mean as every member receives it, the new error state, or None
+    without ``e``)."""
+    n = 1 if mesh is None else mesh.n(axis)
     gf = g.float()
     if method == "none" or g.numel() < min_size:
         if e is not None:
             gf = gf + e
-        return gf, (gf - gf if e is not None else None)  # exact: no error
+        out = pmean(gf, mesh, axis)
+        return out, (gf - gf if e is not None else None)  # exact: no error
     if method == "bf16":
         if e is not None:
             gf = gf + e
-        sent = gf.to(torch.bfloat16).float()  # the wire stays bf16
-        return sent, (gf - sent if e is not None else None)
+        sent = gf.to(torch.bfloat16)
+        out = pmean(sent, mesh, axis).float()  # the wire stays bf16
+        return out, (gf - sent.float() if e is not None else None)
 
     corrected = gf + e if e is not None else gf
     del gf
@@ -112,7 +251,7 @@ def compressed_allreduce_leaf(
     corrected2d = corrected.reshape(-1, last)
 
     if method == "int8":
-        scale = torch.clamp_min(corrected.abs().max(), 1e-20) / 127.0
+        scale = torch.clamp_min(corrected.abs().max(), 1e-20) * _INV127
         q = torch.clamp(torch.round(corrected2d / scale), -127, 127).to(
             torch.int8)
         e_new = _sub_product(corrected, q, scale) if e is not None else None
@@ -120,16 +259,21 @@ def compressed_allreduce_leaf(
         # uplink: int8 chunks and the members' scales
         qp, d0 = _pad_dim0(q, n)
         del q
-        recv = _a2a_chunks(qp, n)                              # (n, c, ...)
-        sview = scale.reshape(n, *([1] * (recv.dim() - 1)))
-        mean_chunk = torch.mean(recv.float() * sview, dim=0)
+        recv = all_to_all(qp, mesh, axis)                      # (n, c, ...)
+        scales = all_gather(scale, mesh, axis)                 # (n,)
+        mean_chunk = _scaled_mean(recv, scales)
         del qp, recv
         # downlink: the reduced chunk requantized, one scale a member
-        scale2 = torch.clamp_min(mean_chunk.abs().max(), 1e-20) / 127.0
+        scale2 = torch.clamp_min(mean_chunk.abs().max(), 1e-20) * _INV127
         q2 = torch.clamp(torch.round(mean_chunk / scale2), -127, 127).to(
             torch.int8)
+        c = q2.shape[0]
         del mean_chunk
-        out = (q2.float() * scale2)[:d0]
+        full = all_gather(q2, mesh, axis).reshape(n * c, *q2.shape[1:])
+        scales2 = all_gather(scale2, mesh, axis)               # (n,)
+        s2view = scales2.repeat_interleave(c).reshape(
+            n * c, *([1] * (full.dim() - 1)))
+        out = (full.float() * s2view)[:d0]
         return out.reshape(g.shape), e_new
 
     if method == "sign":
@@ -141,19 +285,25 @@ def compressed_allreduce_leaf(
         del corrected, corrected2d
         packed = pack_bits(cp >= 0)                            # (d0p/8, ...)
         del cp
-        recv = _a2a_chunks(packed, n)                          # (n, c8, ...)
+        recv = all_to_all(packed, mesh, axis)                  # (n, c8, ...)
+        scales = all_gather(scale, mesh, axis)                 # (n,)
         signs = torch.stack([unpack_bits(p).float() * 2.0 - 1.0
                              for p in recv])                   # (n, c, ...)
         del packed, recv
-        sview = scale.reshape(n, *([1] * (signs.dim() - 1)))
-        mean_chunk = torch.mean(signs * sview, dim=0)
+        mean_chunk = _scaled_mean(signs, scales)
         del signs
         # downlink: scaled sign again (biased without PS-side EF)
         scale2 = torch.mean(mean_chunk.abs())
-        full_signs = unpack_bits(pack_bits(mean_chunk >= 0)).float()
-        full_signs = full_signs * 2.0 - 1.0
+        c = mean_chunk.shape[0]
+        packed2 = pack_bits(mean_chunk >= 0)
         del mean_chunk
-        out = (full_signs * scale2)[:d0]
+        full = all_gather(packed2, mesh, axis).reshape(
+            n * packed2.shape[0], *packed2.shape[1:])
+        full_signs = unpack_bits(full).float() * 2.0 - 1.0
+        scales2 = all_gather(scale2, mesh, axis)               # (n,)
+        s2view = scales2.repeat_interleave(c).reshape(
+            n * c, *([1] * (full_signs.dim() - 1)))
+        out = (full_signs * s2view)[:d0]
         return out.reshape(g.shape), e_new
 
     raise ValueError(f"unknown method {method!r}")
@@ -162,13 +312,13 @@ def compressed_allreduce_leaf(
 def tree_compressed_allreduce(tree: Tree, axis: str = "data",
                               method: str = "none",
                               e_tree: Optional[Tree] = None,
-                              min_size: int = 65_536, n: int = 1
+                              min_size: int = 65_536, mesh=None
                               ) -> Tuple[Tree, Optional[Tree]]:
     outs, errs = {}, {}
     for k, g in tree.items():
         e = e_tree[k] if e_tree is not None else None
         outs[k], errs[k] = compressed_allreduce_leaf(g, axis, method, e,
-                                                     min_size, n)
+                                                     min_size, mesh)
     return outs, (errs if e_tree is not None else None)
 
 
@@ -176,20 +326,19 @@ def hierarchical_allreduce(tree: Tree, axes: Tuple[str, ...],
                            method: str = "none",
                            e_tree: Optional[Tree] = None,
                            inner_method: Optional[str] = None,
-                           min_size: int = 65_536,
-                           sizes: Optional[Dict[str, int]] = None
+                           min_size: int = 65_536, mesh=None
                            ) -> Tuple[Tree, Optional[Tree]]:
-    """Reduce over ``axes[-1]`` with ``method``, then over ``axes[:-1]``
-    with ``inner_method`` (default: ``method``); EF applies to the first
-    stage only. ``sizes`` gives each axis's members (default one each)."""
+    """HFL collective schedule (Alg. 9 on the mesh): reduce over
+    ``axes[-1]`` (intra-pod ``data``) with ``method``, then over
+    ``axes[:-1]`` (the ``pod`` axis) with ``inner_method`` (default:
+    ``method``); EF applies to the first stage only."""
     inner_method = inner_method or method
-    sizes = sizes or {}
     e_out = e_tree
     for i, ax in enumerate(reversed(axes)):
         if i == 0:
             tree, e_out = tree_compressed_allreduce(
-                tree, ax, method, e_tree, min_size, sizes.get(ax, 1))
+                tree, ax, method, e_tree, min_size, mesh)
         else:
             tree, _ = tree_compressed_allreduce(
-                tree, ax, inner_method, None, min_size, sizes.get(ax, 1))
+                tree, ax, inner_method, None, min_size, mesh)
     return tree, e_out

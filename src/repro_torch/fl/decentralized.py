@@ -36,9 +36,9 @@ One round is :meth:`_GossipEngine.step` (the fog round
 so ``engine="host"`` is bitwise the scan. Entry points run on the CUDA
 device unless ``device=`` says otherwise, and raise when CUDA is absent.
 
-``consensus_step`` and ``gossip_round`` are the seed-era building blocks.
-The reference's ``ring_gossip_shard_map`` (a ``ppermute`` ring over a device
-mesh) is not in the port.
+``consensus_step`` and ``gossip_round`` are the seed-era building blocks;
+``ring_gossip_shard_map`` mixes each member's params with its two ring
+neighbours over a mesh axis of processes (``launch/mesh.py``).
 """
 from __future__ import annotations
 
@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from repro_torch import random as trandom
+from repro_torch.core import collectives
 from repro_torch.core import faults as faults_lib
 from repro_torch.core import hierarchy, topology, wireless
 from repro_torch.core.algorithms import registry as algo_registry
@@ -59,6 +60,7 @@ from repro_torch.core.compression.registry import CompressionParams
 from repro_torch.core.faults import FaultParams
 from repro_torch.fl import runtime
 from repro_torch.fl import server as fl_server
+from repro_torch.models import xla_math
 
 Params = Dict[str, torch.Tensor]
 
@@ -730,3 +732,36 @@ def gossip_round(client_params: Params, w, stacked_batches: Params, loss_fn,
 
     new_params, losses = torch.func.vmap(one)(mixed, stacked_batches)
     return new_params, losses.mean()
+
+
+def ring_gossip_shard_map(mesh, axis: str = "data",
+                          self_weight: float = 1.0 / 3.0):
+    """Returns a function mixing each member's params with its two ring
+    neighbours over ``mesh``'s ``axis``: theta_i <- w*theta_i +
+    w_n*theta_{i-1} + w_n*theta_{i+1}, w_n = (1 - w) / 2 (the ring
+    Laplacian W of eq. 8 with d_max=2).
+
+    It takes and returns this member's block of leaves whose leading device
+    axis is split over ``axis``. The two neighbours arrive by two
+    point-to-point exchanges around the ring; the mix is float32 in the
+    reference's compiled order: LLVM contracts its two adds into FMAs,
+    ``fma(w_n, right, fma(w, x, w_n * left))`` for a float32 leaf and
+    ``fma(w_n, right, fma(w_n, left, w * x))`` for a bf16 one (read off
+    the compiled reference on the CPU), cast back to the leaf's dtype.
+    """
+    w = float(torch.tensor(self_weight, dtype=torch.float32))
+    w_n = float(torch.tensor((1.0 - self_weight) / 2.0, dtype=torch.float32))
+
+    def mix(x: torch.Tensor) -> torch.Tensor:
+        left, right = collectives.ring_exchange(x, mesh, axis)
+        xf, lf = x.float(), left.float()
+        if x.dtype == torch.float32:
+            inner = xla_math.fma64(xf.double(), w, lf * w_n)
+        else:
+            inner = xla_math.fma64(lf.double(), w_n, xf * w)
+        return xla_math.fma64(right.double(), w_n, inner).to(x.dtype)
+
+    def apply(stacked: Params) -> Params:
+        return {k: mix(x) for k, x in stacked.items()}
+
+    return apply

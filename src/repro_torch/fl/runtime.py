@@ -20,7 +20,8 @@ One round is :meth:`_Engine.step`, shared by the three entry points:
 * :func:`run_sweep` runs a seed x channel x compression x algorithm x fault
   x privacy x policy grid, one variant after another, each with its own
   parameters, and returns ``(variants, rounds)`` logs (with ``hcfg=`` the
-  hierarchical engine's). The reference's
+  hierarchical engine's); with ``devices=`` / ``mesh=`` the variants are
+  split over the members of a process group. The reference's
   ``policy_mode="mixture"`` shares one compiled program across policies;
   eager PyTorch compiles nothing, so here both modes run each policy's
   variants through that policy alone, and differ only in what they count
@@ -78,6 +79,8 @@ from repro_torch.core.faults import FaultParams
 from repro_torch.core.privacy import registry as privacy_lib
 from repro_torch.core.privacy.registry import PrivacyParams
 from repro_torch.fl import server as fl_server
+from repro_torch.launch.members import member_device
+from repro_torch.launch.mesh import Mesh
 
 Params = Dict[str, torch.Tensor]
 
@@ -895,32 +898,57 @@ def _validate_sweep_wcfgs(wcfgs: Sequence[wireless.WirelessConfig],
                 f"wcfgs[0].bandwidth_hz={ref.bandwidth_hz}")
 
 
-_NOT_SHARDED = ("multi-card sharding of the sweep is not ported; the port "
-                "runs every variant on one card")
-
-
-def _check_sweep_devices(devices, mesh) -> None:
-    """``devices=`` / ``mesh=``: the port runs a sweep on one card, so only
-    ``None``, ``1``, ``"auto"`` on one card and a one-device sequence
-    apply; more devices than there are raise as in the reference."""
+def _resolve_sweep_mesh(devices, mesh):
+    """The ``devices=`` / ``mesh=`` knob -> a 1-D mesh of members
+    (``launch/mesh.py``), or None for one device. ``devices`` is
+    ``"auto"`` (every member of the process group), an int or a sequence
+    (that many members: the whole group, or one); ``mesh`` a mesh with one
+    axis. More than one member needs a process group of exactly that many:
+    outside one, or beside a group of another size, it raises."""
     if devices is not None and mesh is not None:
         raise ValueError("pass devices= or mesh=, not both")
     if mesh is not None:
-        raise ValueError(f"run_sweep(mesh=...): {_NOT_SHARDED}")
+        if len(mesh.axis_names) != 1:
+            raise ValueError(f"run_sweep shards the flattened variant axis "
+                             f"over a 1-D mesh; got axes {mesh.axis_names}")
+        return mesh if mesh.size > 1 else None
     if devices is None:
-        return
-    avail = max(1, torch.cuda.device_count())
+        return None
+    world = (torch.distributed.get_world_size()
+             if torch.distributed.is_initialized() else 1)
     if devices == "auto":
-        count = avail
+        count = world
     elif isinstance(devices, int):
-        if devices > avail:
-            raise ValueError(f"devices={devices} but only {avail} local "
-                             "devices are available")
+        if devices > world:
+            raise ValueError(
+                f"devices={devices} but only {world} member(s) are in the "
+                "process group: launch that many (torchrun, or "
+                "launch/members.py)")
         count = devices
     else:
         count = len(list(devices))
-    if count > 1:
-        raise ValueError(f"run_sweep(devices={devices!r}): {_NOT_SHARDED}")
+    if count <= 1:
+        return None
+    return Mesh((count,), ("variants",))
+
+
+def _block_of(grid: list, mesh) -> list:
+    """This member's contiguous block of the variants, padded with copies
+    of variant 0 up to a multiple of the members (the ragged-grid filler;
+    the logs are cut back)."""
+    n = mesh.size
+    padded = grid + [grid[0]] * ((-len(grid)) % n)
+    b = len(padded) // n
+    return padded[mesh.rank * b:(mesh.rank + 1) * b]
+
+
+def _gather_variants(cols: Dict[str, np.ndarray], mesh, v: int
+                     ) -> Dict[str, np.ndarray]:
+    """Every member's block of logs, in rank order, cut back to ``v``."""
+    parts = [None] * mesh.size
+    torch.distributed.all_gather_object(parts, cols,
+                                        group=mesh.group(mesh.axis_names[0]))
+    return {f: np.concatenate([p[f] for p in parts])[:v] for f in cols}
 
 
 def run_sweep(cfg: SimConfig, loss_fn, init_params: Params, batches: Params,
@@ -967,8 +995,18 @@ def run_sweep(cfg: SimConfig, loss_fn, init_params: Params, batches: Params,
     combination; HFL never uses mixture mode. ``hcfgs`` makes the backhaul
     rate a trailing product axis: every entry shares the static fields
     (``HFLConfig.static_key()``), and each variant runs at its own rate.
-    The port runs on one card: ``devices`` / ``mesh`` asking for more raise.
+    ``devices=`` / ``mesh=`` split the variants over the members of a
+    process group, one process each (``"auto"``: all of them; an int or a
+    sequence: that many, which must be all of them; ``mesh``: a 1-D
+    ``launch/mesh.py`` mesh): the grid is padded with copies of variant 0
+    up to a multiple of the members, each member runs its contiguous block
+    one variant after another, and the logs are all-gathered and cut back,
+    so every member returns the whole dict. More members than the group
+    has, or any outside a group, raise.
     """
+    sweep_mesh = _resolve_sweep_mesh(devices, mesh)
+    if sweep_mesh is not None:
+        device = member_device(device, sweep_mesh.rank)
     dev = resolve_device(device)
     params = _on(init_params, dev)
     wcfgs = list(wcfgs) if wcfgs else [
@@ -998,7 +1036,6 @@ def run_sweep(cfg: SimConfig, loss_fn, init_params: Params, batches: Params,
                     f"sweep hcfgs must share static fields (everything but "
                     f"the per-variant backhaul_rate_bps): hcfgs[{i}] differs "
                     "from hcfgs[0]")
-    _check_sweep_devices(devices, mesh)
     fparams_list = (list(fparams_grid) if fparams_grid is not None
                     else ([cfg.faults] if cfg.faults is not None else None))
     faults_on = fparams_list is not None
@@ -1054,7 +1091,8 @@ def run_sweep(cfg: SimConfig, loss_fn, init_params: Params, batches: Params,
                   if hlist is not None
                   else _Engine(cfg_v, wcfgs[0], loss_fn, has_eval))
         cols = []
-        for seed, w, cp, ap, fp, pp, h in grid:
+        block = grid if sweep_mesh is None else _block_of(grid, sweep_mesh)
+        for seed, w, cp, ap, fp, pp, h in block:
             args = (trandom.PRNGKey(seed, dev),
                     wireless.channel_params(w, dev), cp.to(dev), ap.to(dev))
             if h is not None:
@@ -1065,8 +1103,10 @@ def run_sweep(cfg: SimConfig, loss_fn, init_params: Params, batches: Params,
             cols.append(_log_columns(
                 engine.run(v, params, batches, eval_batch)[1],
                 cfg.n_devices))
-        return SimLogs(**{f: np.stack([c[f] for c in cols])
-                          for f in _LOG_FIELDS})
+        logs = {f: np.stack([c[f] for c in cols]) for f in _LOG_FIELDS}
+        if sweep_mesh is not None:
+            logs = _gather_variants(logs, sweep_mesh, len(grid))
+        return SimLogs(**logs)
 
     shapes = _shapes(params, batches, eval_batch)
     combos = list(itertools.product(comp_iter, algo_iter, priv_iter))

@@ -1,5 +1,6 @@
 """Command-line entry points of the port: ``python -m
 repro_torch.launch.train`` trains a config federated through the flat
-engine, or with ``--cluster`` through the one-card trainer
-(``launch/steps.py``); ``python -m repro_torch.launch.serve`` prefills
+engine, or with ``--cluster`` through the trainer (``launch/steps.py``)
+on a mesh of members (``launch/mesh.py``, ``members.py``, the sharding
+rules of ``sharding.py``); ``python -m repro_torch.launch.serve`` prefills
 prompts and decodes greedily with KV and recurrent caches."""

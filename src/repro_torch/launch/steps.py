@@ -1,19 +1,29 @@
-"""Train steps on one card (PSSGD / local SGD / FSDP), the port of
-``repro/launch/steps.py``'s ``TrainPolicy``, ``make_init_fn`` and
-``make_train_step``.
+"""Train steps (PSSGD / local SGD / FSDP) on a mesh of members, the port
+of ``repro/launch/steps.py``'s ``TrainPolicy``, ``make_init_fn``,
+``state_shardings`` and ``make_train_step``.
 
-* ``pssgd``    -- Alg. 1: the gradient, all-reduced over the data axis with
-  a compressed wire format and client-side EF (``core/collectives.py``),
-  then the optimizer;
-* ``localsgd`` -- Alg. 6/7: params carry a client axis (one replica per
-  data shard), H local steps over micro-batches between compressed
-  delta-consensus rounds;
-* ``fsdp``     -- the gradient as it is, then the optimizer.
+* ``pssgd``    -- Alg. 1: each member's gradient of its rows of the batch,
+  all-reduced over the data axes with a compressed wire format and
+  client-side EF (``core/collectives.py``), then the optimizer;
+* ``localsgd`` -- Alg. 6/7: one replica a data member, H local steps over
+  micro-batches between compressed delta-consensus rounds over the intra
+  axes, then the dense bf16 pod sync of Alg. 9 when the mesh has ``pod``;
+* ``fsdp``     -- params and moments at rest split over the data axes
+  (``state_shardings``): a step all-gathers every leaf, takes its rows'
+  gradient, reduce-scatters it to the owned block (the mean over members)
+  and updates only that block.
 
-The reference maps the step over its mesh with ``shard_map``; on one card
-the map is a plain call and every ``pmean`` is over one member (the
-identity), but the compressed all-reduce still quantizes twice. Gradients
-come from autograd on the flat param dict, the layers rematerialized when
+The reference maps the step over its mesh with ``shard_map``; here each
+member is a process (``launch/mesh.py``) that keeps its block of every
+state leaf, as ``state_shardings`` places it, and receives its rows of the
+batch (``P(dp)``). The ``model`` axis splits only the MoE expert stacks
+(``models/moe.py::moe_forward_ep``); every other leaf is replicated over
+``model`` and computed whole on each member, which gives the numbers of
+the reference's XLA-managed tensor parallelism. A leaf split over
+``model`` is gathered for the compressed all-reduce, whose scales cover the
+whole leaf, and cut again. On one member every ``pmean`` is the identity,
+but the compressed all-reduce still quantizes twice. Gradients come from
+autograd on the flat param dict, the layers rematerialized when
 ``policy.remat`` asks (``transformer.forward_trunk``). The serving steps
 (``make_prefill_step``, ``make_decode_step``) wrap ``transformer.prefill``
 and ``decode_step``.
@@ -26,19 +36,27 @@ freed as its new ones are made. Keep a ``copy_state`` to reuse a state.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Dict
 
 import torch
 
+from repro_torch import random as trandom
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.collectives import hierarchical_allreduce
-from repro_torch.launch.mesh import LocalMesh, data_axes, n_data_shards
+from repro_torch.core.collectives import (all_to_all, hierarchical_allreduce,
+                                          pmean)
+from repro_torch.launch import sharding as shard_rules
+from repro_torch.launch.mesh import Mesh, data_axes, n_data_shards
 from repro_torch.models import transformer as tf
+from repro_torch.models.moe import set_expert_parallel_mesh
 from repro_torch.optim.optimizers import (OptState, apply_updates,
                                           init_opt_state)
 from repro_torch.optim.schedules import get_schedule
 
 State = Dict[str, Any]
+
+DENSE_TP = ("dense tensor parallelism (splitting wq/wk/wv/wo and the MLP "
+            "over the model axis) is ROADMAP queue A item 8")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,35 +101,169 @@ def copy_state(state: State) -> State:
     return out
 
 
+def param_shapes(cfg: ModelConfig) -> Dict:
+    """The params' full shapes, as meta tensors (no draw is computed)."""
+    return tf.init_params(cfg, trandom.PRNGKey(0, "meta"))
+
+
+def check_model_axis(cfg: ModelConfig, model: int) -> None:
+    """A ``model`` axis of more than one member splits expert stacks only:
+    on a config without experts it raises."""
+    if model > 1 and not cfg.n_experts:
+        raise NotImplementedError(
+            f"a model axis of {model} on {cfg.name}, which has no experts: "
+            f"{DENSE_TP}")
+
+
+# ===========================================================================
+# Shardings
+# ===========================================================================
+def state_shardings(cfg: ModelConfig, policy: TrainPolicy, mesh: Mesh,
+                    state: State) -> State:
+    """The reference's spec of every leaf of a state of full shapes
+    (anything with ``.shape``): params and moments by the rules (stacked
+    over the data axes in localsgd, split over them in fsdp), the step
+    replicated, the EF's leading client axis over the data axes."""
+    dp = shard_rules.data_entry(mesh)
+
+    def params_sh(tree):
+        if policy.mode == "localsgd":
+            return shard_rules.stacked_client_shardings(cfg, tree, mesh)
+        return shard_rules.param_shardings(cfg, tree, mesh,
+                                           fsdp=(policy.mode == "fsdp"))
+
+    opt = state["opt"]
+    out: State = {"params": params_sh(state["params"])}
+    out["opt"] = OptState((), *(params_sh(t) if t is not None else None
+                                for t in (opt.m, opt.v)))
+    out["step"] = ()
+    if "ef" in state:
+        out["ef"] = {k: (dp,) + shard_rules.param_spec(
+            k, tuple(x.shape)[1:], cfg, mesh, fsdp=False)
+            for k, x in state["ef"].items()}
+    return out
+
+
+def _full_state(cfg: ModelConfig, policy: TrainPolicy, mesh: Mesh,
+                params: Dict) -> State:
+    """A state of the reference's full shapes (meta tensors) from params of
+    full shapes: the client-stacked params and moments of localsgd, the
+    ``(n_dp, ...)`` EF."""
+    meta = {k: torch.empty(p.shape, device="meta") for k, p in params.items()}
+    n_dp = n_data_shards(mesh)
+    opt = init_opt_state(meta, policy.optimizer, policy.opt_state_dtype)
+    if policy.mode == "localsgd":
+        state = {"params": _stack(meta, n_dp),
+                 "opt": OptState(opt.step, _stack(opt.m, n_dp),
+                                 _stack(opt.v, n_dp))}
+    else:
+        state = {"params": meta, "opt": opt}
+    state["step"] = torch.empty((), device="meta")
+    if _use_ef(policy):
+        state["ef"] = _stack(meta, n_dp)
+    return state
+
+
+def held_specs(cfg: ModelConfig, policy: TrainPolicy, mesh: Mesh) -> State:
+    """The spec of every leaf of a member's state, as ``state_shardings``
+    places the reference's, but with the ``model`` axis splitting only the
+    expert stacks."""
+    params = param_shapes(cfg)
+    specs = state_shardings(cfg, policy, mesh,
+                            _full_state(cfg, policy, mesh, params))
+
+    def held(tree):
+        if tree is None:
+            return None
+        return {k: tuple(None if (a == "model" and not
+                                  shard_rules.is_expert_stack(
+                                      k, params[k].shape, cfg)) else a
+                         for a in spec)
+                for k, spec in tree.items()}
+    out = {"params": held(specs["params"]),
+           "opt": OptState((), held(specs["opt"].m), held(specs["opt"].v)),
+           "step": ()}
+    if "ef" in specs:
+        out["ef"] = held(specs["ef"])
+    return out
+
+
+def _map_state(state: State, specs: State, fn) -> State:
+    """``fn(leaf, spec)`` over every leaf of a state."""
+    def tree(t, sp):
+        return None if t is None else {k: fn(x, sp[k]) for k, x in t.items()}
+    opt = state["opt"]
+    out = dict(state, params=tree(state["params"], specs["params"]),
+               opt=OptState(fn(opt.step, ()), tree(opt.m, specs["opt"].m),
+                            tree(opt.v, specs["opt"].v)),
+               step=fn(state["step"], ()))
+    if "ef" in state:
+        out["ef"] = tree(state["ef"], specs["ef"])
+    return out
+
+
+def shard_state(cfg: ModelConfig, policy: TrainPolicy, mesh: Mesh,
+                state: State) -> State:
+    """This member's state from a state in the reference's layout (e.g.
+    ``convert.train_state_from_jax``)."""
+    specs = held_specs(cfg, policy, mesh)
+    return _map_state(state, specs,
+                      lambda x, sp: shard_rules.shard(x, sp, mesh))
+
+
+def gather_params(cfg: ModelConfig, policy: TrainPolicy, mesh: Mesh,
+                  params: Dict) -> Dict:
+    """The whole params in the reference's layout (client-stacked in
+    localsgd) from every member's (every member must call it)."""
+    specs = held_specs(cfg, policy, mesh)["params"]
+    return {k: shard_rules.gather(x, specs[k], mesh)
+            for k, x in params.items()}
+
+
+def gather_state(cfg: ModelConfig, policy: TrainPolicy, mesh: Mesh,
+                 state: State) -> State:
+    """The whole state in the reference's layout from every member's (every
+    member must call it and receives it)."""
+    specs = held_specs(cfg, policy, mesh)
+    return _map_state(state, specs,
+                      lambda x, sp: shard_rules.gather(x, sp, mesh))
+
+
 # ===========================================================================
 # State construction
 # ===========================================================================
-def make_init_fn(cfg: ModelConfig, policy: TrainPolicy, mesh: LocalMesh):
-    """Returns init(key) -> the state dict, on the key's device: params,
-    ``OptState``, the step and, with EF on a compressed wire, one float32
-    error leaf a data shard."""
-    n_dp = n_data_shards(mesh)
+def make_init_fn(cfg: ModelConfig, policy: TrainPolicy, mesh: Mesh):
+    """Returns init(key) -> this member's state, on the key's device: its
+    block of every leaf (``held_specs``), cut leaf by leaf from the same
+    seeded draw on every member: params, ``OptState``, the step and, with
+    EF on a compressed wire, the member's float32 error row (``ef[i]`` of
+    the reference's ``(n_dp, ...)`` leaf)."""
+    check_model_axis(cfg, mesh.shape.get("model", 1))
+    specs = held_specs(cfg, policy, mesh)
+    stacked = policy.mode == "localsgd"
 
     def init(key: torch.Tensor) -> State:
         params = tf.init_params(cfg, key)
-        if policy.mode == "localsgd":
-            opt = init_opt_state(params, policy.optimizer,
-                                 policy.opt_state_dtype)
-            params = _stack(params, n_dp)
-            opt = OptState(opt.step, _stack(opt.m, n_dp), _stack(opt.v, n_dp))
-            base = {k: p[0] for k, p in params.items()}
-        else:
-            opt = init_opt_state(params, policy.optimizer,
-                                 policy.opt_state_dtype)
-            base = params
+        full = {k: tuple(p.shape) for k, p in params.items()}
+        for k in list(params):
+            sp = specs["params"][k]
+            params[k] = shard_rules.shard(params[k], sp[1:] if stacked
+                                          else sp, mesh)
+        opt = init_opt_state(params, policy.optimizer,
+                             policy.opt_state_dtype)
+        base = params
+        if stacked:
+            params = _stack(params, 1)
+            opt = OptState(opt.step, _stack(opt.m, 1), _stack(opt.v, 1))
         state = {"params": params, "opt": opt,
                  "step": torch.zeros((), dtype=torch.int32,
                                      device=key.device)}
         if _use_ef(policy):
-            state["ef"] = {k: torch.zeros((n_dp,) + p.shape,
-                                          dtype=torch.float32,
-                                          device=p.device)
-                           for k, p in base.items()}
+            state["ef"] = {k: torch.zeros(
+                (1,) + shard_rules.shard_shape(full[k], specs["ef"][k][1:],
+                                               mesh),
+                dtype=torch.float32, device=p.device)
+                for k, p in base.items()}
         return state
     return init
 
@@ -119,9 +271,13 @@ def make_init_fn(cfg: ModelConfig, policy: TrainPolicy, mesh: LocalMesh):
 # ===========================================================================
 # Train steps
 # ===========================================================================
-def make_train_step(cfg: ModelConfig, policy: TrainPolicy, mesh: LocalMesh):
+def make_train_step(cfg: ModelConfig, policy: TrainPolicy, mesh: Mesh):
+    check_model_axis(cfg, mesh.shape.get("model", 1))
+    if cfg.n_experts:
+        set_expert_parallel_mesh(
+            None if os.environ.get("REPRO_DISABLE_EP") else mesh)
     if policy.mode == "fsdp":
-        return _make_fsdp_step(cfg, policy)
+        return _make_fsdp_step(cfg, policy, mesh)
     if policy.mode == "localsgd":
         return _make_localsgd_step(cfg, policy, mesh)
     return _make_pssgd_step(cfg, policy, mesh)
@@ -135,11 +291,41 @@ def _value_and_grad(cfg: ModelConfig, policy: TrainPolicy, params, batch):
     return loss.detach(), dict(zip(leaves, grads))
 
 
-def _reduction_axes(mesh: LocalMesh, policy: TrainPolicy) -> tuple:
+def _reduction_axes(mesh: Mesh, policy: TrainPolicy) -> tuple:
     dp = data_axes(mesh)
     if not policy.sync_pods:
         dp = tuple(a for a in dp if a != "pod")
     return dp
+
+
+def local_batch(batch: Dict, mesh: Mesh, *, divisible: bool = True) -> Dict:
+    """This member's rows of the global batch, as ``P(dp)`` hands them out
+    (the whole batch where it does not divide, unless ``divisible``)."""
+    specs = shard_rules.batch_shardings(batch, mesh)
+    n = n_data_shards(mesh)
+    if divisible and n > 1 and any(s[:1] == (None,) for s in specs.values()):
+        raise ValueError(f"a batch of {next(iter(batch.values())).shape[0]} "
+                         f"rows does not split over {n} data members")
+    return {k: shard_rules.shard(x, specs[k], mesh) for k, x in batch.items()}
+
+
+def _allreduce_leaf(k, g, e, axes, policy, mesh, mspec):
+    """The compressed all-reduce of one leaf over ``axes``: a leaf split
+    over ``model`` (an expert stack) is gathered whole first, so that its
+    scales cover the leaf, and cut again after."""
+    split = any(a is not None for a in mspec)
+    if split:
+        g = shard_rules.gather(g, mspec, mesh)
+        e = None if e is None else shard_rules.gather(e, mspec, mesh)
+    out, e = hierarchical_allreduce({k: g}, axes, policy.compression,
+                                    None if e is None else {k: e},
+                                    mesh=mesh)
+    out = out[k]
+    e = None if e is None else e[k]
+    if split:
+        out = shard_rules.shard(out, mspec, mesh)
+        e = None if e is None else shard_rules.shard(e, mspec, mesh)
+    return out, e
 
 
 def _update(opt_fn, params, grads, opt: OptState, lr, k: str) -> OptState:
@@ -163,51 +349,59 @@ def _apply(opt_fn, params, grads, opt: OptState, lr) -> OptState:
     return OptState(new.step, opt.m, opt.v)
 
 
-def _make_pssgd_step(cfg: ModelConfig, policy: TrainPolicy,
-                     mesh: LocalMesh):
+def _model_split(specs: Dict[str, tuple]) -> Dict[str, tuple]:
+    """Each leaf's split over ``model`` alone (the expert stacks')."""
+    return {k: tuple(a if a == "model" else None for a in sp)
+            for k, sp in specs.items()}
+
+
+def _make_pssgd_step(cfg: ModelConfig, policy: TrainPolicy, mesh: Mesh):
+    dp = data_axes(mesh)
     red = _reduction_axes(mesh, policy)
-    sizes = dict(mesh.shape)
     schedule = get_schedule(cfg.lr_schedule, policy.lr, policy.total_steps)
     opt_fn = apply_updates(policy.optimizer)
     use_ef = _use_ef(policy)
+    mspecs = _model_split(held_specs(cfg, policy, mesh)["params"])
 
     def train_step(state: State, batch):
         params, opt = state["params"], state["opt"]
-        loss, grads = _value_and_grad(cfg, policy, params, batch)
+        loss, grads = _value_and_grad(cfg, policy, params,
+                                      local_batch(batch, mesh))
         lr = schedule(state["step"])
         ef = state.get("ef")
         new = opt
         for k in list(params):
-            e = ef[k][0] if use_ef else None
-            g, e = hierarchical_allreduce(
-                {k: grads.pop(k)}, red, policy.compression,
-                {k: e} if use_ef else None, sizes=sizes)
+            g, e = _allreduce_leaf(k, grads.pop(k),
+                                   ef[k][0] if use_ef else None, red,
+                                   policy, mesh, mspecs[k])
             if use_ef:
-                ef[k] = e[k][None]
-            new = _update(opt_fn, params, g, opt, lr, k)
+                ef[k] = e[None]
+            new = _update(opt_fn, params, {k: g}, opt, lr, k)
         new_state = dict(state, opt=OptState(new.step, opt.m, opt.v),
                          step=state["step"] + 1)
-        return new_state, {"loss": loss}
+        return new_state, {"loss": pmean(loss, mesh, dp)}
 
     return train_step
 
 
-def _make_localsgd_step(cfg: ModelConfig, policy: TrainPolicy,
-                        mesh: LocalMesh):
+def _make_localsgd_step(cfg: ModelConfig, policy: TrainPolicy, mesh: Mesh):
+    dp = data_axes(mesh)
     red = _reduction_axes(mesh, policy)
     intra = tuple(a for a in red if a != "pod") or red
-    sizes = dict(mesh.shape)
     schedule = get_schedule(cfg.lr_schedule, policy.lr, policy.total_steps)
     opt_fn = apply_updates(policy.optimizer)
     h = policy.local_steps
     use_ef = _use_ef(policy)
+    mspecs = _model_split({k: sp[1:] for k, sp in
+                           held_specs(cfg, policy, mesh)["params"].items()})
 
     def train_step(state: State, batch):
         params, opt = state["params"], state["opt"]
         p0 = {k: x[0] for k, x in params.items()}
         lr = schedule(state["step"])
-        # H local steps over micro-batch slices (Alg. 7 lines 5-7), the
-        # outer step's learning rate for all of them
+        # H local steps over micro-batch slices of this member's rows (Alg.
+        # 7 lines 5-7), the outer step's learning rate for all of them
+        batch = local_batch(batch, mesh)
         bsz = next(iter(batch.values())).shape[0]
         micro = {k: x.reshape((h, bsz // h) + x.shape[1:])
                  for k, x in batch.items()}
@@ -223,20 +417,24 @@ def _make_localsgd_step(cfg: ModelConfig, policy: TrainPolicy,
             losses.append(loss)
         # compressed delta-consensus over the intra axes (Alg. 6 lines 8-14)
         ef = state.get("ef")
+        pod_sync = policy.sync_pods and "pod" in dp
         for k in list(params):
             delta = p.pop(k).float() - p0[k].float()
-            e = ef[k][0] if use_ef else None
-            d, e = hierarchical_allreduce(
-                {k: delta}, intra, policy.compression,
-                {k: e} if use_ef else None, sizes=sizes)
+            d, e = _allreduce_leaf(k, delta, ef[k][0] if use_ef else None,
+                                   intra, policy, mesh, mspecs[k])
             if use_ef:
-                ef[k] = e[k][None]
-            params[k] = (p0[k].float() + d[k]).to(p0[k].dtype)[None]
+                ef[k] = e[None]
+            new = (p0[k].float() + d).to(p0[k].dtype)
+            if pod_sync:
+                # inter-cluster averaging (Alg. 9 line 13): dense bf16
+                new = pmean(new.to(torch.bfloat16), mesh, "pod").to(
+                    p0[k].dtype)
+            params[k] = new[None]
         for old, t in zip((opt.m, opt.v), (o.m, o.v)):
             if t is not None:
                 for k in t:
                     old[k] = t[k][None]
-        loss = torch.mean(torch.stack(losses))
+        loss = pmean(torch.mean(torch.stack(losses)), mesh, dp)
         new_state = dict(state, opt=OptState(o.step, opt.m, opt.v),
                          step=state["step"] + 1)
         return new_state, {"loss": loss}
@@ -244,16 +442,50 @@ def _make_localsgd_step(cfg: ModelConfig, policy: TrainPolicy,
     return train_step
 
 
-def _make_fsdp_step(cfg: ModelConfig, policy: TrainPolicy):
+def _reduce_scatter_mean(g: torch.Tensor, spec: tuple, mesh: Mesh,
+                         axes: tuple) -> torch.Tensor:
+    """This member's block of the mean over ``axes`` of the full leaf
+    ``g``, split along the dim ``spec`` puts on ``axes``: the blocks go
+    out by an all-to-all and are summed one member after another."""
+    dim = spec.index(axes)
+    n = mesh.n(axes)
+    parts = torch.stack(torch.chunk(g, n, dim=dim))   # (n, block...)
+    recv = all_to_all(parts.reshape(n * parts.shape[1], *parts.shape[2:]),
+                      mesh, axes)
+    s = recv[0].float()
+    for r in recv[1:]:
+        s = s + r.float()
+    return (s / n).to(g.dtype).reshape(parts.shape[1:])
+
+
+def _make_fsdp_step(cfg: ModelConfig, policy: TrainPolicy, mesh: Mesh):
+    dp = data_axes(mesh)
+    dpe = shard_rules.data_entry(mesh)
     schedule = get_schedule(cfg.lr_schedule, policy.lr, policy.total_steps)
     opt_fn = apply_updates(policy.optimizer)
+    # every leaf whole for the step: gathered over the data axes (the
+    # expert stacks stay split over model)
+    dspecs = {k: tuple(a if a == dpe else None for a in sp) for k, sp in
+              held_specs(cfg, policy, mesh)["params"].items()}
 
     def train_step(state: State, batch):
         params = state["params"]
-        loss, grads = _value_and_grad(cfg, policy, params, batch)
+        full = {k: shard_rules.gather(p, dspecs[k], mesh)
+                for k, p in params.items()}
+        loss, grads = _value_and_grad(cfg, policy, full,
+                                      local_batch(batch, mesh,
+                                                  divisible=False))
+        del full
+        for k in list(grads):
+            g = grads[k]
+            if dpe in dspecs[k] and mesh.n(dp) > 1:
+                grads[k] = _reduce_scatter_mean(g, dspecs[k], mesh, dpe)
+            else:
+                grads[k] = pmean(g, mesh, dp)
         opt = _apply(opt_fn, params, grads, state["opt"],
                      schedule(state["step"]))
-        return dict(state, opt=opt, step=state["step"] + 1), {"loss": loss}
+        return (dict(state, opt=opt, step=state["step"] + 1),
+                {"loss": pmean(loss, mesh, dp)})
 
     return train_step
 

@@ -1,21 +1,29 @@
 """End-to-end training from the command line, the port of
-``repro/launch/train.py`` on one CUDA device. Two scales:
+``repro/launch/train.py``. Two scales:
 
-* ``--cluster`` -- the pod-scale trainer (``launch/steps.py``) on a mesh of
-  one card: PSSGD, local SGD or FSDP with a compressed all-reduce and EF;
+* ``--cluster`` -- the pod-scale trainer (``launch/steps.py``) on a
+  ``--mesh-data`` x ``--mesh-model`` mesh of members, one process each:
+  PSSGD, local SGD or FSDP with a compressed all-reduce and EF;
 * default -- the FL simulation scale: vmapped clients, wireless scheduling,
-  compression + EF through the flat engine.
+  compression + EF through the flat engine, on one device.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b \
         --steps 20 --reduced --cluster
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 2 -m \
+        repro_torch.launch.train --arch gemma-2b --steps 20 --reduced \
+        --cluster --mesh-data 2 --compression int8
     PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm-2b \
         --reduced --rounds 50 --policy age --compressor topk
 
-Trains all six families; ``--cluster`` feeds the vlm and audio families
-zero vision / audio embeddings, as the reference does, and the federated
-path feeds none, so it fails on them with the reference's ``KeyError``. A
-mesh of more than one card (``--mesh-data`` / ``--mesh-model`` above 1)
-raises (ROADMAP queue A item 5).
+A mesh of more than one member runs inside a process group of as many
+members (``torchrun``, or a caller's group, ``launch/members.py``) and
+raises outside one. Only rank 0 prints, and the checkpoint is gathered to
+rank 0 in the reference's layout. ``--mesh-model`` above 1 splits the MoE
+expert stacks; on a config without experts it raises (dense tensor
+parallelism, ROADMAP queue A item 8). Trains all six families;
+``--cluster`` feeds the vlm and audio families zero vision / audio
+embeddings, as the reference does, and the federated path feeds none, so
+it fails on them with the reference's ``KeyError``.
 """
 from __future__ import annotations
 
@@ -38,8 +46,10 @@ from repro_torch.core.privacy import privacy_names, privacy_params
 from repro_torch.data import (FederatedLoader, SyntheticLMDataset,
                               batch_iterator, dirichlet_partition)
 from repro_torch.fl import runtime as fl_runtime
-from repro_torch.launch.mesh import make_local_mesh
-from repro_torch.launch.steps import (TrainPolicy, make_init_fn,
+from repro_torch.launch.members import init_from_env, member_device
+from repro_torch.launch.mesh import make_local_mesh, members_line
+from repro_torch.launch.steps import (TrainPolicy, check_model_axis,
+                                      gather_params, make_init_fn,
                                       make_train_step)
 from repro_torch.models import transformer as tf
 
@@ -51,15 +61,21 @@ def make_compression(name: str, d: int, k_frac: float = 0.01):
 
 def run_cluster(args, cfg=None, device="cuda"):
     """Train ``--arch`` (or ``cfg`` as given) for ``--steps`` steps of the
-    pod-scale trainer on one card, print the losses, save the params to
-    ``--ckpt-dir`` if given and return (losses, the final state); the last
-    loss must be below the first."""
+    pod-scale trainer on this member's block of the mesh, print the losses
+    (rank 0), save the gathered params to ``--ckpt-dir`` if given (rank 0)
+    and return (losses, this member's final state); the last loss must be
+    below the first."""
     if cfg is None:
         cfg = get_config(args.arch)
         if args.reduced:
             cfg = cfg.reduced()
+    check_model_axis(cfg, args.mesh_model)
+    init_from_env(device)
     mesh = make_local_mesh(args.mesh_data, args.mesh_model)
-    dev = fl_runtime.resolve_device(device)
+    dev = fl_runtime.resolve_device(member_device(device, mesh.rank))
+    say = print if mesh.rank == 0 else (lambda *a, **k: None)
+    if mesh.bound:
+        say(f"members: {members_line(mesh)}; rank 0 on {dev}")
     ef = args.compression not in ("none", "bf16")
     policy = TrainPolicy(mode=args.mode, compression=args.compression,
                          error_feedback=ef, local_steps=args.local_steps,
@@ -87,12 +103,16 @@ def run_cluster(args, cfg=None, device="cuda"):
         loss = float(metrics["loss"])
         losses.append(loss)
         if step % max(1, args.steps // 20) == 0 or step == args.steps - 1:
-            print(f"step {step:5d} loss {loss:.4f} "
-                  f"({time.time() - t0:.2f}s) [{policy.tag()}]")
+            say(f"step {step:5d} loss {loss:.4f} "
+                f"({time.time() - t0:.2f}s) [{policy.tag()}]")
     if args.ckpt_dir:
-        save_checkpoint(args.ckpt_dir, args.steps, state["params"])
+        params = (gather_params(cfg, policy, mesh, state["params"])
+                  if mesh.bound else state["params"])
+        if mesh.rank == 0:
+            save_checkpoint(args.ckpt_dir, args.steps, params)
+        del params
     assert losses[-1] < losses[0], "training did not reduce loss"
-    print(f"final loss {losses[-1]:.4f} (from {losses[0]:.4f})")
+    say(f"final loss {losses[-1]:.4f} (from {losses[0]:.4f})")
     return losses, state
 
 

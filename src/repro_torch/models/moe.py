@@ -13,9 +13,18 @@ dispatch is exact whatever the order of the adds.
 
 Expert stacks are padded up to a multiple of 16 (qwen 60 -> 64) while the
 router keeps ``n_experts`` columns, so a padded expert is never chosen.
-Top-k ties go to the lower expert index, as ``lax.top_k`` breaks them. The
-expert-parallel path (``moe_forward_ep``) is the cluster side and is not
-ported here.
+Top-k ties go to the lower expert index, as ``lax.top_k`` breaks them.
+
+Expert parallelism (``moe_forward_ep``): the stacks' expert axis is split
+over the mesh's ``model`` axis. The tokens are replicated over ``model``;
+each member routes them to its own ``e_pad / n`` experts and adds its
+(T, d) contribution, and the contributions are summed over ``model``. The
+sum's backward passes the cotangent on unchanged, and the replicated
+inputs' cotangents are summed over ``model``: so every member gets the
+gradient of ``moe_forward``, as the reference's ``jax.grad`` through its
+``shard_map`` gives (measured bitwise on model 2 and 4 of the reduced
+qwen2-moe config). ``launch/steps.py::make_train_step`` switches it on
+(``set_expert_parallel_mesh``), unless ``REPRO_DISABLE_EP`` is set.
 """
 from __future__ import annotations
 
@@ -26,9 +35,20 @@ import torch.nn.functional as F
 
 from repro_torch import random as trandom
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.collectives import psum
 from repro_torch.models.layers import dense_init
 
 Params = Dict[str, torch.Tensor]
+
+_EP_MESH = None  # set by the train step's builder; None -> moe_forward
+
+
+def set_expert_parallel_mesh(mesh) -> None:
+    """Route ``moe_forward`` through ``moe_forward_ep`` over ``mesh``'s
+    ``model`` axis (None, or a mesh without one, switches it off)."""
+    global _EP_MESH
+    _EP_MESH = mesh if (mesh is not None
+                        and "model" in mesh.axis_names) else None
 
 
 def padded_n_experts(cfg: ModelConfig, multiple: int = 16) -> int:
@@ -113,6 +133,8 @@ def moe_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
                 expert_pad_multiple: int = 16
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B,S,d) -> (out (B,S,d), aux_loss scalar)."""
+    if _EP_MESH is not None:
+        return moe_forward_ep(p, x, cfg, _EP_MESH, expert_pad_multiple)
     bsz, s, d = x.shape
     t, k = bsz * s, cfg.moe_top_k
     e_pad = padded_n_experts(cfg, expert_pad_multiple)
@@ -136,6 +158,98 @@ def moe_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
     gathered = out_buf.index_select(0, slot)  # (T*k, d)
     w = (r.top_p.reshape(t * k) * (~r.overflow)).to(x.dtype)
     out = (gathered * w[:, None]).reshape(t, k, d).sum(dim=1)
+
+    if cfg.n_shared_experts:
+        hs = act(xf @ p["shared_gate"]) * (xf @ p["shared_up"])
+        out = out + hs @ p["shared_down"]
+    return out.reshape(bsz, s, d), r.aux
+
+
+class _SumOverAxis(torch.autograd.Function):
+    """Forward: the sum over the axis's members; backward: the cotangent as
+    it is (every member holds the same one)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return psum(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _CopyToAxis(torch.autograd.Function):
+    """Forward: a replicated input as it is; backward: the members'
+    partial cotangents summed over the axis."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum(g.contiguous(), ctx.mesh, ctx.axis), None, None
+
+
+def local_experts(w: torch.Tensor, cfg: ModelConfig, mesh,
+                  expert_pad_multiple: int = 16, axis: str = "model"
+                  ) -> torch.Tensor:
+    """This member's ``e_pad / n`` experts of a stack: ``w`` as it is if
+    it holds only them, else its block of the full stack."""
+    n = mesh.n(axis)
+    e_local = padded_n_experts(cfg, expert_pad_multiple) // n
+    if w.shape[0] == e_local:
+        return w
+    return w.narrow(0, mesh.index(axis) * e_local, e_local)
+
+
+def moe_forward_ep(p: Params, x: torch.Tensor, cfg: ModelConfig, mesh,
+                   expert_pad_multiple: int = 16, axis: str = "model"
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``moe_forward`` with the experts split over ``mesh``'s ``axis``: the
+    stacks in ``p`` hold this member's experts (or all of them, and it
+    takes its block). x: (B,S,d) -> (out (B,S,d), aux_loss scalar), the
+    same on every member."""
+    bsz, s, d = x.shape
+    t, k = bsz * s, cfg.moe_top_k
+    n = mesh.n(axis)
+    e_pad = padded_n_experts(cfg, expert_pad_multiple)
+    if e_pad % n:
+        raise ValueError(f"{e_pad} experts do not split over {n} members")
+    e_local = e_pad // n
+    xf = x.reshape(t, d)
+    r = route(p, xf, cfg, expert_pad_multiple)
+    cap = r.cap
+    weights = (r.top_p.reshape(t * k) * (~r.overflow)).to(x.dtype)
+    wg, wu, wd = (local_experts(p[name], cfg, mesh, expert_pad_multiple,
+                                axis) for name in ("w_gate", "w_up",
+                                                   "w_down"))
+    if n > 1:
+        xf_in = _CopyToAxis.apply(xf, mesh, axis)
+        weights = _CopyToAxis.apply(weights, mesh, axis)
+    else:
+        xf_in = xf
+
+    # this member's experts: the others' choices go to the dropped slot
+    le = r.flat_e - mesh.index(axis) * e_local
+    mine = (le >= 0) & (le < e_local) & (r.flat_pos < cap)
+    le = torch.clamp(le, 0, e_local - 1)
+    pos = torch.where(mine, r.flat_pos, cap)
+    slot = le * (cap + 1) + pos
+    xk = xf_in.repeat_interleave(k, dim=0)
+    buf = torch.zeros((e_local * (cap + 1), d), dtype=x.dtype,
+                      device=x.device)
+    buf = buf.index_add(0, slot, xk).reshape(e_local, cap + 1, d)[:, :cap]
+    act = _act(cfg)
+    h = act(torch.bmm(buf, wg)) * torch.bmm(buf, wu)
+    out_buf = torch.bmm(h, wd)
+    out_buf = F.pad(out_buf, (0, 0, 0, 1)).reshape(e_local * (cap + 1), d)
+    gathered = out_buf.index_select(0, slot)
+    gathered = gathered * (weights * mine).to(gathered.dtype)[:, None]
+    out = gathered.reshape(t, k, d).sum(dim=1)
+    if n > 1:
+        out = _SumOverAxis.apply(out, mesh, axis)
 
     if cfg.n_shared_experts:
         hs = act(xf @ p["shared_gate"]) * (xf @ p["shared_up"])

@@ -51,9 +51,12 @@ def threefry2x32(k1, k2, x1, x2):
     """The threefry2x32 block function (20 rounds) on broadcastable int64
     tensors of 32-bit words. Returns the two output words, at the broadcast
     shape. Works in place on two fresh buffers (four times faster on the CPU
-    than allocating per operation)."""
-    ks = (k1, k2, k1 ^ k2 ^ _PARITY)
+    than allocating per operation). On the meta device only the shape is
+    worked out (a draw there describes a state without computing it)."""
     shape = torch.broadcast_shapes(k1.shape, x1.shape, x2.shape)
+    if x1.is_meta:
+        return x1.expand(shape), x2.expand(shape)
+    ks = (k1, k2, k1 ^ k2 ^ _PARITY)
     x1 = (x1 + ks[0]).bitwise_and_(MASK).expand(shape).contiguous()
     x2 = (x2 + ks[1]).bitwise_and_(MASK).expand(shape).contiguous()
     tmp = torch.empty_like(x2)
@@ -161,6 +164,8 @@ def _f32(values: tuple) -> tuple:
 
 def erfinv(x: torch.Tensor) -> torch.Tensor:
     """float32 inverse error function, XLA's polynomial term for term."""
+    if x.is_meta:
+        return torch.empty_like(x)
     w = -xla_math.log1p(-x * x)
     lt = w < 5.0
     # sqrt correctly rounded (in float64), as x86's vsqrtps: PyTorch's CPU

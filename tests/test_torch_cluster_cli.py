@@ -10,8 +10,8 @@ package's, on the CPU. The reference runs on the Auto-axis mesh of
     line equal; its checkpoint loaded by ``repro.checkpoint.load_checkpoint``
     (the params within a relative L2 error of 1e-3 of the reference's own,
     as ``test_torch_steps.py`` holds the steps) and by the port's, bitwise;
-    meshes of more than one card raise, and the vlm and audio families
-    train.
+    meshes of more than one member raise outside a process group, a model
+    axis raises on a dense config, and the vlm and audio families train.
 (b) ``train_fl_100m`` at its mini size for 3 steps against the reference's
     example: the model line and the printed losses equal; both raise the
     example's assertion (3 steps do not lower the loss by 0.3); the full
@@ -87,13 +87,20 @@ def test_cluster_main_matches_reference(arch, comp, tmp_path, monkeypatch,
 
 
 def test_cluster_raises_for_meshes_and_runs_every_family():
-    """Meshes of more than one card raise; the vlm and audio families train
-    (on zero embeddings, as the reference's CLI feeds them;
+    """A mesh of more than one member raises outside a process group of as
+    many members (``tests/test_torch_cluster_cli_members.py`` runs one),
+    and a model axis above 1 on a config without experts raises (dense
+    tensor parallelism, ROADMAP queue A item 8); the vlm and audio families
+    train (on zero embeddings, as the reference's CLI feeds them;
     ``tests/test_torch_vlm_audio.py`` holds them against it)."""
-    for flags in (["--mesh-data", "2"], ["--mesh-model", "4"]):
-        with pytest.raises(NotImplementedError, match="queue A item 5"):
-            ttrain.main(["--arch", "gemma-2b", "--reduced", "--cluster"]
-                        + flags, device="cpu")
+    for flags, n in ((["--mesh-data", "2"], 2),
+                     (["--mesh-data", "2", "--mesh-model", "2"], 4)):
+        with pytest.raises(RuntimeError, match=f"process group of {n} "):
+            ttrain.main(["--arch", "qwen2-moe-a2.7b", "--reduced",
+                         "--cluster"] + flags, device="cpu")
+    with pytest.raises(NotImplementedError, match="queue A item 8"):
+        ttrain.main(["--arch", "gemma-2b", "--reduced", "--cluster",
+                     "--mesh-model", "4"], device="cpu")
     for arch in ("llama-3.2-vision-11b", "whisper-base"):
         args = ttrain.parser().parse_args(
             ["--arch", arch, "--reduced", "--cluster", "--steps", "4",

@@ -20,8 +20,9 @@ and above it, 1-D and ragged 2-D and 3-D, with exact zeros in them:
   another order than PyTorch (it differed by up to 1.2e-5 here); the error
   within atol 1e-6 for the same reason.
 Then ``pack_bits`` / ``unpack_bits``, ``_pad_dim0``, the tree and
-hierarchical forms over ``("data",)``, and axes of more than one member
-raising.
+hierarchical forms over ``("data",)``, and meshes of more than one member
+raising outside a process group (``tests/test_torch_cluster_collectives.py``
+runs them inside one).
 """
 import numpy as np
 import pytest
@@ -36,6 +37,7 @@ from jax.sharding import PartitionSpec as P  # noqa: E402
 from repro.core import collectives as jc  # noqa: E402
 from repro.core.compat import shard_map  # noqa: E402
 from repro_torch.core import collectives as tc  # noqa: E402
+from repro_torch.launch.mesh import make_local_mesh, make_mesh  # noqa: E402
 
 SCALE_RTOL, SIGN_ERR_ATOL = 1e-4, 1e-6
 SHAPES = [(40, 17), (70_000,), (301, 233), (18, 64, 128)]
@@ -164,12 +166,22 @@ def test_tree_and_hierarchical_allreduce_match_reference(method):
 
 
 def test_more_than_one_member_raises():
+    """An axis of more than one member runs only inside a process group of
+    as many members (``tests/test_torch_cluster_collectives.py``): outside
+    one its mesh raises, so no call reduces over fewer members than asked
+    for; a mesh without the axis raises too."""
     g = torch.ones(100_000)
+    with pytest.raises(RuntimeError, match="process group of 2 members"):
+        make_mesh((2,), ("data",))
+    with pytest.raises(RuntimeError, match="process group of 4 members"):
+        make_local_mesh(2, 2)
+    one = make_local_mesh()
     for method in ("none", "int8", "sign"):
-        with pytest.raises(NotImplementedError, match="queue A item 5"):
-            tc.compressed_allreduce_leaf(g, "data", method, n=2)
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
+        got, _ = tc.compressed_allreduce_leaf(g, "data", method, mesh=one)
+        want, _ = tc.compressed_allreduce_leaf(g, "data", method)
+        assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="no axis 'pod'"):
         tc.hierarchical_allreduce({"w": g}, ("pod", "data"), "int8",
-                                  sizes={"pod": 2, "data": 1})
+                                  mesh=one)
     with pytest.raises(ValueError, match="unknown method"):
         tc.compressed_allreduce_leaf(g, "data", "topk")

@@ -27,6 +27,8 @@ two cases. The tests here hand the reference the Auto mesh instead
     than 1e-6 at no more than 1e-3 of its coordinates (the same flips move
     a coordinate's residual by a code step; 283 of 541 312 at most was
     seen).
+    qwen2-moe-a2.7b ``reduced()`` through the expert-parallel path at (1,
+    1), pssgd with int8 + EF (``test_moe_steps_match_reference``).
 (c) ``remat`` on and off give the same losses and params bit for bit.
 ``tests/test_torch_cluster_cli.py`` holds the CLI's ``--cluster`` and the
 100M example.
@@ -160,6 +162,50 @@ def test_steps_match_reference(arch, mode, comp):
                   for k in want["ef"])
         total = sum(v.numel() for v in want["ef"].values())
         assert off <= EF_OFF_SHARE * total, (off, total)
+
+
+def test_moe_steps_match_reference():
+    """qwen2-moe-a2.7b ``reduced()``, pssgd with int8 + EF, where the
+    reference's step runs ``moe_forward_ep`` (its ``make_train_step`` sets
+    the expert-parallel mesh whenever the mesh has a ``model`` axis) and
+    the port's its own: three chained steps from the reference's jitted
+    state, the loss within ``LOSS_RTOL`` a step and the params within
+    ``PARAMS_REL_L2``; and each step from the reference's state before it,
+    the EF within ``EF_OFF_SHARE``. Chained, the EF drifts past it (5471 of
+    3 573 376 coordinates after three steps, 1.5e-3): an int8 code flipped
+    by a float32 ulp moves its coordinate by a whole Adam step, and the
+    next gradient with it (ROADMAP queue C item 10); from the reference's
+    state a step flips 12-18."""
+    arch, mode, comp = "qwen2-moe-a2.7b", "pssgd", "int8"
+    jcfg, cfg = jget_config(arch).reduced(), get_config(arch).reduced()
+    jp = _policy(mode, comp)
+    tp = convert.train_policy_from_jax(jp)
+    mesh = auto_mesh()
+    ds = SyntheticLMDataset(cfg.vocab_size, 64, 512, seed=0)
+    with mesh:
+        jstate = jax.jit(jsteps.make_init_fn(jcfg, jp, mesh))(
+            jax.random.PRNGKey(0))
+        jstep = jax.jit(jsteps.make_train_step(jcfg, jp, mesh))
+        tstep = tsteps.make_train_step(cfg, tp, make_local_mesh())
+        chained = convert.train_state_from_jax(_np(jstate))
+        for i in range(3):
+            b = ds.get(np.arange(8) + 8 * i)
+            from_ref = convert.train_state_from_jax(_np(jstate))
+            jstate, jm = jstep(jstate, {k: jnp.asarray(v)
+                                        for k, v in b.items()})
+            tb = {k: torch.as_tensor(v) for k, v in b.items()}
+            chained, tm = tstep(chained, tb)
+            from_ref, _ = tstep(from_ref, tb)
+            np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
+                                       rtol=LOSS_RTOL, err_msg=f"step {i}")
+            want = convert.train_state_from_jax(_np(jstate))
+            assert _rel_l2(from_ref["params"], want["params"]) < PARAMS_REL_L2
+            off = sum(int(((from_ref["ef"][k] - want["ef"][k]).abs()
+                           > 1e-6).sum()) for k in want["ef"])
+            total = sum(v.numel() for v in want["ef"].values())
+            assert off <= EF_OFF_SHARE * total, (i, off, total)
+    assert int(chained["step"]) == int(want["step"]) == 3
+    assert _rel_l2(chained["params"], want["params"]) < PARAMS_REL_L2
 
 
 # ---------------------------------------------------------------------------

@@ -28,6 +28,7 @@ from repro_torch import convert  # noqa: E402
 from repro_torch.core import wireless as twl  # noqa: E402
 from repro_torch.core.hierarchy import HFLConfig  # noqa: E402
 from repro_torch.fl import runtime as trt  # noqa: E402
+from repro_torch.launch.mesh import Mesh  # noqa: E402
 from test_torch_engine import _loss_t  # noqa: E402
 
 D = 16
@@ -255,11 +256,17 @@ def test_sweep_devices_one_degrades_to_single_card():
                                            devices=devices, **kw))
     with pytest.raises(ValueError, match="devices"):
         trt.run_sweep(cfg, _loss_t, prob[3], prob[4], devices=10_000, **kw)
-    for bad in (dict(devices=[torch.device("cpu")] * 2),
-                dict(mesh=object())):
-        with pytest.raises(ValueError, match="sharding of the sweep is "
-                           "not ported"):
-            trt.run_sweep(cfg, _loss_t, prob[3], prob[4], **bad, **kw)
+    # more than one member needs a process group of as many
+    # (tests/test_torch_cluster_sweep.py runs one)
+    with pytest.raises(RuntimeError, match="process group of 2 members"):
+        trt.run_sweep(cfg, _loss_t, prob[3], prob[4],
+                      devices=[torch.device("cpu")] * 2, **kw)
+    with pytest.raises(ValueError, match="1-D mesh"):
+        trt.run_sweep(cfg, _loss_t, prob[3], prob[4],
+                      mesh=Mesh((2, 2), ("a", "b"), bind=False), **kw)
+    with pytest.raises(ValueError, match="not both"):
+        trt.run_sweep(cfg, _loss_t, prob[3], prob[4], devices=1,
+                      mesh=Mesh((1,), ("variants",)), **kw)
     h = HFLConfig(n_clusters=3, inter_cluster_period=3)
     with pytest.raises(ValueError, match="pass hcfg= or hcfgs=, not both"):
         trt.run_sweep(cfg, _loss_t, prob[3], prob[4], hcfg=h, hcfgs=[h],
