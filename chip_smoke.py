@@ -522,7 +522,6 @@ GEMMA_WIDE_DEPTH, GEMMA_WIDE_B, GEMMA_WIDE_SEQ, GEMMA_WIDE_STEPS = (4, 8,
 # (e) qwen2-moe-a2.7b at its published widths, 2 layers (as phase 16(c)),
 # one (4, 128) batch
 MOE_WIDE_DEPTH, MOE_WIDE_B, MOE_WIDE_SEQ = 2, 4, 128
-CLUSTER_TIMEOUT = 600  # s a member may wait in a collective before failing
 ROWS_SRC = "src/repro_torch/kernels/csrc/rows.cu"
 TILES_SRC = "src/repro_torch/kernels/csrc/tiles.cu"
 
@@ -3758,8 +3757,7 @@ def run_cluster_phase(dev, smi: str) -> dict:
         f"device); the numbers test the code, the placement and the wire, "
         f"not the speed of several cards. gloo ops that take CUDA tensors "
         f"(torch {torch.__version__}): {coll.GLOO_CUDA_OPS}")
-    a = members.spawn(_members_four, 4, (dev.type,), threads=2,
-                      timeout_s=CLUSTER_TIMEOUT)
+    a = members.spawn(_members_four, 4, (dev.type,), threads=2)
     took("spawn A (4 members)")
     for key in a[0]["a"]:
         axes, method, with_e = key
@@ -3800,8 +3798,7 @@ def run_cluster_phase(dev, smi: str) -> dict:
     one, one_s, one_counts = _fleet_sweep_once(dev)
     took("(f) the one-process sweep")
     torch.cuda.empty_cache()
-    b = members.spawn(_members_two, 2, (dev.type,), threads=4,
-                      timeout_s=CLUSTER_TIMEOUT)
+    b = members.spawn(_members_two, 2, (dev.type,), threads=4)
     took("spawn B (2 members)")
     _check_trainer(b, "c", CLUSTER_TRAIN_TWO)
     d = [m["d"] for m in b]

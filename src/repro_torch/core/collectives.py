@@ -8,7 +8,9 @@ reduced chunk, all-gathers it and dequantizes. Every member receives the
 same output bit for bit: the local arithmetic is the reference's
 (``_sub_product``, the scales, pack and unpack), and a sum over members
 adds them one by one in rank order (``_ordered_sum``), as the reference's
-CPU ``psum`` does, so it does not depend on the backend's algorithm. On an
+CPU ``psum`` does, so it does not depend on the backend's algorithm; a
+plain ``psum`` is that sum as a reduce-scatter and an all-gather, which
+moves what an all-reduce does, 2 (n - 1) / n of the leaf a member. On an
 axis of one member nothing moves, but both quantizations still happen: int8
 rounds the leaf to 127 levels of ``max|x|`` twice (the second scale from
 the dequantized first), and scaled sign sends ``mean|x| * sign`` twice (the
@@ -116,12 +118,27 @@ def _ordered_sum(parts: torch.Tensor) -> torch.Tensor:
     return s
 
 
+def reduce_scatter_sum(x: torch.Tensor, mesh=None, axis="data"
+                       ) -> torch.Tensor:
+    """x: (n*c, ...) -> (c, ...) float32: the sum over ``axis`` of every
+    member's chunk i on member i, added in rank order (``_ordered_sum``)."""
+    return _ordered_sum(all_to_all(x, mesh, axis))
+
+
 def psum(x: torch.Tensor, mesh=None, axis="data") -> torch.Tensor:
     """The sum of ``x`` over ``axis`` in ``x``'s dtype (a bf16 sum is
-    taken in float32 and rounded once)."""
-    if _group(mesh, axis) is None:
+    taken in float32 and rounded once). A reduce-scatter then an
+    all-gather, as an all-reduce moves it (2 (n - 1) / n of the leaf a
+    member), each element added in rank order, so that every member
+    receives the same bits whatever the backend's algorithm."""
+    group = _group(mesh, axis)
+    if group is None:
         return x
-    return _ordered_sum(all_gather(x, mesh, axis)).to(x.dtype)
+    n = dist.get_world_size(group)
+    flat, numel = _pad_dim0(x.reshape(-1), n)
+    part = reduce_scatter_sum(flat, mesh, axis).to(x.dtype)
+    del flat
+    return all_gather(part, mesh, axis).reshape(-1)[:numel].reshape(x.shape)
 
 
 def pmean(x: torch.Tensor, mesh=None, axis="data") -> torch.Tensor:

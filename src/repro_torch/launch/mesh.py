@@ -5,8 +5,9 @@ A member is one process. Rank r sits at the row-major coordinates of r
 over the mesh's axes in order, as ``jax.make_mesh`` lays devices out, so
 that a dim split over ``("pod", "data")`` gives member (p, d) the block
 ``p * n_data + d``, as ``P(("pod", "data"))`` does. A mesh of one member
-needs no process group. A larger one binds to the default group, whose
-world size it must equal (there is no fallback to fewer members), and
+needs no process group. A larger one, and any mesh made inside a group,
+binds to the default group, whose world size it must equal (there is no
+fallback to fewer members, and no member runs alone beside others), and
 makes one group for each set of its axes that spans more than one member:
 the ranks that share the other axes' coordinates. The production meshes
 (``make_production_mesh``) describe a pod for the sharding rules and bind
@@ -43,7 +44,7 @@ class Mesh:
         self.shape: Dict[str, int] = dict(zip(self.axis_names,
                                               map(int, shape)))
         self.size = math.prod(self.shape.values())
-        self.bound = bind and self.size > 1
+        self.bound = bind and (self.size > 1 or dist.is_initialized())
         self.rank = 0
         self._groups: Dict[Tuple[str, ...], object] = {}
         if self.bound:

@@ -43,8 +43,8 @@ import torch
 
 from repro_torch import random as trandom
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.collectives import (all_to_all, hierarchical_allreduce,
-                                          pmean)
+from repro_torch.core.collectives import (hierarchical_allreduce, pmean,
+                                          reduce_scatter_sum)
 from repro_torch.launch import sharding as shard_rules
 from repro_torch.launch.mesh import Mesh, data_axes, n_data_shards
 from repro_torch.models import transformer as tf
@@ -450,11 +450,8 @@ def _reduce_scatter_mean(g: torch.Tensor, spec: tuple, mesh: Mesh,
     dim = spec.index(axes)
     n = mesh.n(axes)
     parts = torch.stack(torch.chunk(g, n, dim=dim))   # (n, block...)
-    recv = all_to_all(parts.reshape(n * parts.shape[1], *parts.shape[2:]),
-                      mesh, axes)
-    s = recv[0].float()
-    for r in recv[1:]:
-        s = s + r.float()
+    s = reduce_scatter_sum(
+        parts.reshape(n * parts.shape[1], *parts.shape[2:]), mesh, axes)
     return (s / n).to(g.dtype).reshape(parts.shape[1:])
 
 

@@ -18,8 +18,11 @@ the JAX package on a mesh of Auto axes over forced CPU devices
     the second stage takes the mean of a leaf of two magnitudes, where the
     reference's float32 order drifts: its scales sit 1.6e-4 from a float64
     replay of its own algorithm (``_sign_exact``) on the (18, 64, 128)
-    leaf, the port's 8e-8. There the scales are held to the replay within
-    ``SCALE_RTOL`` and the replay's distance to the reference is printed.
+    leaf, the port's 8e-8 (1.25e-4 and 1.5e-7 without EF). There the
+    scales are held to the replay within ``SCALE_RTOL`` and to the
+    reference within ``POD_SIGN_REF_RTOL``, 2e-4, the largest measured
+    reference-to-replay gap with room for its last digits; both distances
+    are printed.
     The bytes a member sends for int8 on (data 4).
 (b) ``ring_gossip_shard_map`` on 4 members, float32 and bf16: bitwise.
 (c) The mesh: rank r at the row-major coordinates of r, one group per
@@ -39,6 +42,10 @@ from repro_torch.launch.mesh import (make_local_mesh,  # noqa: E402
 from test_torch_collectives import SCALE_RTOL, SIGN_ERR_ATOL  # noqa: E402
 from torch_cluster_jax import run_reference  # noqa: E402
 import torch_cluster_workers as workers  # noqa: E402
+
+# scaled sign on (pod 2, data 2), the port against the reference: the
+# reference's own float32 drift from the float64 replay, 1.6e-4 at most
+POD_SIGN_REF_RTOL = 2e-4
 
 CASES = [(m, meth, e, i) for m in workers.COLL_MESHES
          for meth in workers.COLL_METHODS for e in (1, 0)
@@ -106,10 +113,12 @@ def test_hierarchical_allreduce_matches_reference(coll, mesh, method,
         else:
             np.testing.assert_array_equal(np.sign(got), np.sign(want))
             exact = _sign_exact(mesh, leaf, with_e)[r]
-            np.testing.assert_allclose(got, exact, rtol=SCALE_RTOL)
             print(f"{key}: reference vs float64 replay, max rel "
                   f"{np.abs(want / exact - 1).max():.3g}; port "
-                  f"{np.abs(got / exact - 1).max():.3g}")
+                  f"{np.abs(got / exact - 1).max():.3g}; port vs "
+                  f"reference {np.abs(got / want - 1).max():.3g}")
+            np.testing.assert_allclose(got, exact, rtol=SCALE_RTOL)
+            np.testing.assert_allclose(got, want, rtol=POD_SIGN_REF_RTOL)
         if with_e:
             ge, we = port[r][key + "/err"], ref[key + "/err"][r]
             if method == "sign" and not plain:
@@ -124,13 +133,15 @@ def test_hierarchical_allreduce_matches_reference(coll, mesh, method,
 def test_int8_wire_bytes(coll):
     """int8 on (data 4), a (70000,) leaf: each member sends 3 of its 4
     int8 chunks, its scale to 3 members, its requantized chunk to 3 and
-    its second scale to 3."""
+    its second scale to 3. The plain float32 mean of a (40, 17) leaf is
+    all-reduce-sized: 3 of its 4 float32 chunks out, its summed chunk to
+    3 members."""
     _, port = coll
     c = 70_000 // 4
     want = 3 * c + 3 * 4 + 3 * c + 3 * 4
     for p in port:
         assert int(p["data4/int8/1/1/wire"]) == want
-        assert int(p["data4/none/0/0/wire"]) == 3 * 40 * 17 * 4
+        assert int(p["data4/none/0/0/wire"]) == 2 * 3 * (40 * 17 // 4) * 4
 
 
 @pytest.fixture(scope="module")
@@ -158,7 +169,8 @@ def test_mesh_layout_groups_and_errors(tmp_path):
         assert list(g["pod_ranks"]) == [r % 2, r % 2 + 2]
         assert list(g["data_ranks"]) == [r - r % 2, r - r % 2 + 1]
         assert list(g["both_ranks"]) == [0, 1, 2, 3]
-        assert bool(g["raised_2"]) and bool(g["raised_8"])
+        assert (bool(g["raised_1"]) and bool(g["raised_2"])
+                and bool(g["raised_8"]))
         assert int(g["world"]) == 4
     with pytest.raises(RuntimeError, match="process group of 2 members"):
         make_local_mesh(2, 1)

@@ -69,8 +69,8 @@ def ring(rank: int) -> dict:
 
 
 def mesh_rules(rank: int) -> dict:
-    """Row-major coordinates, the per-axis groups and a mesh whose size
-    differs from the group's, on 4 members."""
+    """Row-major coordinates, the per-axis groups and meshes whose size
+    differs from the group's (one member among them), on 4 members."""
     import torch.distributed as dist
 
     from repro_torch.core.collectives import all_gather
@@ -82,7 +82,7 @@ def mesh_rules(rank: int) -> dict:
                                     "data").numpy(),
            "both_ranks": all_gather(torch.tensor(rank), mesh,
                                     ("pod", "data")).numpy()}
-    for shape in ((2, 1), (8, 1)):
+    for shape in ((1, 1), (2, 1), (8, 1)):
         try:
             make_local_mesh(*shape)
         except ValueError as exc:
