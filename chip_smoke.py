@@ -266,8 +266,10 @@ Phases (any failure exits non-zero):
    bitwise; (c) the trainer at ``--reduced``, card members against CPU
    members: gemma-2b pssgd int8 + EF on (data 2), localsgd int8 at H = 2
    with the pod sync on (pod 2, data 2) through ``launch/steps.py``, fsdp on
-   (data 2) with each member's bytes at rest, qwen2-moe-a2.7b pssgd on
-   (data 1, model 2) through ``moe_forward_ep``; (d) gemma-2b at its
+   (data 2) with each member's bytes at rest, qwen2-moe-a2.7b pssgd int8 +
+   EF on (data 1, model 2) and pssgd none on (data 2, model 2) (the plain
+   mean of each expert block as it is) through ``moe_forward_ep``; each
+   member's wire bytes; (d) gemma-2b at its
    published widths, depth 18 -> 4, float32, pssgd int8 + EF on (data 2),
    global batch (8, 128), 3 steps: per member s a step (CUDA events and
    wall clock), peak GB, wire bytes, params bitwise alike after every step,
@@ -277,6 +279,25 @@ Phases (any failure exits non-zero):
    one-process ``moe_forward``; (f) the fleet config's top-k sweep over 2
    members, bitwise the one-process sweep, ``topk_rows`` launches a member
    summing to its launches; ``cluster_launches`` in the kernels line.
+
+21. dryrun: ``python -m repro_torch.launch.dryrun`` in subprocesses run
+   side by side, one member's step under fake tensors on the card's device
+   over a fake process group (nothing allocated, nothing computed), held
+   against what this run measured: (a) phase 17(b)'s case (gemma-2b at its
+   published size, float32, int8 + EF, (8, 128), one member): argument
+   bytes equal to the state and batch the card held, exactly; peak within
+   DRYRUN_PEAK_RTOL of the card's step-only peak; the flops beside the
+   achieved TFLOP/s at 17(b)'s s a step; (b) phase 20(d)'s case on
+   (data 2): wire bytes a member a step equal to what each member's
+   ``collectives.WIRE`` counted, argument bytes equal to each member's
+   held bytes, peak within DRYRUN_PEAK_RTOL of each member's step-only
+   peak; (b moe) phase 20(c)'s qwen2-moe-a2.7b pssgd none on (data 2,
+   model 2): its wire bytes a member a step, times 3 steps, equal to what
+   each member counted; (c) gemma-2b train_4k ok on 256x1 and ``DENSE_TP``
+   on (16, 16), qwen2-moe-a2.7b ok in all four shapes on (16, 16); every
+   kernel counter 0 in each case's own process (each record's
+   ``kernel_launches``; their sum is ``dryrun_launches`` in the kernels
+   line).
 
 Phase 3 also holds ``qsgd_rows`` given its norms at (6, 744 497 152), rows
 x d past 2^32 (the flat pass), against its plain version row by row.
@@ -500,12 +521,19 @@ CLUSTER_MESHES = (((2, 2), ("pod", "data")), ((4,), ("data",)))
 CLUSTER_SCALE_RTOL, CLUSTER_SIGN_ATOL = 1e-4, 1e-6
 # (c) --reduced, 3 steps of (8, 64) at lr 3e-3, card members against CPU
 # members: (what, arch, mode, compression, mesh shape, axes); (data, model)
-# meshes through run_cluster, the pod mesh through launch/steps.py
-CLUSTER_ARGS = ["--reduced", "--cluster", "--steps", "3", "--seq-len", "64",
-                "--batch", "8", "--local-steps", "2", "--lr", "3e-3"]
+# meshes through run_cluster, the pod mesh through launch/steps.py; the
+# plain float32 mean on (data 2, model 2) reduces each expert block as it
+# is, and phase 21 holds its wire against the dry-run's
+CLUSTER_B, CLUSTER_SEQ, CLUSTER_STEPS = 8, 64, 3
+CLUSTER_ARGS = ["--reduced", "--cluster", "--steps", str(CLUSTER_STEPS),
+                "--seq-len", str(CLUSTER_SEQ), "--batch", str(CLUSTER_B),
+                "--local-steps", "2", "--lr", "3e-3"]
+CLUSTER_MOE_NONE = "pssgd none on (data 2, model 2), moe_forward_ep"
 CLUSTER_TRAIN_FOUR = (
     ("localsgd int8 + EF, H = 2, pod sync, on (pod 2, data 2)", "gemma-2b",
-     "localsgd", "int8", (2, 2, 1), ("pod", "data", "model")),)
+     "localsgd", "int8", (2, 2, 1), ("pod", "data", "model")),
+    (CLUSTER_MOE_NONE, "qwen2-moe-a2.7b", "pssgd", "none", (2, 2),
+     ("data", "model")))
 CLUSTER_TRAIN_TWO = (
     ("pssgd int8 + EF on (data 2)", "gemma-2b", "pssgd", "int8", (2, 1),
      ("data", "model")),
@@ -522,6 +550,27 @@ GEMMA_WIDE_DEPTH, GEMMA_WIDE_B, GEMMA_WIDE_SEQ, GEMMA_WIDE_STEPS = (4, 8,
 # (e) qwen2-moe-a2.7b at its published widths, 2 layers (as phase 16(c)),
 # one (4, 128) batch
 MOE_WIDE_DEPTH, MOE_WIDE_B, MOE_WIDE_SEQ = 2, 4, 128
+# phase 21, the dry-run (python -m repro_torch.launch.dryrun, fake tensors
+# on the card's device, a fake process group) in subprocesses run side by
+# side, held against what phases 17(b), 20(c) and 20(d) measured in this
+# run: (name, CLI arguments, the exit code it must give)
+DRYRUN_CASES = (
+    ("a", ["--arch", "gemma-2b", "--batch", "8", "--seq-len", "128",
+           "--policy", "int8_ef", "--dtype", "float32", "--mesh-shape",
+           "1x1"], 0),
+    ("b", ["--arch", "gemma-2b", "--batch", str(GEMMA_WIDE_B), "--seq-len",
+           str(GEMMA_WIDE_SEQ), "--policy", "int8_ef", "--dtype", "float32",
+           "--depth", str(GEMMA_WIDE_DEPTH), "--mesh-shape", "2x1"], 0),
+    ("b moe", ["--arch", "qwen2-moe-a2.7b", "--reduced", "--no-remat",
+               "--batch", str(CLUSTER_B), "--seq-len", str(CLUSTER_SEQ),
+               "--mesh-shape", "2x2"], 0),
+    ("c 256x1", ["--arch", "gemma-2b", "--shape", "train_4k",
+                 "--mesh-shape", "256x1"], 0),
+    ("c 16x16 gemma", ["--arch", "gemma-2b", "--shape", "train_4k"], 1),
+    ("c 16x16 qwen", ["--arch", "qwen2-moe-a2.7b"], 0))
+DRYRUN_PEAK_RTOL = 0.10
+# what phases 17(b), 20(c) and 20(d) measured, for phase 21
+MEASURED: dict = {}
 ROWS_SRC = "src/repro_torch/kernels/csrc/rows.cu"
 TILES_SRC = "src/repro_torch/kernels/csrc/tiles.cu"
 
@@ -2485,8 +2534,10 @@ def _rel_l2(got: dict, want: dict) -> float:
 def _timed_cluster(args, cfg, dev):
     """``run_cluster(args, cfg=cfg)`` on the card, its init and each step
     timed: returns (its result, its wall s, {"init": (s, peak bytes),
-    "step_s": each step's s by CUDA events, "peak": peak bytes in the
-    steps})."""
+    "step_s": each step's s by CUDA events, "peak": peak bytes after the
+    init, "step_peak": peak bytes over the steps less what was allocated
+    before the init, "held": bytes of the state and batch the first step
+    was handed})."""
     from repro_torch.launch import train as cli
     got = {"events": []}
     orig_init, orig_step = cli.make_init_fn, cli.make_train_step
@@ -2496,7 +2547,7 @@ def _timed_cluster(args, cfg, dev):
 
         def run(key):
             torch.cuda.reset_peak_memory_stats()
-            base = torch.cuda.memory_allocated()
+            base = got["base"] = torch.cuda.memory_allocated()
             state, secs = wall_s(lambda: init(key))
             got["init"] = (secs, torch.cuda.max_memory_allocated() - base)
             torch.cuda.reset_peak_memory_stats()
@@ -2507,12 +2558,15 @@ def _timed_cluster(args, cfg, dev):
         step = orig_step(*a)
 
         def run(state, batch):
+            from repro_torch.launch.specs import state_bytes
+            got.setdefault("held", state_bytes((state, batch)))
             ev = (torch.cuda.Event(enable_timing=True),
                   torch.cuda.Event(enable_timing=True))
             ev[0].record()
             out = step(state, batch)
             ev[1].record()
             got["events"].append(ev)
+            got["step_peak"] = torch.cuda.max_memory_allocated() - got["base"]
             return out
         return run
 
@@ -2592,8 +2646,12 @@ def run_trainer(dev, smi: str) -> dict:
         f"{cfg.param_count()}); {args.mode}/{args.compression}+EF, "
         f"{args.optimizer}, lr {args.lr}, remat, {args.steps} steps of "
         f"({args.batch}, {args.seq_len})")
+    MEASURED["trainer_b"] = dict(held=got["held"],
+                                 step_peak=got["step_peak"], step_s=med)
     log(f"trainer (b) init {got['init'][0]:.3f} s, peak "
-        f"{got['init'][1] / 1e9:.3f} GB; step s (CUDA events) "
+        f"{got['init'][1] / 1e9:.3f} GB; state and batch held "
+        f"{got['held']} B, step-only peak {got['step_peak']} B; step s "
+        f"(CUDA events) "
         f"{[round(x, 4) for x in step_s]}; s a step (median of steps 2-9) "
         f"{med:.4f}, {toks / med:.1f} tokens/s; max_memory_allocated in the "
         f"steps {peak / 1e9:.3f} GB of "
@@ -3465,9 +3523,11 @@ def _cluster_trainer(rank: int, dev, cases) -> dict:
     import contextlib
     import io
     from repro_torch.configs import get_config
+    from repro_torch.core import collectives as coll
     from repro_torch.launch import steps as tsteps
     from repro_torch.launch import train as cli
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.moe import set_expert_parallel_mesh
     res = {}
     for what, arch, mode, comp, shape, axes in cases:
         cfg = get_config(arch).reduced()
@@ -3475,6 +3535,7 @@ def _cluster_trainer(rank: int, dev, cases) -> dict:
         for where in ("cuda", "cpu"):
             d = dev if where == "cuda" else "cpu"
             t0 = time.perf_counter()
+            coll.WIRE.reset()
             if axes == ("data", "model"):
                 args = cli.parser().parse_args(
                     ["--arch", arch, "--mode", mode, "--compression", comp,
@@ -3489,12 +3550,16 @@ def _cluster_trainer(rank: int, dev, cases) -> dict:
                     local_steps=2, lr=3e-3, total_steps=3, remat=False)
                 losses, state = _steps_run(cfg, pol, make_mesh(shape, axes),
                                            d, 3, 8, 64)
+            # the train step's builder routes moe_forward over its mesh, as
+            # the reference's does; (e) after this runs it in one process
+            set_expert_parallel_mesh(None)
             if where == "cuda":
                 torch.cuda.synchronize()
             runs[where] = (losses, {k: v.cpu() for k, v in
                                     state["params"].items()},
-                           time.perf_counter() - t0, _held_bytes(state))
-        (gl, gp, secs, held), (cl, cp, _, _) = runs["cuda"], runs["cpu"]
+                           time.perf_counter() - t0, _held_bytes(state),
+                           coll.WIRE.total)
+        (gl, gp, secs, held, wire), (cl, cp, *_) = runs["cuda"], runs["cpu"]
         rel = float(np.max(np.abs(np.array(gl) - cl) / np.abs(cl)))
         num = sum(float(((gp[k].double() - cp[k].double()) ** 2).sum())
                   for k in cp)
@@ -3502,7 +3567,7 @@ def _cluster_trainer(rank: int, dev, cases) -> dict:
         whole = sum(math.prod(p.shape) * 4 for p in
                     tsteps.param_shapes(cfg).values()) * 3
         res[what] = dict(loss=cl, rel=rel, p_err=(num / den) ** 0.5,
-                         secs=secs, held=held, whole=whole,
+                         secs=secs, held=held, whole=whole, wire=wire,
                          digest=_digest({k: v for k, v in gp.items()
                                          if "/mlp/w_" not in k}))
     return res
@@ -3511,23 +3576,28 @@ def _cluster_trainer(rank: int, dev, cases) -> dict:
 def _ef_checked(orig, worst: list):
     """``compressed_allreduce_leaf`` that records, for each int8 leaf with
     EF, the largest |sent + e' - corrected| (sent = q * scale, in float64)
-    over the float32 bound 2^-24 max|corrected|."""
+    over the float32 bound 2^-24 max|corrected|; a chunk of 2^24 elements
+    at a time, so that the check adds little to the step's peak."""
     from repro_torch.core import collectives as coll
 
     def leaf(g, axis="data", method="none", e=None, min_size=65_536,
              mesh=None):
         out, e_new = orig(g, axis, method, e, min_size, mesh)
         if e is not None and method == "int8" and g.numel() >= min_size:
-            c = g.float().reshape(-1) + e.reshape(-1)
-            scale = torch.clamp_min(c.abs().max(), 1e-20) * coll._INV127
-            bad, chunk = 0.0, 1 << 26
-            for i in range(0, c.numel(), chunk):
-                ci = c[i:i + chunk]
+            gf, ef, en = g.reshape(-1), e.reshape(-1), e_new.reshape(-1)
+            chunk = 1 << 24
+            parts = range(0, gf.numel(), chunk)
+            cmax = max((gf[i:i + chunk].float() + ef[i:i + chunk]).abs().max()
+                       for i in parts)
+            scale = torch.clamp_min(cmax, 1e-20) * coll._INV127
+            bad = 0.0
+            for i in parts:
+                ci = gf[i:i + chunk].float() + ef[i:i + chunk]
                 q = torch.clamp(torch.round(ci / scale), -127, 127)
                 d = (q.double() * scale.double()
-                     + e_new.reshape(-1)[i:i + chunk].double() - ci.double())
+                     + en[i:i + chunk].double() - ci.double())
                 bad = max(bad, float(d.abs().max()))
-            worst.append(bad / (2.0 ** -24 * float(c.abs().max())))
+            worst.append(bad / (2.0 ** -24 * float(cmax)))
         return out, e_new
     return leaf
 
@@ -3542,6 +3612,7 @@ def _cluster_gemma(rank: int, dev) -> dict:
     from repro_torch.core import collectives as coll
     from repro_torch.launch import steps as tsteps
     from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.specs import state_bytes
     cfg = dataclasses.replace(get_config("gemma-2b"),
                               n_layers=GEMMA_WIDE_DEPTH, dtype="float32")
     pol = tsteps.TrainPolicy(mode="pssgd", compression="int8",
@@ -3549,17 +3620,19 @@ def _cluster_gemma(rank: int, dev) -> dict:
                              total_steps=GEMMA_WIDE_STEPS, remat=True)
     mesh = make_local_mesh(2, 1)
     init = tsteps.make_init_fn(cfg, pol, mesh)
+    base = torch.cuda.memory_allocated()
     state, init_s = wall_s(lambda: _in_turns(
         rank, 2, lambda: init(trandom.PRNGKey(0, dev)), dev))
     step = tsteps.make_train_step(cfg, pol, mesh)
     worst, orig = [], coll.compressed_allreduce_leaf
     coll.compressed_allreduce_leaf = _ef_checked(orig, worst)
     out = dict(init_s=init_s, step_s=[], event_s=[], peak=[], wire=[],
-               digests=[], loss=[], ef_worst=[],
+               digests=[], loss=[], ef_worst=[], held=[], base=base,
                d=sum(v.numel() for v in state["params"].values()))
     try:
         for b in _batches(cfg, GEMMA_WIDE_STEPS, GEMMA_WIDE_B, GEMMA_WIDE_SEQ,
                           dev):
+            out["held"].append(state_bytes((state, b)))
             torch.cuda.reset_peak_memory_stats()
             coll.WIRE.reset()
             worst.clear()
@@ -3777,6 +3850,7 @@ def run_cluster_phase(dev, smi: str) -> dict:
         if not ok:
             raise AssertionError(f"cluster (b) ring {dt}")
     _check_trainer(a, "c", CLUSTER_TRAIN_FOUR)
+    MEASURED["cluster_moe"] = [m["c"][CLUSTER_MOE_NONE]["wire"] for m in a]
     e = [m["e"] for m in a]
     r0 = e[0]
     loss_err = abs(r0["loss"] - r0["ref_loss"]) / abs(r0["ref_loss"])
@@ -3809,9 +3883,13 @@ def run_cluster_phase(dev, smi: str) -> dict:
             f"= {m['d']}; init (in turns) {m['init_s']:.3f} s; s a step "
             f"{[round(x, 4) for x in m['step_s']]} (CUDA events "
             f"{[round(x, 4) for x in m['event_s']]}); peak GB "
-            f"{[round(x / 1e9, 3) for x in m['peak']]}; wire bytes a step "
+            f"{[round(x / 1e9, 3) for x in m['peak']]} (step-only, less the "
+            f"{m['base']} B held before the init: "
+            f"{[x - m['base'] for x in m['peak']]} B); state and batch held "
+            f"{m['held']} B; wire bytes a step "
             f"{m['wire']}; loss {m['loss']}; EF identity worst share of the "
             f"float32 bound {[round(x, 4) for x in m['ef_worst']]} on {smi}")
+    MEASURED["cluster_d"] = d
     same = [d[0]["digests"][i] == d[1]["digests"][i]
             for i in range(GEMMA_WIDE_STEPS)]
     log(f"cluster (d) members' params bitwise alike after each step: {same}")
@@ -3851,6 +3929,142 @@ def run_cluster_phase(dev, smi: str) -> dict:
     return total
 
 
+def _dryrun_records(out_dir: str) -> dict:
+    """{(arch, shape, mesh): record} of the dry-run's records in
+    ``out_dir``."""
+    recs = {}
+    for name in sorted(os.listdir(out_dir)):
+        if name.endswith(".json"):
+            with open(os.path.join(out_dir, name)) as f:
+                r = json.load(f)
+            recs[(r["arch"], r["shape"], r["mesh"])] = r
+    return recs
+
+
+def run_dryrun(dev, smi: str) -> dict:
+    """Phase 21: the dry-run's CLI in subprocesses, fake tensors on the
+    card's device, held against phase 17(b)'s trainer and phase 20(d)'s
+    members as this run measured them (a, b) and a sample of its table on
+    the production meshes (c). Returns each kernel's launches summed over
+    the dry-run's cases, each counted in the process that ran it (all 0)."""
+    import shutil
+    out_dir = os.path.join(ROOT, "build", "dryrun")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src")] + [p for p in [os.environ.get(
+            "PYTHONPATH")] if p]))
+    procs = {}
+    for name, argv, _ in DRYRUN_CASES:
+        logf = open(os.path.join(out_dir, f"{name.replace(' ', '_')}.log"),
+                    "w")
+        procs[name] = (subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *argv,
+             "--device", dev.type, "--out", out_dir], cwd=ROOT, env=env,
+            stdout=logf, stderr=subprocess.STDOUT), logf)
+    rcs = {}
+    try:
+        for name, (p, logf) in procs.items():
+            rcs[name] = p.wait(timeout=600)
+            logf.close()
+    finally:
+        for p, _ in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for name, argv, want in DRYRUN_CASES:
+        with open(os.path.join(out_dir, f"{name.replace(' ', '_')}.log")) as f:
+            text = f.read()
+        log(f"dryrun ({name}) {' '.join(argv)}: exit {rcs[name]}; "
+            + " | ".join(text.strip().splitlines()[-6:]))
+        if rcs[name] != want:
+            raise AssertionError(f"dryrun ({name}): exit {rcs[name]}, want "
+                                 f"{want}: {text[-3000:]}")
+    recs = _dryrun_records(out_dir)
+    total = dict.fromkeys(KERNELS, 0)
+    for r in recs.values():
+        for n, v in r["kernel_launches"].items():
+            total[n] += v
+
+    def wire(r):
+        return int(sum(v["bytes"] for v in r["collectives"].values()))
+
+    # (a) phase 17(b)'s case on one member
+    ra = recs[("gemma-2b", "train_8x128", "1x1")]
+    tb = MEASURED["trainer_b"]
+    mem = ra["memory"]
+    share = mem["peak_bytes"] / tb["step_peak"] - 1.0
+    rate = ra["cost"]["flops"] / tb["step_s"]
+    log(f"dryrun (a) gemma-2b float32, int8 + EF, (8, 128), one member: "
+        f"argument bytes {mem['argument_bytes']} (the card held "
+        f"{tb['held']}); peak {mem['peak_bytes']} B against the card's "
+        f"step-only peak {tb['step_peak']} B ({share:+.4f}); flops "
+        f"{ra['cost']['flops']:.6e} a step, {rate / 1e12:.3f} TFLOP/s at "
+        f"phase 17(b)'s {tb['step_s']:.4f} s a step "
+        f"({rate / FP32_OPS_PER_S:.4f} of 67 TFLOP/s float32); traced in "
+        f"{ra['trace_s']} s, {ra['ops']} "
+        f"ops, on {smi}")
+    if not (mem["argument_bytes"] == tb["held"]
+            and abs(share) <= DRYRUN_PEAK_RTOL):
+        raise AssertionError(f"dryrun (a): {mem} vs {tb}")
+
+    # (b) phase 20(d)'s case, member 0 of (data 2)
+    rb = recs[("gemma-2b", f"train_{GEMMA_WIDE_B}x{GEMMA_WIDE_SEQ}", "2x1")]
+    members = MEASURED["cluster_d"]
+    mem = rb["memory"]
+    log(f"dryrun (b) gemma-2b depth {GEMMA_WIDE_DEPTH}, float32, int8 + EF "
+        f"on (data 2): wire bytes a member a step {wire(rb)} "
+        f"{ {k: int(v['bytes']) for k, v in rb['collectives'].items()} } "
+        f"(phase 20(d) measured {[m['wire'] for m in members]}); argument "
+        f"bytes {mem['argument_bytes']} (held {[m['held'] for m in members]}"
+        f"); peak {mem['peak_bytes']} B against the members' step-only peaks "
+        f"{[[x - m['base'] for x in m['peak']] for m in members]} B; flops "
+        f"{rb['cost']['flops']:.6e}; traced in {rb['trace_s']} s")
+    for m in members:
+        peaks = [x - m["base"] for x in m["peak"]]
+        if not (all(w == wire(rb) for w in m["wire"])
+                and all(h == mem["argument_bytes"] for h in m["held"])
+                and abs(mem["peak_bytes"] / max(peaks) - 1.0)
+                <= DRYRUN_PEAK_RTOL):
+            raise AssertionError(f"dryrun (b): {mem}, {wire(rb)} vs "
+                                 f"{m['wire']} {m['held']} {peaks}")
+
+    # (b moe) phase 20(c)'s expert stacks split over model, plain mean
+    rm = recs[("qwen2-moe-a2.7b", f"train_{CLUSTER_B}x{CLUSTER_SEQ}", "2x2")]
+    got = MEASURED["cluster_moe"]
+    log(f"dryrun (b moe) qwen2-moe-a2.7b --reduced, pssgd none, no remat, "
+        f"on (data 2, model 2): wire bytes a member a step {wire(rm)} "
+        f"{ {k: int(v['bytes']) for k, v in rm['collectives'].items()} } "
+        f"x {CLUSTER_STEPS} steps = {CLUSTER_STEPS * wire(rm)} (phase 20(c) "
+        f"measured {got} on the card); traced in {rm['trace_s']} s")
+    if not all(w == CLUSTER_STEPS * wire(rm) for w in got):
+        raise AssertionError(f"dryrun (b moe): {wire(rm)} vs {got}")
+
+    # (c) a sample of the table
+    from repro_torch.launch.steps import DENSE_TP
+    r256 = recs[("gemma-2b", "train_4k", "256x1")]
+    r1616 = recs[("gemma-2b", "train_4k", "16x16")]
+    moe = [recs[("qwen2-moe-a2.7b", s, "16x16")] for s in
+           ("train_4k", "prefill_32k", "decode_32k", "long_500k")]
+    for r in [r256] + moe:
+        log(f"dryrun (c) {r['arch']} {r['shape']} on {r['mesh']}: "
+            f"{r['status']}; argument {r['memory']['argument_bytes']} B, "
+            f"peak {r['memory']['peak_bytes']} B, flops "
+            f"{r['cost']['flops']:.6e}, wire {wire(r)} B, traced in "
+            f"{r['trace_s']} s, {r['ops']} ops")
+    log(f"dryrun (c) gemma-2b train_4k on 16x16: {r1616['status']}: "
+        f"{r1616.get('error', '')[:160]}")
+    if not (r256["status"] == "ok" and all(r["status"] == "ok" for r in moe)
+            and r1616["status"] == "fail" and DENSE_TP in r1616["error"]):
+        raise AssertionError("dryrun (c): the table's sample")
+    log(f"dryrun kernel launches summed over the {len(recs)} cases' "
+        f"records: {total}")
+    if any(total.values()):
+        raise AssertionError("dryrun: kernels launched " + str(
+            {k: r["kernel_launches"] for k, r in recs.items()}))
+    return total
+
+
 def _check_trainer(res: list, key: str, cases) -> None:
     """(c): each case card == CPU within TRAINER_RTOL, and the members'
     replicated params bitwise alike."""
@@ -3865,7 +4079,9 @@ def _check_trainer(res: list, key: str, cases) -> None:
             f"L2 {max(r['p_err'] for r in rows):.3g}; members' replicated "
             f"params bitwise alike {alike}; bytes at rest a member "
             f"{[r['held'] for r in rows]} of {r0['whole']} (params and "
-            f"moments whole); {max(r['secs'] for r in rows):.3f} s")
+            f"moments whole); wire bytes a member in {CLUSTER_STEPS} steps "
+            f"{[r['wire'] for r in rows]}; {max(r['secs'] for r in rows):.3f}"
+            f" s")
         if not (alike and all(r["rel"] <= TRAINER_RTOL
                               and r["p_err"] <= TRAINER_RTOL for r in rows)):
             raise AssertionError(f"cluster (c) {what}: {rows}")
@@ -3897,7 +4113,8 @@ def main() -> int:
               ("trainer", lambda: run_trainer(dev, smi)),
               ("serve", lambda: run_serve(dev, smi)),
               ("leaf", lambda: run_leaf(dev, smi)),
-              ("cluster", lambda: run_cluster_phase(dev, smi))]
+              ("cluster", lambda: run_cluster_phase(dev, smi)),
+              ("dryrun", lambda: run_dryrun(dev, smi))]
     out = {}
     log(f"phase card: {time.perf_counter() - t0:.2f} s")
     for name, fn in phases:
@@ -3921,6 +4138,7 @@ def main() -> int:
                      "serve_launches": out["serve"][name],
                      "leaf_launches": out["leaf"][name],
                      "cluster_launches": out["cluster"][name],
+                     "dryrun_launches": out["dryrun"][name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "device_ms": r["device_ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -49,17 +49,38 @@ GLOO_CUDA_OPS = {"all_gather": True, "all_to_all": True, "send_recv": False}
 
 class WireCounter:
     """Bytes this member sent, by op, and the ops that went through host
-    memory (a message to each other member counted once)."""
+    memory (a message to each other member counted once).
+
+    After ``record_calls()``, ``calls`` also lists each collective as
+    (kind, bytes, group size) under the names of the reference's HLO
+    (``launch/hlo_analysis.py``): ``all_gather`` an all-gather,
+    ``all_to_all`` an all-to-all, ``reduce_scatter_sum`` a reduce-scatter,
+    ``psum`` one all-reduce (its reduce-scatter and all-gather inside it),
+    each of the ring's two sends a collective-permute."""
 
     def __init__(self):
+        self.calls = None
         self.reset()
 
     def reset(self) -> None:
         self.bytes: Dict[str, int] = {}
         self.staged: set = set()
+        if self.calls is not None:
+            self.calls = []
 
-    def add(self, op: str, nbytes: int) -> None:
+    def record_calls(self, on: bool = True) -> None:
+        self.calls = [] if on else None
+
+    def add(self, op: str, nbytes: int, call=None) -> None:
+        """``nbytes`` sent by ``op``; ``call`` (kind, group size) logs
+        them as one call."""
         self.bytes[op] = self.bytes.get(op, 0) + int(nbytes)
+        if call is not None:
+            self.log(call[0], nbytes, call[1])
+
+    def log(self, kind: str, nbytes: int, n: int) -> None:
+        if self.calls is not None:
+            self.calls.append((kind, int(nbytes), n))
 
     @property
     def total(self) -> int:
@@ -81,7 +102,8 @@ def _group(mesh, axis):
     return None if mesh is None else mesh.group(axis)
 
 
-def all_gather(x: torch.Tensor, mesh=None, axis="data") -> torch.Tensor:
+def all_gather(x: torch.Tensor, mesh=None, axis="data", log: bool = True
+               ) -> torch.Tensor:
     """(n, *x.shape): every member's ``x`` along ``axis``, in rank order."""
     group = _group(mesh, axis)
     if group is None:
@@ -91,11 +113,13 @@ def all_gather(x: torch.Tensor, mesh=None, axis="data") -> torch.Tensor:
     src = (x.cpu() if host else x).contiguous()
     outs = [torch.empty_like(src) for _ in range(n)]
     dist.all_gather(outs, src, group=group)
-    WIRE.add("all_gather", (n - 1) * src.numel() * src.element_size())
+    WIRE.add("all_gather", (n - 1) * src.numel() * src.element_size(),
+             ("all-gather", n) if log else None)
     return torch.stack(outs).to(x.device)
 
 
-def all_to_all(x: torch.Tensor, mesh=None, axis="data") -> torch.Tensor:
+def all_to_all(x: torch.Tensor, mesh=None, axis="data", log: bool = True
+               ) -> torch.Tensor:
     """x: (n*c, ...) -> (n, c, ...), chunk i from member i: the
     reduce-scatter wire phase."""
     group = _group(mesh, axis)
@@ -106,7 +130,8 @@ def all_to_all(x: torch.Tensor, mesh=None, axis="data") -> torch.Tensor:
     src = (x.cpu() if host else x).contiguous()
     out = torch.empty_like(src)
     dist.all_to_all_single(out, src, group=group)
-    WIRE.add("all_to_all", (n - 1) * (src.numel() // n) * src.element_size())
+    WIRE.add("all_to_all", (n - 1) * (src.numel() // n) * src.element_size(),
+             ("all-to-all", n) if log else None)
     return out.to(x.device).reshape(n, x.shape[0] // n, *x.shape[1:])
 
 
@@ -118,11 +143,15 @@ def _ordered_sum(parts: torch.Tensor) -> torch.Tensor:
     return s
 
 
-def reduce_scatter_sum(x: torch.Tensor, mesh=None, axis="data"
-                       ) -> torch.Tensor:
+def reduce_scatter_sum(x: torch.Tensor, mesh=None, axis="data",
+                       log: bool = True) -> torch.Tensor:
     """x: (n*c, ...) -> (c, ...) float32: the sum over ``axis`` of every
     member's chunk i on member i, added in rank order (``_ordered_sum``)."""
-    return _ordered_sum(all_to_all(x, mesh, axis))
+    sent = WIRE.total
+    parts = all_to_all(x, mesh, axis, log=False)
+    if log and parts.shape[0] > 1:
+        WIRE.log("reduce-scatter", WIRE.total - sent, parts.shape[0])
+    return _ordered_sum(parts)
 
 
 def psum(x: torch.Tensor, mesh=None, axis="data") -> torch.Tensor:
@@ -135,10 +164,13 @@ def psum(x: torch.Tensor, mesh=None, axis="data") -> torch.Tensor:
     if group is None:
         return x
     n = dist.get_world_size(group)
+    sent = WIRE.total
     flat, numel = _pad_dim0(x.reshape(-1), n)
-    part = reduce_scatter_sum(flat, mesh, axis).to(x.dtype)
+    part = reduce_scatter_sum(flat, mesh, axis, log=False).to(x.dtype)
     del flat
-    return all_gather(part, mesh, axis).reshape(-1)[:numel].reshape(x.shape)
+    out = all_gather(part, mesh, axis, log=False)
+    WIRE.log("all-reduce", WIRE.total - sent, n)
+    return out.reshape(-1)[:numel].reshape(x.shape)
 
 
 def pmean(x: torch.Tensor, mesh=None, axis="data") -> torch.Tensor:
@@ -170,7 +202,9 @@ def ring_exchange(x: torch.Tensor, mesh, axis: str
            dist.P2POp(dist.irecv, right, nxt, group)]
     for req in dist.batch_isend_irecv(ops):
         req.wait()
-    WIRE.add("send_recv", 2 * src.numel() * src.element_size())
+    for _ in range(2):
+        WIRE.add("send_recv", src.numel() * src.element_size(),
+                 ("collective-permute", n))
     if host:
         left, right = left.to(x.device), right.to(x.device)
     return left, right

@@ -20,9 +20,11 @@ batch (``P(dp)``). The ``model`` axis splits only the MoE expert stacks
 (``models/moe.py::moe_forward_ep``); every other leaf is replicated over
 ``model`` and computed whole on each member, which gives the numbers of
 the reference's XLA-managed tensor parallelism. A leaf split over
-``model`` is gathered for the compressed all-reduce, whose scales cover the
-whole leaf, and cut again. On one member every ``pmean`` is the identity,
-but the compressed all-reduce still quantizes twice. Gradients come from
+``model`` is gathered for a compressed all-reduce, whose scales and
+``min_size`` cut cover the whole leaf, and cut again; the plain float32
+mean is elementwise and reduces the member's block as it is. On one
+member every ``pmean`` is the identity, but the compressed all-reduce
+still quantizes twice. Gradients come from
 autograd on the flat param dict, the layers rematerialized when
 ``policy.remat`` asks (``transformer.forward_trunk``). The serving steps
 (``make_prefill_step``, ``make_decode_step``) wrap ``transformer.prefill``
@@ -36,6 +38,7 @@ freed as its new ones are made. Keep a ``copy_state`` to reuse a state.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 from typing import Any, Dict
 
@@ -102,7 +105,13 @@ def copy_state(state: State) -> State:
 
 
 def param_shapes(cfg: ModelConfig) -> Dict:
-    """The params' full shapes, as meta tensors (no draw is computed)."""
+    """The params' full shapes and dtypes, as meta tensors (no draw is
+    computed; worked out once a config)."""
+    return dict(_param_shapes(cfg))
+
+
+@functools.lru_cache(maxsize=16)
+def _param_shapes(cfg: ModelConfig) -> Dict:
     return tf.init_params(cfg, trandom.PRNGKey(0, "meta"))
 
 
@@ -144,12 +153,13 @@ def state_shardings(cfg: ModelConfig, policy: TrainPolicy, mesh: Mesh,
     return out
 
 
-def _full_state(cfg: ModelConfig, policy: TrainPolicy, mesh: Mesh,
-                params: Dict) -> State:
-    """A state of the reference's full shapes (meta tensors) from params of
-    full shapes: the client-stacked params and moments of localsgd, the
-    ``(n_dp, ...)`` EF."""
-    meta = {k: torch.empty(p.shape, device="meta") for k, p in params.items()}
+def full_state(cfg: ModelConfig, policy: TrainPolicy, mesh: Mesh,
+               params: Dict) -> State:
+    """A state of the reference's full shapes and dtypes (meta tensors)
+    from params of full shapes: the client-stacked params and moments of
+    localsgd, the int32 step, the ``(n_dp, ...)`` float32 EF."""
+    meta = {k: torch.empty(p.shape, dtype=p.dtype, device="meta")
+            for k, p in params.items()}
     n_dp = n_data_shards(mesh)
     opt = init_opt_state(meta, policy.optimizer, policy.opt_state_dtype)
     if policy.mode == "localsgd":
@@ -158,9 +168,10 @@ def _full_state(cfg: ModelConfig, policy: TrainPolicy, mesh: Mesh,
                                  _stack(opt.v, n_dp))}
     else:
         state = {"params": meta, "opt": opt}
-    state["step"] = torch.empty((), device="meta")
+    state["step"] = torch.empty((), dtype=torch.int32, device="meta")
     if _use_ef(policy):
-        state["ef"] = _stack(meta, n_dp)
+        state["ef"] = _stack({k: torch.empty(p.shape, device="meta")
+                              for k, p in meta.items()}, n_dp)
     return state
 
 
@@ -170,7 +181,7 @@ def held_specs(cfg: ModelConfig, policy: TrainPolicy, mesh: Mesh) -> State:
     expert stacks."""
     params = param_shapes(cfg)
     specs = state_shardings(cfg, policy, mesh,
-                            _full_state(cfg, policy, mesh, params))
+                            full_state(cfg, policy, mesh, params))
 
     def held(tree):
         if tree is None:
@@ -311,9 +322,11 @@ def local_batch(batch: Dict, mesh: Mesh, *, divisible: bool = True) -> Dict:
 
 def _allreduce_leaf(k, g, e, axes, policy, mesh, mspec):
     """The compressed all-reduce of one leaf over ``axes``: a leaf split
-    over ``model`` (an expert stack) is gathered whole first, so that its
-    scales cover the leaf, and cut again after."""
-    split = any(a is not None for a in mspec)
+    over ``model`` (an expert stack) is gathered whole first, so that the
+    scales and the ``min_size`` cut cover the leaf, and cut again after;
+    the plain float32 mean gives the same bits on the block."""
+    split = (policy.compression != "none"
+             and any(a is not None for a in mspec))
     if split:
         g = shard_rules.gather(g, mspec, mesh)
         e = None if e is None else shard_rules.gather(e, mspec, mesh)

@@ -18,6 +18,10 @@ over forced CPU devices, on the CPU.
 (b) Trainer steps (``tests/test_torch_cluster_steps.py::check_case``):
     qwen2-moe-a2.7b pssgd int8 + EF on (data 1, model 2), its expert stacks
     split over model at rest.
+(c) The plain float32 all-reduce of an expert stack's block over ``data``
+    on (data 2, model 2), which reduces the block as it is, and the bf16
+    one, which gathers it: bitwise the mean of the gathered leaf cut
+    again, output and error.
 """
 import numpy as np
 import pytest
@@ -106,3 +110,14 @@ def steps_ref(tmp_path_factory):
 @pytest.mark.parametrize("case", STEP_CASES)
 def test_moe_steps_on_members_match_reference(steps_ref, case, tmp_path):
     check_case(case, *steps_ref, str(tmp_path))
+
+
+def test_elementwise_allreduce_of_expert_block_is_the_gathered_one(
+        tmp_path):
+    got = members.spawn(workers.expert_mean, 4,
+                        rendezvous_dir=str(tmp_path))
+    for res in got:
+        for method, (out, err, want, want_err) in res.items():
+            np.testing.assert_array_equal(out, want, err_msg=method)
+            np.testing.assert_array_equal(err, want_err, err_msg=method)
+            assert out.shape == (2,) + workers.EXPERT_LEAF[1:]

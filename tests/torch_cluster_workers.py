@@ -270,6 +270,36 @@ def moe_ep(rank: int, ref_path: str, m: int, cap: float) -> dict:
     return res
 
 
+# an expert stack (experts, d, d_ff) split over model on (data 2, model 2)
+EXPERT_LEAF = (4, 128, 160)
+
+
+def expert_mean(rank: int) -> dict:
+    """``steps._allreduce_leaf`` of an expert stack's block over ``data``
+    against the mean of the gathered leaf cut again, output and error, for
+    the plain mean (the block as it is) and bf16 (gathered: the block is
+    under ``min_size``, the leaf is not)."""
+    from repro_torch.core.collectives import hierarchical_allreduce
+    from repro_torch.launch import sharding, steps
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((2, 2), ("data", "model"))
+    spec = ("model", None, None)
+    g, e = (sharding.shard(torch.as_tensor(x), spec, mesh) for x in
+            member_leaf(EXPERT_LEAF, 25, mesh.index("data")))
+    res = {}
+    for method in ("none", "bf16"):
+        pol = steps.TrainPolicy(compression=method, error_feedback=True)
+        out, err = steps._allreduce_leaf("w", g, e, ("data",), pol, mesh,
+                                         spec)
+        whole, werr = hierarchical_allreduce(
+            {"w": sharding.gather(g, spec, mesh)}, ("data",), method,
+            {"w": sharding.gather(e, spec, mesh)}, mesh=mesh)
+        res[method] = (out.numpy(), err.numpy(),
+                       sharding.shard(whole["w"], spec, mesh).numpy(),
+                       sharding.shard(werr["w"], spec, mesh).numpy())
+    return res
+
+
 def linear_loss(p, b):
     return ((b["x"] @ p["w"] - b["y"]) ** 2).mean(), {}
 
@@ -290,12 +320,14 @@ def sweep(rank: int, args_path: str) -> dict:
 
 def cli(rank: int, argv) -> dict:
     """``python -m repro_torch.launch.train`` with ``argv`` on this member:
-    what it printed."""
+    what it printed and the bytes it sent."""
     import contextlib
     import io
 
+    from repro_torch.core import collectives as tc
     from repro_torch.launch import train as ttrain
     buf = io.StringIO()
+    tc.WIRE.reset()
     with contextlib.redirect_stdout(buf):
         ttrain.main(list(argv), device="cpu")
-    return {"stdout": buf.getvalue()}
+    return {"stdout": buf.getvalue(), "wire": tc.WIRE.total}
