@@ -56,8 +56,8 @@ Phases (any failure exits non-zero):
    within rtol 1e-4, epsilon within rtol 1e-5; the CPU run's smallest SNR
    margin to the decode threshold, ``|snr / snr_min - 1|``, must exceed
    1e-5 (an ulp of the fading draw could flip a decode closer than that);
-   then a sweep (2 seeds x random and best_channel in mixture mode x 2
-   dropout probabilities x privacy none and dp) and the host loop with an
+   then a sweep (random and best_channel in mixture mode x a dropout
+   probability of 0.4 x privacy none and dp) and the host loop with an
    opaque ``eval_fn``, each on the card against the CPU; every run of the
    phase takes REF_ROUNDS rounds;
 7. engine: the headline fleet configuration (N = 100000 clients, linear
@@ -268,8 +268,10 @@ Phases (any failure exits non-zero):
    with the pod sync on (pod 2, data 2) through ``launch/steps.py``, fsdp on
    (data 2) with each member's bytes at rest, qwen2-moe-a2.7b pssgd int8 +
    EF on (data 1, model 2) and pssgd none on (data 2, model 2) (the plain
-   mean of each expert block as it is) through ``moe_forward_ep``; each
-   member's wire bytes; (d) gemma-2b at its
+   mean of each expert block as it is) through ``moe_forward_ep``, and the
+   block split over model (``models/tp.py``): stablelm-12b pssgd int8 + EF
+   on (data 2, model 2) and whisper-base pssgd none on (data 1, model 2);
+   each member's wire bytes; (d) gemma-2b at its
    published widths, depth 18 -> 4, float32, pssgd int8 + EF on (data 2),
    global batch (8, 128), 3 steps: per member s a step (CUDA events and
    wall clock), peak GB, wire bytes, params bitwise alike after every step,
@@ -278,7 +280,13 @@ Phases (any failure exits non-zero):
    through ``moe_forward_ep`` on (data 1, model 4) against the
    one-process ``moe_forward``; (f) the fleet config's top-k sweep over 2
    members, bitwise the one-process sweep, ``topk_rows`` launches a member
-   summing to its launches; ``cluster_launches`` in the kernels line.
+   summing to its launches; (g) gemma-2b as in (d) but pssgd none with
+   every leaf split over model on (data 1, model 2): a (4, 128) prompt and
+   8 greedy decode steps, then 3 train steps, against the same on (1, 1) in
+   one process: loss a step, gathered params, greedy tokens and logits
+   within TP_WIDE_*; the members' whole leaves bitwise alike; per member s
+   a step, step-only peak, bytes held, wire a step by kind, ms a decode
+   step; ``cluster_launches`` in the kernels line.
 
 21. dryrun: ``python -m repro_torch.launch.dryrun`` in subprocesses run
    side by side, one member's step under fake tensors on the card's device
@@ -293,8 +301,12 @@ Phases (any failure exits non-zero):
    held bytes, peak within DRYRUN_PEAK_RTOL of each member's step-only
    peak; (b moe) phase 20(c)'s qwen2-moe-a2.7b pssgd none on (data 2,
    model 2): its wire bytes a member a step, times 3 steps, equal to what
-   each member counted; (c) gemma-2b train_4k ok on 256x1 and ``DENSE_TP``
-   on (16, 16), qwen2-moe-a2.7b ok in all four shapes on (16, 16); every
+   each member counted; (g) phase 20(g)'s case on (data 1, model 2): wire
+   bytes a step by kind and argument bytes equal to each member's, peak
+   within DRYRUN_PEAK_RTOL of each member's step-only peak; (c) gemma-2b
+   train_4k ok on 256x1 and on (16, 16), falcon-mamba-7b train_4k
+   ``DENSE_TP`` on (16, 16), qwen2-moe-a2.7b ok in all four shapes on (16,
+   16); every
    kernel counter 0 in each case's own process (each record's
    ``kernel_launches``; their sum is ``dryrun_launches`` in the kernels
    line).
@@ -362,9 +374,11 @@ KERNEL_OF = {"topk": "topk_rows", "qsgd": "qsgd_rows",
              "scaled_sign": "sign_ef_rows"}
 SNR_MARGIN = 1e-5
 # phase 6's depth: its N = 4096 runs on the CPU dominate the script, so they
-# take one round (they took two), which keeps the script well inside its
-# time limit; N and d are not cut
-REF_ROUNDS = 1
+# take one round (they took two); N and d are not cut. Its sweep's CPU run
+# took 92.5 s of the phase's 189 s for 16 variants (2 seeds x 2 dropout
+# probabilities): it runs 4 (one seed, the dropout of 0.4), which keeps the
+# script inside its time limit
+REF_ROUNDS, REF_SWEEP_DROP = 1, 0.4
 # benchmarks/bench_sweep.py: N = 16 clients, 4 scheduled, top-k, the full
 # grid (10 policies x 4 seeds x 5 learning rates) and its --fast grid (2 x 2,
 # its rounds capped at 8), the linear problem of benchmarks/common.py at
@@ -529,10 +543,21 @@ CLUSTER_ARGS = ["--reduced", "--cluster", "--steps", str(CLUSTER_STEPS),
                 "--seq-len", str(CLUSTER_SEQ), "--batch", str(CLUSTER_B),
                 "--local-steps", "2", "--lr", "3e-3"]
 CLUSTER_MOE_NONE = "pssgd none on (data 2, model 2), moe_forward_ep"
+CLUSTER_STABLELM = ("pssgd int8 + EF on (data 2, model 2), the block split "
+                    "over model")
+CLUSTER_WHISPER = "pssgd none on (data 1, model 2), the block split over model"
+# a case's arguments after CLUSTER_ARGS: run_cluster asserts the loss falls,
+# and in 3 steps of (8, 64) at lr 3e-3 it does not for stablelm-12b (one
+# member or four) nor whisper-base (4 steps of (8, 16) as
+# tests/test_torch_cluster_cli.py trains the audio family)
+CLUSTER_EXTRA = {CLUSTER_STABLELM: ["--lr", "1e-2"],
+                 CLUSTER_WHISPER: ["--steps", "4", "--seq-len", "16"]}
 CLUSTER_TRAIN_FOUR = (
     ("localsgd int8 + EF, H = 2, pod sync, on (pod 2, data 2)", "gemma-2b",
      "localsgd", "int8", (2, 2, 1), ("pod", "data", "model")),
     (CLUSTER_MOE_NONE, "qwen2-moe-a2.7b", "pssgd", "none", (2, 2),
+     ("data", "model")),
+    (CLUSTER_STABLELM, "stablelm-12b", "pssgd", "int8", (2, 2),
      ("data", "model")))
 CLUSTER_TRAIN_TWO = (
     ("pssgd int8 + EF on (data 2)", "gemma-2b", "pssgd", "int8", (2, 1),
@@ -540,7 +565,9 @@ CLUSTER_TRAIN_TWO = (
     ("fsdp on (data 2)", "gemma-2b", "fsdp", "none", (2, 1),
      ("data", "model")),
     ("pssgd int8 + EF on (data 1, model 2), moe_forward_ep",
-     "qwen2-moe-a2.7b", "pssgd", "int8", (1, 2), ("data", "model")))
+     "qwen2-moe-a2.7b", "pssgd", "int8", (1, 2), ("data", "model")),
+    (CLUSTER_WHISPER, "whisper-base", "pssgd", "none", (1, 2),
+     ("data", "model")))
 # (d) gemma-2b at its published widths, depth 18 -> 4 so that two members'
 # float32 states fit on the card (~23 GB each; one member's init draw peaks
 # near 60 GB, so the members draw in turns), pssgd int8 + EF, adamw at the
@@ -550,10 +577,20 @@ GEMMA_WIDE_DEPTH, GEMMA_WIDE_B, GEMMA_WIDE_SEQ, GEMMA_WIDE_STEPS = (4, 8,
 # (e) qwen2-moe-a2.7b at its published widths, 2 layers (as phase 16(c)),
 # one (4, 128) batch
 MOE_WIDE_DEPTH, MOE_WIDE_B, MOE_WIDE_SEQ = 2, 4, 128
+# (g) gemma-2b at its published widths split over model: (d)'s depth,
+# dtype, optimizer, remat, batch and steps, pssgd none on (data 1, model 2)
+# (int8 on a data axis of 1 would gather every split leaf for its scales),
+# against one process on (1, 1); then a (4, 128) prompt and 8 greedy decode
+# steps. The tolerances of the (1, 2) run against the (1, 1) run: about
+# ten times the drift the order of the sums over model gave on an NVIDIA
+# H100 80GB HBM3 at 700 W (loss 9.83e-08 relative, params and logits
+# 1.8e-06 relative L2; PERF.md section 6)
+TP_WIDE_PROMPT, TP_WIDE_GEN = (4, 128), 8
+TP_WIDE_LOSS_RTOL, TP_WIDE_PARAMS_L2, TP_WIDE_LOGITS_L2 = 1e-6, 2e-5, 2e-5
 # phase 21, the dry-run (python -m repro_torch.launch.dryrun, fake tensors
 # on the card's device, a fake process group) in subprocesses run side by
-# side, held against what phases 17(b), 20(c) and 20(d) measured in this
-# run: (name, CLI arguments, the exit code it must give)
+# side, held against what phases 17(b), 20(c), 20(d) and 20(g) measured in
+# this run: (name, CLI arguments, the exit code it must give)
 DRYRUN_CASES = (
     ("a", ["--arch", "gemma-2b", "--batch", "8", "--seq-len", "128",
            "--policy", "int8_ef", "--dtype", "float32", "--mesh-shape",
@@ -566,10 +603,15 @@ DRYRUN_CASES = (
                "--mesh-shape", "2x2"], 0),
     ("c 256x1", ["--arch", "gemma-2b", "--shape", "train_4k",
                  "--mesh-shape", "256x1"], 0),
-    ("c 16x16 gemma", ["--arch", "gemma-2b", "--shape", "train_4k"], 1),
-    ("c 16x16 qwen", ["--arch", "qwen2-moe-a2.7b"], 0))
+    ("c 16x16 gemma", ["--arch", "gemma-2b", "--shape", "train_4k"], 0),
+    ("c 16x16 falcon", ["--arch", "falcon-mamba-7b", "--shape", "train_4k"],
+     1),
+    ("c 16x16 qwen", ["--arch", "qwen2-moe-a2.7b"], 0),
+    ("g", ["--arch", "gemma-2b", "--batch", str(GEMMA_WIDE_B), "--seq-len",
+           str(GEMMA_WIDE_SEQ), "--policy", "baseline", "--dtype", "float32",
+           "--depth", str(GEMMA_WIDE_DEPTH), "--mesh-shape", "1x2"], 0))
 DRYRUN_PEAK_RTOL = 0.10
-# what phases 17(b), 20(c) and 20(d) measured, for phase 21
+# what phases 17(b), 20(c), 20(d) and 20(g) measured, for phase 21
 MEASURED: dict = {}
 ROWS_SRC = "src/repro_torch/kernels/csrc/rows.cu"
 TILES_SRC = "src/repro_torch/kernels/csrc/tiles.cu"
@@ -1052,8 +1094,9 @@ def check_against_cpu(dev) -> None:
         raise AssertionError(f"reference: an SNR lies within {margin:.3g} "
                              "of the decode threshold; pick another seed")
     for algo, comp, extra in cases:
-        logs = []
+        logs, secs = [], []
         for device in (dev, "cpu"):
+            t0 = time.perf_counter()
             cfg = rt.SimConfig(
                 n_devices=n, n_scheduled=64, rounds=rounds, local_steps=2,
                 policy="random", compression=comp, chunk_size=1024,
@@ -1063,6 +1106,7 @@ def check_against_cpu(dev) -> None:
             _, lg = rt.run_simulation_scan(
                 cfg, _loss, {"w": np.zeros(d, np.float32)}, device=device)
             logs.append(lg)
+            secs.append(time.perf_counter() - t0)
         g, c = logs
         what = " ".join(v for v in (algo, comp, extra.get("privacy"),
                                     "faults" if "faults" in extra else None)
@@ -1072,7 +1116,8 @@ def check_against_cpu(dev) -> None:
             f"survivors {c.n_survived.tolist()}, drops "
             f"{c.n_dropped.tolist()}, retransmissions "
             f"{c.retransmissions.tolist()}); loss max rel diff {rel:.3g}; "
-            f"epsilon {c.epsilon.tolist()}")
+            f"epsilon {c.epsilon.tolist()}; s card / cpu "
+            f"{secs[0]:.2f} / {secs[1]:.2f}")
     check_sweep_and_host_against_cpu(dev, w_star, d, n, seed)
 
 
@@ -1107,13 +1152,19 @@ def check_sweep_and_host_against_cpu(dev, w_star, d, n, seed) -> None:
                        algo_params=algos.algo_params(lr=0.1),
                        datagen=datagen)
     params0 = {"w": np.zeros(d, np.float32)}
-    sweeps = [rt.run_sweep(
-        cfg, _loss, params0, None, seeds=(0, 1),
-        policies=("random", "best_channel"),
-        fparams_grid=[faults.fault_params(drop_prob=p) for p in (0.1, 0.4)],
-        privacies=("none", "dp"),
-        pparams_grid=[privacy.privacy_params(**PRIVACY)], device=device)
-        for device in (dev, "cpu")]
+    sweeps, sweep_s = [], []
+    for device in (dev, "cpu"):
+        out, secs = wall_s(lambda: rt.run_sweep(
+            cfg, _loss, params0, None, seeds=(0,),
+            policies=("random", "best_channel"),
+            fparams_grid=[faults.fault_params(drop_prob=REF_SWEEP_DROP)],
+            privacies=("none", "dp"),
+            pparams_grid=[privacy.privacy_params(**PRIVACY)],
+            device=device))
+        sweeps.append(out)
+        sweep_s.append(secs)
+    log(f"reference sweep: s card / cpu {sweep_s[0]:.2f} / "
+        f"{sweep_s[1]:.2f}")
     for key, c in sweeps[1].items():
         rel = _card_equals_cpu(f"sweep {key}", sweeps[0][key], c)
         log(f"reference sweep {key} {c.loss.shape[0]} variants: card == "
@@ -3526,11 +3577,15 @@ def _cluster_trainer(rank: int, dev, cases) -> dict:
     from repro_torch.core import collectives as coll
     from repro_torch.launch import steps as tsteps
     from repro_torch.launch import train as cli
-    from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models.moe import set_expert_parallel_mesh
+    from repro_torch.launch.mesh import Mesh, make_mesh
+    from repro_torch.models.tp import set_model_mesh
     res = {}
     for what, arch, mode, comp, shape, axes in cases:
         cfg = get_config(arch).reduced()
+        # the leaves a member holds a block of over model
+        split = {k for k, sp in tsteps.held_specs(
+            cfg, tsteps.TrainPolicy(mode=mode, compression=comp),
+            Mesh(shape, axes, bind=False))["params"].items() if "model" in sp}
         runs = {}
         for where in ("cuda", "cpu"):
             d = dev if where == "cuda" else "cpu"
@@ -3540,7 +3595,8 @@ def _cluster_trainer(rank: int, dev, cases) -> dict:
                 args = cli.parser().parse_args(
                     ["--arch", arch, "--mode", mode, "--compression", comp,
                      "--mesh-data", str(shape[0]), "--mesh-model",
-                     str(shape[1])] + CLUSTER_ARGS)
+                     str(shape[1])] + CLUSTER_ARGS
+                    + CLUSTER_EXTRA.get(what, []))
                 with contextlib.redirect_stdout(io.StringIO()):
                     losses, state = cli.run_cluster(args, device=d)
             else:
@@ -3550,9 +3606,9 @@ def _cluster_trainer(rank: int, dev, cases) -> dict:
                     local_steps=2, lr=3e-3, total_steps=3, remat=False)
                 losses, state = _steps_run(cfg, pol, make_mesh(shape, axes),
                                            d, 3, 8, 64)
-            # the train step's builder routes moe_forward over its mesh, as
-            # the reference's does; (e) after this runs it in one process
-            set_expert_parallel_mesh(None)
+            # the train step's builder names its mesh to the layers; (e)
+            # after this runs in one process
+            set_model_mesh(None)
             if where == "cuda":
                 torch.cuda.synchronize()
             runs[where] = (losses, {k: v.cpu() for k, v in
@@ -3569,7 +3625,7 @@ def _cluster_trainer(rank: int, dev, cases) -> dict:
         res[what] = dict(loss=cl, rel=rel, p_err=(num / den) ** 0.5,
                          secs=secs, held=held, whole=whole, wire=wire,
                          digest=_digest({k: v for k, v in gp.items()
-                                         if "/mlp/w_" not in k}))
+                                         if k not in split}))
     return res
 
 
@@ -3656,6 +3712,137 @@ def _cluster_gemma(rank: int, dev) -> dict:
     return out
 
 
+def _tp_serve(cfg, params, mesh, dev) -> dict:
+    """A (4, 128) prompt and TP_WIDE_GEN greedy decode steps on ``mesh``
+    (this member's blocks of ``params``): the tokens, each step's logits
+    gathered whole (on the host), and ms a decode step."""
+    from repro_torch.launch import serve
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.models import tp, transformer as tf
+    b, s_ = TP_WIDE_PROMPT
+    prompt = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (b, s_)), dtype=torch.int32, device=dev)
+    out = dict(tokens=[], logits=[], decode_ms=[])
+    with torch.no_grad():
+        logits, pf = tsteps.make_prefill_step(cfg, mesh=mesh)(
+            params, {"tokens": prompt})
+        cache = serve._load_prefill(cfg, tf.init_decode_cache(
+            cfg, b, s_ + TP_WIDE_GEN, device=dev, model=mesh.n("model")),
+            pf, s_)
+        del pf
+        decode = tsteps.make_decode_step(cfg, circular=False, mesh=mesh)
+        for i in range(TP_WIDE_GEN + 1):
+            full = tp.gather_last(logits, cfg.vocab_size)
+            token = full[:, -1, :].argmax(dim=-1).to(torch.int32)[:, None]
+            out["tokens"].append(token.cpu())
+            out["logits"].append(full.cpu())
+            if i == TP_WIDE_GEN:
+                break
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = decode(params, cache, token, s_ + i)
+            torch.cuda.synchronize()
+            out["decode_ms"].append((time.perf_counter() - t0) * 1e3)
+    tp.set_model_mesh(None)
+    return out
+
+
+def _tp_train(cfg, pol, mesh, dev, rank: int, world: int) -> dict:
+    """(g)'s run on ``mesh``: the init (in turns over ``world`` members),
+    the serving of ``_tp_serve``, then GEMMA_WIDE_STEPS train steps, each
+    timed (wall clock and CUDA events), with its step-only peak, the state
+    and batch held and the wire by kind; returns the state too."""
+    from repro_torch import random as trandom
+    from repro_torch.core import collectives as coll
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.launch.specs import state_bytes
+    init = tsteps.make_init_fn(cfg, pol, mesh)
+    base = torch.cuda.memory_allocated()
+    make = (lambda: init(trandom.PRNGKey(0, dev)))
+    state, init_s = wall_s(lambda: _in_turns(rank, world, make, dev)
+                           if world > 1 else make())
+    out = dict(init_s=init_s, base=base, step_s=[], event_s=[], peak=[],
+               held=[], wire=[], loss=[])
+    out["serve"] = _tp_serve(cfg, state["params"], mesh, dev)
+    torch.cuda.empty_cache()
+    step = tsteps.make_train_step(cfg, pol, mesh)
+    coll.WIRE.record_calls()
+    try:
+        for b in _batches(cfg, GEMMA_WIDE_STEPS, GEMMA_WIDE_B,
+                          GEMMA_WIDE_SEQ, dev):
+            out["held"].append(state_bytes((state, b)))
+            torch.cuda.reset_peak_memory_stats()
+            coll.WIRE.reset()
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            (state, m), secs = wall_s(lambda: step(state, b))
+            ev[1].record()
+            torch.cuda.synchronize()
+            out["step_s"].append(secs)
+            out["event_s"].append(ev[0].elapsed_time(ev[1]) / 1e3)
+            out["peak"].append(torch.cuda.max_memory_allocated())
+            kinds = {}
+            for kind, nbytes, _ in coll.WIRE.calls:
+                kinds[kind] = kinds.get(kind, 0) + nbytes
+            out["wire"].append(kinds)
+            out["loss"].append(float(m["loss"]))
+    finally:
+        coll.WIRE.record_calls(False)
+    return out, state
+
+
+def _cluster_tp(rank: int, dev) -> dict:
+    """(g): gemma-2b at its published widths, depth cut, float32, pssgd
+    none, every leaf the rules split held in blocks over model on (data 1,
+    model 2); member 0 first runs the same on (1, 1) alone (the other
+    waits), and holds the members' losses, served tokens and logits and
+    gathered params against it."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding as shard_rules
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.launch.mesh import Mesh, make_local_mesh
+    from repro_torch.models import tp
+    cfg = dataclasses.replace(get_config("gemma-2b"),
+                              n_layers=GEMMA_WIDE_DEPTH, dtype="float32")
+    pol = tsteps.TrainPolicy(mode="pssgd", compression="none", lr=1e-3,
+                             total_steps=GEMMA_WIDE_STEPS, remat=True)
+    one = None
+    if rank == 0:
+        one, state = _tp_train(cfg, pol, Mesh((1, 1), ("data", "model"),
+                                                bind=False), dev, 0, 1)
+        one["params"] = {k: v.cpu() for k, v in state["params"].items()}
+        del state
+        torch.cuda.empty_cache()
+    dist.barrier()
+    mesh = make_local_mesh(1, 2)
+    out, state = _tp_train(cfg, pol, mesh, dev, rank, 2)
+    specs = tsteps.held_specs(cfg, pol, mesh)["params"]
+    split = {k for k, sp in specs.items() if "model" in sp}
+    out["split"] = sorted(split)
+    out["digest"] = _digest({k: v for k, v in state["params"].items()
+                             if k not in split})
+    num = den = 0.0
+    for k in sorted(state["params"]):   # gathered whole, leaf by leaf
+        g = shard_rules.gather(state["params"][k], specs[k], mesh)
+        if rank == 0:
+            r = one["params"].pop(k).to(dev).double()
+            num += float(((g.double() - r) ** 2).sum())
+            den += float((r ** 2).sum())
+        del g
+    del state
+    torch.cuda.empty_cache()
+    if rank == 0:
+        out["params_err"] = (num / den) ** 0.5
+        del one["params"]
+        out["one"] = one
+    tp.set_model_mesh(None)
+    dist.barrier()
+    return out
+
+
 def _cluster_moe_wide(rank: int, dev) -> dict:
     """(e): qwen2-moe-a2.7b at its published widths, MOE_WIDE_DEPTH layers,
     one batch's loss and gradient through ``moe_forward_ep`` on (data 1,
@@ -3668,7 +3855,7 @@ def _cluster_moe_wide(rank: int, dev) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.launch import sharding as shard_rules
     from repro_torch.launch.mesh import make_local_mesh
-    from repro_torch.models import moe, transformer as tf
+    from repro_torch.models import tp, transformer as tf
     cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b"),
                               n_layers=MOE_WIDE_DEPTH, dtype="float32")
     mesh = make_local_mesh(1, 4)
@@ -3717,11 +3904,11 @@ def _cluster_moe_wide(rank: int, dev) -> dict:
         del x
     torch.cuda.empty_cache()
     took("hand out")
-    moe.set_expert_parallel_mesh(mesh)
+    tp.set_model_mesh(mesh)
     try:
         (loss, grads), secs = wall_s(lambda: value_grad(params))
     finally:
-        moe.set_expert_parallel_mesh(None)
+        tp.set_model_mesh(None)
     took("moe_forward_ep")
     out.update(loss=loss, secs=secs,
                expert_bytes=sum(params[k].numel() * 4 for k in experts),
@@ -3787,7 +3974,8 @@ def _members_two(rank: int, device: str) -> dict:
     _member_counts()
     out = {}
     parts = (("c", lambda: _cluster_trainer(rank, dev, CLUSTER_TRAIN_TWO)),
-             ("d", lambda: _cluster_gemma(rank, dev)))
+             ("d", lambda: _cluster_gemma(rank, dev)),
+             ("g", lambda: _cluster_tp(rank, dev)))
     for name, fn in parts:
         out[name], out[name + "_s"] = wall_s(fn)
     out["launches"] = _member_counts()
@@ -3913,8 +4101,9 @@ def run_cluster_phase(dev, smi: str) -> dict:
         f"(one process {one_s:.3f} s)")
     if sum(per) != one_counts["topk_rows"]:
         raise AssertionError(f"cluster (f): launches {per} vs {one_counts}")
+    _check_tp(b, smi)
     log(f"cluster spawn B parts s: "
-        f"{ {k: round(b[0][k + '_s'], 2) for k in 'cdf'} }")
+        f"{ {k: round(b[0][k + '_s'], 2) for k in 'cdfg'} }")
     total = dict.fromkeys(one_counts, 0)
     for m in a + b:
         for n, v in m["launches"].items():
@@ -3927,6 +4116,55 @@ def run_cluster_phase(dev, smi: str) -> dict:
             total[n] += v
     log(f"cluster kernel launches summed over the members: {total}")
     return total
+
+
+def _check_tp(b: list, smi: str) -> None:
+    """(g): the (1, 2) members against the (1, 1) run: losses, served
+    tokens and logits, gathered params; the members' whole leaves bitwise
+    alike; each member's figures, kept for phase 21."""
+    g = [m["g"] for m in b]
+    one = g[0]["one"]
+    for r, m in enumerate([one] + g):
+        what = "one process (1, 1)" if r == 0 else f"member {r - 1} of (1, 2)"
+        dec = m["serve"]["decode_ms"]
+        log(f"cluster (g) gemma-2b at its published widths, depth 18 -> "
+            f"{GEMMA_WIDE_DEPTH}, float32, pssgd none, global batch "
+            f"({GEMMA_WIDE_B}, {GEMMA_WIDE_SEQ}), {what}: init "
+            f"{m['init_s']:.3f} s; s a step "
+            f"{[round(x, 4) for x in m['step_s']]} (CUDA events "
+            f"{[round(x, 4) for x in m['event_s']]}); step-only peak B "
+            f"{[x - m['base'] for x in m['peak']]} (peak GB "
+            f"{[round(x / 1e9, 3) for x in m['peak']]}); state and batch "
+            f"held {m['held']} B; wire bytes a step by kind {m['wire']}; "
+            f"loss {m['loss']}; serve {TP_WIDE_PROMPT} + {TP_WIDE_GEN} "
+            f"greedy steps: ms a decode step median "
+            f"{float(np.median(dec)):.3f} (all {[round(x, 3) for x in dec]}) "
+            f"on {smi}")
+    loss_err = max(abs(a - c) / abs(c) for m in g
+                   for a, c in zip(m["loss"], one["loss"]))
+    tok_same = all(torch.equal(torch.cat(m["serve"]["tokens"], 1),
+                               torch.cat(one["serve"]["tokens"], 1))
+                   for m in g)
+    lg_err = max(float((a.double() - c.double()).norm() / c.double().norm())
+                 for m in g for a, c in zip(m["serve"]["logits"],
+                                            one["serve"]["logits"]))
+    gaps = [float(torch.topk(c[:, -1], 2).values.diff(dim=-1).abs().min())
+            for c in one["serve"]["logits"]]
+    alike = g[0]["digest"] == g[1]["digest"]
+    log(f"cluster (g) (1, 2) against (1, 1): loss max rel diff "
+        f"{loss_err:.3g} (limit {TP_WIDE_LOSS_RTOL}); gathered params "
+        f"relative L2 {g[0]['params_err']:.3g} (limit {TP_WIDE_PARAMS_L2}); "
+        f"greedy tokens equal {tok_same} (smallest top-2 logit gap a step "
+        f"{min(gaps):.3g}); logits relative L2 max {lg_err:.3g} (limit "
+        f"{TP_WIDE_LOGITS_L2}); members' whole leaves bitwise alike {alike} "
+        f"(split over model: {len(g[0]['split'])} leaves)")
+    MEASURED["cluster_g"] = g
+    if not (loss_err <= TP_WIDE_LOSS_RTOL
+            and g[0]["params_err"] <= TP_WIDE_PARAMS_L2 and tok_same
+            and lg_err <= TP_WIDE_LOGITS_L2 and alike
+            and g[0]["loss"] == g[1]["loss"]
+            and all(np.isfinite(m["loss"]).all() for m in g)):
+        raise AssertionError("cluster (g): the (1, 2) run against (1, 1)")
 
 
 def _dryrun_records(out_dir: str) -> dict:
@@ -4040,22 +4278,45 @@ def run_dryrun(dev, smi: str) -> dict:
     if not all(w == CLUSTER_STEPS * wire(rm) for w in got):
         raise AssertionError(f"dryrun (b moe): {wire(rm)} vs {got}")
 
+    # (g) phase 20(g)'s case, each member of (data 1, model 2)
+    rg = recs[("gemma-2b", f"train_{GEMMA_WIDE_B}x{GEMMA_WIDE_SEQ}", "1x2")]
+    members = MEASURED["cluster_g"]
+    mem = rg["memory"]
+    kinds = {k: int(v["bytes"]) for k, v in rg["collectives"].items()}
+    peaks = [[x - m["base"] for x in m["peak"]] for m in members]
+    log(f"dryrun (g) gemma-2b depth {GEMMA_WIDE_DEPTH}, float32, pssgd none "
+        f"on (data 1, model 2): wire bytes a member a step by kind {kinds} "
+        f"(phase 20(g) measured {[m['wire'] for m in members]}); argument "
+        f"bytes {mem['argument_bytes']} (held {[m['held'] for m in members]}"
+        f"); peak {mem['peak_bytes']} B against the members' step-only peaks "
+        f"{peaks} B; flops {rg['cost']['flops']:.6e}; traced in "
+        f"{rg['trace_s']} s")
+    for m, pk in zip(members, peaks):
+        if not (all(w == kinds for w in m["wire"])
+                and all(h == mem["argument_bytes"] for h in m["held"])
+                and abs(mem["peak_bytes"] / max(pk) - 1.0)
+                <= DRYRUN_PEAK_RTOL):
+            raise AssertionError(f"dryrun (g): {mem}, {kinds} vs "
+                                 f"{m['wire']} {m['held']} {pk}")
+
     # (c) a sample of the table
     from repro_torch.launch.steps import DENSE_TP
     r256 = recs[("gemma-2b", "train_4k", "256x1")]
     r1616 = recs[("gemma-2b", "train_4k", "16x16")]
+    rfm = recs[("falcon-mamba-7b", "train_4k", "16x16")]
     moe = [recs[("qwen2-moe-a2.7b", s, "16x16")] for s in
            ("train_4k", "prefill_32k", "decode_32k", "long_500k")]
-    for r in [r256] + moe:
+    for r in [r256, r1616] + moe:
         log(f"dryrun (c) {r['arch']} {r['shape']} on {r['mesh']}: "
             f"{r['status']}; argument {r['memory']['argument_bytes']} B, "
             f"peak {r['memory']['peak_bytes']} B, flops "
             f"{r['cost']['flops']:.6e}, wire {wire(r)} B, traced in "
             f"{r['trace_s']} s, {r['ops']} ops")
-    log(f"dryrun (c) gemma-2b train_4k on 16x16: {r1616['status']}: "
-        f"{r1616.get('error', '')[:160]}")
+    log(f"dryrun (c) falcon-mamba-7b train_4k on 16x16: {rfm['status']}: "
+        f"{rfm.get('error', '')[:160]}")
     if not (r256["status"] == "ok" and all(r["status"] == "ok" for r in moe)
-            and r1616["status"] == "fail" and DENSE_TP in r1616["error"]):
+            and r1616["status"] == "ok" and rfm["status"] == "fail"
+            and DENSE_TP in rfm["error"]):
         raise AssertionError("dryrun (c): the table's sample")
     log(f"dryrun kernel launches summed over the {len(recs)} cases' "
         f"records: {total}")
@@ -4079,7 +4340,7 @@ def _check_trainer(res: list, key: str, cases) -> None:
             f"L2 {max(r['p_err'] for r in rows):.3g}; members' replicated "
             f"params bitwise alike {alike}; bytes at rest a member "
             f"{[r['held'] for r in rows]} of {r0['whole']} (params and "
-            f"moments whole); wire bytes a member in {CLUSTER_STEPS} steps "
+            f"moments whole); wire bytes a member over the run "
             f"{[r['wire'] for r in rows]}; {max(r['secs'] for r in rows):.3f}"
             f" s")
         if not (alike and all(r["rel"] <= TRAINER_RTOL

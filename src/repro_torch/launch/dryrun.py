@@ -23,10 +23,10 @@ takes the config's ``reduced()``, and ``--dtype`` and ``--depth`` replace
 its dtype and layer count; ``--no-remat`` keeps each layer's activations
 (the trainer's ``--reduced`` setting), where a policy recomputes them. A
 case that fails is a record with ``status`` "fail" and its error: on the
-production meshes every config without experts fails with
-``steps.DENSE_TP``, as the port's ``model`` axis splits only expert
-stacks. The CLI exits 1 if any case failed. Run it in a process of its own: it holds the process's
-default group, a fake one.
+production meshes the ssm and hybrid configs fail with
+``steps.DENSE_TP``, as the port holds their recurrent blocks whole over
+``model``. The CLI exits 1 if any case failed. Run it in a process of its
+own: it holds the process's default group, a fake one.
 """
 from __future__ import annotations
 
@@ -54,7 +54,7 @@ from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.specs import build_case, state_bytes
 from repro_torch.launch.steps import TrainPolicy
 from repro_torch.models import layers, xla_math
-from repro_torch.models.moe import set_expert_parallel_mesh
+from repro_torch.models.tp import set_model_mesh
 
 ARTIFACT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                             "experiments", "artifacts_torch")
@@ -98,11 +98,11 @@ def mesh_of(mesh_shape: Optional[str], multi_pod: bool = False):
 
 def reset_globals() -> None:
     """The model's cached constants (a case's are fake tensors of its
-    mode, which no other case and no real step may take) and the expert
-    parallel mesh a case set."""
+    mode, which no other case and no real step may take) and the model
+    axis's mesh a case named."""
     layers.rope_frequencies.cache_clear()
     xla_math.const64.cache_clear()
-    set_expert_parallel_mesh(None)
+    set_model_mesh(None)
 
 
 def analyze(cfg, shape: ShapeSpec, mesh, policy: TrainPolicy,

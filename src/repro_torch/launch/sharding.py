@@ -56,6 +56,13 @@ _RULES: Dict[str, Tuple[Optional[int], Optional[int]]] = {
 # expert dim in the trailing-3 position -> tp on the expert axis instead.
 _MOE_EXPERT_NAMES = {"w_gate": (-3, -2), "w_up": (-3, -2), "w_down": (-3, -1)}
 
+# the mamba and RG-LRU leaves, which the port holds whole over ``model``
+# where the rules split them (ROADMAP queue A item 8b)
+_RECURRENT_NAMES = frozenset((
+    "in_proj", "conv_w", "conv_b", "x_proj", "dt_proj", "dt_bias", "A_log",
+    "D", "out_proj", "in_x", "in_gate", "w_a", "w_i", "b_a", "b_i",
+    "Lambda"))
+
 
 def data_entry(mesh: Mesh):
     """The spec entry of the data axes: one axis as its name, several as a
@@ -78,6 +85,21 @@ def is_expert_stack(path: str, shape, cfg: ModelConfig) -> bool:
     the ``model`` axis splits)."""
     return bool(_leaf_name(path) in _MOE_EXPERT_NAMES and cfg.n_experts
                 and _in_moe_subtree(path) and len(shape) >= 3)
+
+
+def model_split(path: str) -> bool:
+    """Whether the port splits the leaf at ``path`` over ``model`` where
+    the rules do: every leaf but the mamba and RG-LRU blocks'."""
+    return _leaf_name(path) not in _RECURRENT_NAMES
+
+
+def held_spec(spec: Spec, path: str) -> Spec:
+    """The spec a member holds the param at ``path`` by, from its
+    reference-layout ``spec``: ``model`` dropped where the port holds the
+    leaf whole (``model_split``)."""
+    if model_split(path):
+        return spec
+    return tuple(None if a == "model" else a for a in spec)
 
 
 def param_spec(path: str, shape: Tuple[int, ...], cfg: ModelConfig,

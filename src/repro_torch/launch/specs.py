@@ -13,18 +13,19 @@ moments, step and EF from ``steps.full_state``, the batch from
 member's block is ``sharding.shard_shape`` of its global leaf under the
 spec the member holds it by. ``specs`` holds the reference-layout spec of
 every leaf, in the structure of ``args``; the held spec drops its
-``model`` axis but on expert stacks (``held_spec``), as the port's
-``model`` axis splits only those. A ``pos`` is a Python int, as
+``model`` axis on the mamba and RG-LRU leaves (``sharding.held_spec``)
+and, in a cache, wherever the rule puts it on another dim than the kv
+heads' (``held_cache_spec``). A ``pos`` is a Python int, as
 ``transformer.decode_step`` takes it, with spec ``()``.
 
 A train step is handed the global batch and cuts its rows itself
 (``steps.local_batch``), as ``run_cluster`` hands it to every member; the
 serving cases run as a member would: its block of the batch over the data
-axes (``batch_shardings``: replicated where the batch does not divide), the
-caches by ``cache_shardings`` and, on an MoE config, the experts over
-``model`` (``set_expert_parallel_mesh``). Every kind calls
-``steps.check_model_axis``: a ``model`` axis above 1 on a config without
-experts raises ``steps.DENSE_TP``.
+axes (``batch_shardings``: replicated where the batch does not divide), its
+blocks of the params and caches, the layers split over ``model``
+(``steps.make_prefill_step`` / ``make_decode_step`` on the mesh). Every
+kind calls ``steps.check_model_axis``: a ``model`` axis above 1 on the
+ssm or hybrid family raises ``steps.DENSE_TP``.
 """
 from __future__ import annotations
 
@@ -39,7 +40,6 @@ from repro_torch.launch import steps as steps_mod
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import torch_dtype
-from repro_torch.models.moe import set_expert_parallel_mesh
 
 
 def _meta(shape, dtype) -> torch.Tensor:
@@ -90,12 +90,16 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
-def held_spec(cfg: ModelConfig, spec: tuple, path: str = None) -> tuple:
-    """The spec a member holds a leaf by, from its reference-layout
-    ``spec``: ``model`` dropped but on an expert stack (a param, keyed by
-    its ``path``)."""
-    keep = path is not None and shard_rules.is_expert_stack(path, spec, cfg)
-    return tuple(None if a == "model" and not keep else a for a in spec)
+def held_cache_spec(cfg: ModelConfig, spec: tuple) -> tuple:
+    """The spec a member holds a cache leaf by: ``model`` kept where the
+    rule puts it on the kv heads (the dim before the last) of an attention
+    cache, dropped elsewhere (the rule finds the dim by its size, and may
+    pick the sequence dim where the kv heads do not divide; the recurrent
+    states of the ssm and hybrid families are held whole)."""
+    kv_dim = len(spec) - 2
+    keep = cfg.family not in ("ssm", "hybrid")
+    return tuple(None if a == "model" and not (keep and i == kv_dim) else a
+                 for i, a in enumerate(spec))
 
 
 def _train_inputs(cfg, shape, mesh, policy):
@@ -112,7 +116,7 @@ def _train_inputs(cfg, shape, mesh, policy):
 def _params_inputs(cfg, mesh):
     params = steps_mod.param_shapes(cfg)
     params_sh = shard_rules.param_shardings(cfg, params, mesh)
-    return params, params_sh, {k: held_spec(cfg, sp, k)
+    return params, params_sh, {k: shard_rules.held_spec(sp, k)
                                for k, sp in params_sh.items()}
 
 
@@ -128,8 +132,8 @@ def _decode_inputs(cfg, shape, mesh):
     d = decode_specs(cfg, shape)
     cache_sh = shard_rules.cache_shardings(cfg, d["cache"], mesh,
                                            shape.global_batch)
-    cache_held = tree_map(lambda x, sp: held_spec(cfg, sp), d["cache"],
-                          cache_sh)
+    cache_held = tree_map(lambda x, sp: held_cache_spec(cfg, sp),
+                          d["cache"], cache_sh)
     tok_sh = shard_rules.batch_shardings({"token": d["token"]},
                                          mesh)["token"]
     return ((params, d["cache"], d["token"], d["pos"]),
@@ -178,21 +182,15 @@ def train_case(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh,
 def prefill_case(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh,
                  fake: FakeTensorMode = None, device="cuda"):
     """(prefill_step, (params, batch), their specs)."""
-    steps_mod.check_model_axis(cfg, mesh.shape.get("model", 1))
-    if cfg.n_experts:
-        set_expert_parallel_mesh(mesh)
-    return _case(mesh, steps_mod.make_prefill_step(cfg),
+    return _case(mesh, steps_mod.make_prefill_step(cfg, mesh=mesh),
                  _prefill_inputs(cfg, shape, mesh), fake, device)
 
 
 def decode_case(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh,
                 fake: FakeTensorMode = None, device="cuda"):
     """(decode_step, (params, cache, token, pos), their specs)."""
-    steps_mod.check_model_axis(cfg, mesh.shape.get("model", 1))
-    if cfg.n_experts:
-        set_expert_parallel_mesh(mesh)
     step_fn = steps_mod.make_decode_step(
-        cfg, circular=shape.sliding_window_decode)
+        cfg, circular=shape.sliding_window_decode, mesh=mesh)
     return _case(mesh, step_fn, _decode_inputs(cfg, shape, mesh), fake,
                  device)
 

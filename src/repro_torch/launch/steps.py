@@ -16,16 +16,17 @@ of ``repro/launch/steps.py``'s ``TrainPolicy``, ``make_init_fn``,
 The reference maps the step over its mesh with ``shard_map``; here each
 member is a process (``launch/mesh.py``) that keeps its block of every
 state leaf, as ``state_shardings`` places it, and receives its rows of the
-batch (``P(dp)``). The ``model`` axis splits only the MoE expert stacks
-(``models/moe.py::moe_forward_ep``); every other leaf is replicated over
-``model`` and computed whole on each member, which gives the numbers of
-the reference's XLA-managed tensor parallelism. A leaf split over
-``model`` is gathered for a compressed all-reduce, whose scales and
-``min_size`` cut cover the whole leaf, and cut again; the plain float32
-mean is elementwise and reduces the member's block as it is. On one
-member every ``pmean`` is the identity, but the compressed all-reduce
-still quantizes twice. Gradients come from
-autograd on the flat param dict, the layers rematerialized when
+batch (``P(dp)``). The ``model`` axis splits every leaf the rules split but
+the mamba and RG-LRU blocks' (``held_specs``): the layers compute with
+their blocks, Megatron-style (``models/tp.py``, named by the builders), and
+the expert stacks go through ``models/moe.py::moe_forward_ep``; that gives
+the numbers of the reference's XLA-managed tensor parallelism up to the
+order of the sums over ``model``. A leaf split over ``model`` is gathered
+for a compressed all-reduce, whose scales and ``min_size`` cut cover the
+whole leaf, and cut again; the plain float32 mean is elementwise and
+reduces the member's block as it is. On one member every ``pmean`` is the
+identity, but the compressed all-reduce still quantizes twice. Gradients
+come from autograd on the flat param dict, the layers rematerialized when
 ``policy.remat`` asks (``transformer.forward_trunk``). The serving steps
 (``make_prefill_step``, ``make_decode_step``) wrap ``transformer.prefill``
 and ``decode_step``.
@@ -39,7 +40,6 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import os
 from typing import Any, Dict
 
 import torch
@@ -51,15 +51,16 @@ from repro_torch.core.collectives import (hierarchical_allreduce, pmean,
 from repro_torch.launch import sharding as shard_rules
 from repro_torch.launch.mesh import Mesh, data_axes, n_data_shards
 from repro_torch.models import transformer as tf
-from repro_torch.models.moe import set_expert_parallel_mesh
+from repro_torch.models.tp import set_model_mesh
 from repro_torch.optim.optimizers import (OptState, apply_updates,
                                           init_opt_state)
 from repro_torch.optim.schedules import get_schedule
 
 State = Dict[str, Any]
 
-DENSE_TP = ("dense tensor parallelism (splitting wq/wk/wv/wo and the MLP "
-            "over the model axis) is ROADMAP queue A item 8")
+DENSE_TP = ("tensor parallelism of the mamba and RG-LRU blocks (splitting "
+            "their leaves and recurrent states over the model axis) is "
+            "ROADMAP queue A item 8b")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,12 +117,12 @@ def _param_shapes(cfg: ModelConfig) -> Dict:
 
 
 def check_model_axis(cfg: ModelConfig, model: int) -> None:
-    """A ``model`` axis of more than one member splits expert stacks only:
-    on a config without experts it raises."""
-    if model > 1 and not cfg.n_experts:
+    """A ``model`` axis of more than one member on the ssm or hybrid
+    family raises: their recurrent blocks run whole."""
+    if model > 1 and cfg.family in ("ssm", "hybrid"):
         raise NotImplementedError(
-            f"a model axis of {model} on {cfg.name}, which has no experts: "
-            f"{DENSE_TP}")
+            f"a model axis of {model} on {cfg.name}, of the {cfg.family} "
+            f"family: {DENSE_TP}")
 
 
 # ===========================================================================
@@ -177,8 +178,8 @@ def full_state(cfg: ModelConfig, policy: TrainPolicy, mesh: Mesh,
 
 def held_specs(cfg: ModelConfig, policy: TrainPolicy, mesh: Mesh) -> State:
     """The spec of every leaf of a member's state, as ``state_shardings``
-    places the reference's, but with the ``model`` axis splitting only the
-    expert stacks."""
+    places the reference's, but with the mamba and RG-LRU leaves whole over
+    ``model`` (``sharding.model_split``)."""
     params = param_shapes(cfg)
     specs = state_shardings(cfg, policy, mesh,
                             full_state(cfg, policy, mesh, params))
@@ -186,11 +187,7 @@ def held_specs(cfg: ModelConfig, policy: TrainPolicy, mesh: Mesh) -> State:
     def held(tree):
         if tree is None:
             return None
-        return {k: tuple(None if (a == "model" and not
-                                  shard_rules.is_expert_stack(
-                                      k, params[k].shape, cfg)) else a
-                         for a in spec)
-                for k, spec in tree.items()}
+        return {k: shard_rules.held_spec(spec, k) for k, spec in tree.items()}
     out = {"params": held(specs["params"]),
            "opt": OptState((), held(specs["opt"].m), held(specs["opt"].v)),
            "step": ()}
@@ -284,9 +281,7 @@ def make_init_fn(cfg: ModelConfig, policy: TrainPolicy, mesh: Mesh):
 # ===========================================================================
 def make_train_step(cfg: ModelConfig, policy: TrainPolicy, mesh: Mesh):
     check_model_axis(cfg, mesh.shape.get("model", 1))
-    if cfg.n_experts:
-        set_expert_parallel_mesh(
-            None if os.environ.get("REPRO_DISABLE_EP") else mesh)
+    set_model_mesh(mesh)
     if policy.mode == "fsdp":
         return _make_fsdp_step(cfg, policy, mesh)
     if policy.mode == "localsgd":
@@ -363,7 +358,7 @@ def _apply(opt_fn, params, grads, opt: OptState, lr) -> OptState:
 
 
 def _model_split(specs: Dict[str, tuple]) -> Dict[str, tuple]:
-    """Each leaf's split over ``model`` alone (the expert stacks')."""
+    """Each leaf's split over ``model`` alone."""
     return {k: tuple(a if a == "model" else None for a in sp)
             for k, sp in specs.items()}
 
@@ -473,8 +468,8 @@ def _make_fsdp_step(cfg: ModelConfig, policy: TrainPolicy, mesh: Mesh):
     dpe = shard_rules.data_entry(mesh)
     schedule = get_schedule(cfg.lr_schedule, policy.lr, policy.total_steps)
     opt_fn = apply_updates(policy.optimizer)
-    # every leaf whole for the step: gathered over the data axes (the
-    # expert stacks stay split over model)
+    # every leaf whole over the data axes for the step: gathered (the
+    # split over model stays)
     dspecs = {k: tuple(a if a == dpe else None for a in sp) for k, sp in
               held_specs(cfg, policy, mesh)["params"].items()}
 
@@ -503,9 +498,16 @@ def _make_fsdp_step(cfg: ModelConfig, policy: TrainPolicy, mesh: Mesh):
 # ===========================================================================
 # Serving steps
 # ===========================================================================
-def make_prefill_step(cfg: ModelConfig, q_chunk: int = 1024):
+def make_prefill_step(cfg: ModelConfig, q_chunk: int = 1024, mesh=None):
     """(params, batch) -> (last-token logits, cache); ``batch`` holds the
-    tokens and any vision / audio embeddings."""
+    tokens and any vision / audio embeddings. On ``mesh`` a member passes
+    its blocks of the params (``held_specs``) and its rows of the batch,
+    and receives its block of the logits (over the vocabulary, where it
+    splits: ``models/tp.py::gather_last``) and of the cache."""
+    if mesh is not None:
+        check_model_axis(cfg, mesh.shape.get("model", 1))
+        set_model_mesh(mesh)
+
     def prefill_step(params, batch):
         extras = {k: v for k, v in batch.items() if k != "tokens"}
         return tf.prefill(params, cfg, batch["tokens"], extras,
@@ -513,9 +515,13 @@ def make_prefill_step(cfg: ModelConfig, q_chunk: int = 1024):
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig, *, circular: bool):
+def make_decode_step(cfg: ModelConfig, *, circular: bool, mesh=None):
     """(params, cache, token, pos) -> (logits, new cache); ``pos`` a Python
-    int."""
+    int. On ``mesh``, a member's blocks, as ``make_prefill_step``."""
+    if mesh is not None:
+        check_model_axis(cfg, mesh.shape.get("model", 1))
+        set_model_mesh(mesh)
+
     def decode_step(params, cache, token, pos):
         return tf.decode_step(params, cfg, cache, token, pos,
                               circular=circular)

@@ -18,9 +18,10 @@
 A mesh of more than one member runs inside a process group of as many
 members (``torchrun``, or a caller's group, ``launch/members.py``) and
 raises outside one. Only rank 0 prints, and the checkpoint is gathered to
-rank 0 in the reference's layout. ``--mesh-model`` above 1 splits the MoE
-expert stacks; on a config without experts it raises (dense tensor
-parallelism, ROADMAP queue A item 8). Trains all six families;
+rank 0 in the reference's layout. ``--mesh-model`` above 1 splits the
+transformer block over the model axis (heads, MLP, vocabulary, the MoE
+expert stacks); on the ssm and hybrid families it raises (their recurrent
+blocks, ROADMAP queue A item 8b). Trains all six families;
 ``--cluster`` feeds the vlm and audio families zero vision / audio
 embeddings, as the reference does, and the federated path feeds none, so
 it fails on them with the reference's ``KeyError``.

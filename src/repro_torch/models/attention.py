@@ -6,6 +6,18 @@ Written with matmuls (``einsum``) and ``softmax`` as the reference writes it,
 so that the port computes what the reference computes, under ``torch.func``
 too; no fused attention. Long sequences are computed in query chunks, so
 the live score buffer is O(q_chunk * seq), not O(seq^2).
+
+Over a mesh's ``model`` axis (``models/tp.py``) a member holds its block
+of the q heads where ``n_heads`` splits (``wq`` by column, ``wo`` by row)
+and of the kv heads where ``n_kv_heads`` does (``wk`` / ``wv`` and the
+caches); every count of heads is read off the member's blocks. The input
+enters at ``enter`` and ``wo``'s partial outputs are summed over
+``model``. Global q head i attends with kv head ``i // (n_heads //
+n_kv_heads)``: where the q heads split and the kv heads do not, each
+member takes the kv heads of its own q heads (``local_kv``), whole groups
+or, where its q heads cut a group, one kv head a q head; and the whole
+``wk`` / ``wv`` enter through ``tp.copy_to``, since their gradient on a
+member comes from its q heads only.
 """
 from __future__ import annotations
 
@@ -14,6 +26,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch import random as trandom
+from repro_torch.models import tp
 from repro_torch.models.layers import apply_rope, dense_init
 
 Params = Dict[str, torch.Tensor]
@@ -36,18 +49,69 @@ def init_attention(key, d_model: int, n_heads: int, n_kv_heads: int,
     }
 
 
+def split_q(p: Params, n_heads: int, head_dim: int) -> bool:
+    """Whether ``p`` holds this member's block of the q heads."""
+    return p["wq"].shape[-1] != n_heads * head_dim
+
+
+def enter(p: Params, x: torch.Tensor, n_heads: int,
+          head_dim: int) -> torch.Tensor:
+    """``x`` entering the attention of ``p``: ``tp.copy_to`` where the q
+    heads split, else as it is."""
+    return tp.copy_to(x) if split_q(p, n_heads, head_dim) else x
+
+
 def project_q(p: Params, x: torch.Tensor, n_heads: int,
               head_dim: int) -> torch.Tensor:
+    """(B, S, heads, hd): this member's q heads (``n_heads`` is the
+    config's; the member's count is ``wq``'s)."""
     b, s, _ = x.shape
-    return (x @ p["wq"]).reshape(b, s, n_heads, head_dim)
+    return (x @ p["wq"]).reshape(b, s, p["wq"].shape[-1] // head_dim,
+                                 head_dim)
 
 
-def project_kv(p: Params, x: torch.Tensor, n_kv_heads: int, head_dim: int
+def project_kv(p: Params, x: torch.Tensor, n_kv_heads: int, head_dim: int,
+               n_heads: int | None = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """This member's k and v heads (all of them where they do not split;
+    ``wk`` / ``wv`` then enter through ``tp.copy_to`` where the q heads,
+    given by ``n_heads``, split)."""
     b, s, _ = x.shape
-    k = (x @ p["wk"]).reshape(b, s, n_kv_heads, head_dim)
-    v = (x @ p["wv"]).reshape(b, s, n_kv_heads, head_dim)
+    wk, wv = p["wk"], p["wv"]
+    hk = wk.shape[-1] // head_dim
+    if (n_heads is not None and hk == n_kv_heads
+            and split_q(p, n_heads, head_dim)):
+        wk, wv = tp.copy_to(wk), tp.copy_to(wv)
+    k = (x @ wk).reshape(b, s, hk, head_dim)
+    v = (x @ wv).reshape(b, s, hk, head_dim)
     return k, v
+
+
+def local_kv(k: torch.Tensor, v: torch.Tensor, hq: int, n_heads: int,
+             n_kv_heads: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kv heads (dim 2 of k, v: (B, T, K, hd)) that this member's
+    ``hq`` q heads attend with: k and v as they are where the q heads are
+    whole or the kv heads split with them; else the kv heads of its global
+    q heads, as whole groups where every kv head serves the same number of
+    them, else one kv head a q head."""
+    if hq == n_heads or k.shape[2] != n_kv_heads:
+        return k, v
+    g = n_heads // n_kv_heads
+    first = tp.index() * hq
+    ids = [(first + j) // g for j in range(hq)]
+    lo, hi = ids[0], ids[-1] + 1
+    if all(ids.count(i) * (hi - lo) == hq for i in range(lo, hi)):
+        return k[:, :, lo:hi], v[:, :, lo:hi]
+    idx = torch.tensor(ids, device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def project_out(p: Params, out: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """(B, S, heads, hd) -> (B, S, d) through ``wo``; the members' partial
+    outputs summed over ``model`` where they hold a block of the heads."""
+    b, s, h, hd = out.shape
+    y = out.reshape(b, s, h * hd) @ p["wo"]
+    return tp.sum_over(y) if h != n_heads else y
 
 
 def _block_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -108,15 +172,17 @@ def self_attention(p: Params, x: torch.Tensor, *, n_heads: int,
     """Training / prefill self-attention. x: (B,S,d). ``return_kv`` also
     returns the (k, v) it attended to, k after RoPE: the prefill cache."""
     b, s, _ = x.shape
+    x = enter(p, x, n_heads, head_dim)
     q = project_q(p, x, n_heads, head_dim)
-    k, v = project_kv(p, x, n_kv_heads, head_dim)
+    k, v = project_kv(p, x, n_kv_heads, head_dim, n_heads)
     if use_rope:
         pos = torch.arange(s, device=x.device)[None, :]
         q = apply_rope(q, pos, rope_theta)
         k = apply_rope(k, pos, rope_theta)
-    out = attention_core(q, k, v, n_kv_heads=n_kv_heads, causal=True,
+    ka, va = local_kv(k, v, q.shape[2], n_heads, n_kv_heads)
+    out = attention_core(q, ka, va, n_kv_heads=ka.shape[2], causal=True,
                          window=window, softcap=softcap, q_chunk=q_chunk)
-    out = out.reshape(b, s, n_heads * head_dim) @ p["wo"]
+    out = project_out(p, out, n_heads)
     if return_kv:
         return out, (k, v)
     return out
@@ -139,8 +205,9 @@ def decode_self_attention(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
     """
     pos = int(pos)
     b, t = x.shape[0], cache_k.shape[1]
+    x = enter(p, x, n_heads, head_dim)
     q = project_q(p, x, n_heads, head_dim)
-    k_new, v_new = project_kv(p, x, n_kv_heads, head_dim)
+    k_new, v_new = project_kv(p, x, n_kv_heads, head_dim, n_heads)
     if use_rope:
         pos_arr = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
         q = apply_rope(q, pos_arr, rope_theta)
@@ -155,17 +222,19 @@ def decode_self_attention(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
     # slot j holds a valid key iff the ring has wrapped or j <= pos
     k_valid = (slots <= pos) | (circular and pos >= t)
 
-    g = n_heads // n_kv_heads
-    qg = q.reshape(b, 1, n_kv_heads, g, head_dim)
+    hq = q.shape[2]
+    ka, va = local_kv(cache_k, cache_v, hq, n_heads, n_kv_heads)
+    hk = ka.shape[2]
+    qg = q.reshape(b, 1, hk, hq // hk, head_dim)
     scale = head_dim ** -0.5
     scores = torch.einsum("bckgh,btkh->bkgct", qg,
-                          cache_k).to(torch.float32) * scale
+                          ka).to(torch.float32) * scale
     if softcap > 0.0:
         scores = softcap * torch.tanh(scores / softcap)
     scores = torch.where(k_valid, scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(cache_v.dtype)
-    out = torch.einsum("bkgct,btkh->bckgh", probs, cache_v)
-    out = out.reshape(b, 1, n_heads * head_dim) @ p["wo"]
+    probs = torch.softmax(scores, dim=-1).to(va.dtype)
+    out = torch.einsum("bkgct,btkh->bckgh", probs, va)
+    out = project_out(p, out.reshape(b, 1, hq, head_dim), n_heads)
     return out, (cache_k, cache_v)
 
 
@@ -173,12 +242,13 @@ def cross_attention(p: Params, x: torch.Tensor, kv_k: torch.Tensor,
                     kv_v: torch.Tensor, *, n_heads: int, n_kv_heads: int,
                     head_dim: int, q_chunk: int = 1024) -> torch.Tensor:
     """Cross-attention over precomputed k/v (vision patches / encoder
-    frames). No causal mask, no RoPE (absolute context set)."""
-    b, s, _ = x.shape
-    q = project_q(p, x, n_heads, head_dim)
-    out = attention_core(q, kv_k, kv_v, n_kv_heads=n_kv_heads, causal=False,
+    frames; this member's kv heads, ``project_kv``). No causal mask, no
+    RoPE (absolute context set)."""
+    q = project_q(p, enter(p, x, n_heads, head_dim), n_heads, head_dim)
+    ka, va = local_kv(kv_k, kv_v, q.shape[2], n_heads, n_kv_heads)
+    out = attention_core(q, ka, va, n_kv_heads=ka.shape[2], causal=False,
                          q_chunk=q_chunk)
-    return out.reshape(b, s, n_heads * head_dim) @ p["wo"]
+    return project_out(p, out, n_heads)
 
 
 def init_kv_cache(batch: int, length: int, n_kv_heads: int, head_dim: int,

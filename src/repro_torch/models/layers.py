@@ -22,7 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch import random as trandom
 from repro_torch.core.wireless import _cos_sin
-from repro_torch.models import xla_math
+from repro_torch.models import tp, xla_math
 
 Params = Dict[str, Any]
 
@@ -103,13 +103,23 @@ def _gelu(v: torch.Tensor) -> torch.Tensor:
     return F.gelu(v, approximate="tanh")
 
 
-def apply_mlp(p: Params, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
+def apply_mlp(p: Params, x: torch.Tensor, mlp_type: str,
+              d_ff: int | None = None) -> torch.Tensor:
+    """The MLP of ``p``; where ``p`` holds this member's block of the
+    ``d_ff`` hidden units (``w_gate`` / ``w_up`` / ``b_up`` by column,
+    ``w_down`` by row: ``models/tp.py``), the members' partial outputs are
+    summed over ``model`` and ``b_down``, whole, is added once after."""
+    split = d_ff is not None and p["w_down"].shape[-2] != d_ff
+    if split:
+        x = tp.copy_to(x)
     if mlp_type in ("swiglu", "geglu"):
         act = F.silu if mlp_type == "swiglu" else _gelu
         h = act(x @ p["w_gate"]) * (x @ p["w_up"])
-        return h @ p["w_down"]
+        out = h @ p["w_down"]
+        return tp.sum_over(out) if split else out
     h = _gelu(x @ p["w_up"] + p["b_up"])
-    return h @ p["w_down"] + p["b_down"]
+    out = h @ p["w_down"]
+    return (tp.sum_over(out) if split else out) + p["b_down"]
 
 
 # ---------------------------------------------------------------------------
@@ -120,8 +130,20 @@ def init_embedding(key, vocab: int, d: int, dtype) -> torch.Tensor:
 
 
 def embed_tokens(table: torch.Tensor, tokens: torch.Tensor,
-                 scale_by_dim: bool = False) -> torch.Tensor:
-    out = table[tokens.long()]
+                 scale_by_dim: bool = False,
+                 vocab: int | None = None) -> torch.Tensor:
+    """The rows of ``tokens``; where ``table`` holds this member's block of
+    the ``vocab`` rows, each member looks up the tokens in its block (zeros
+    elsewhere) and the rows are summed over ``model``."""
+    if vocab is not None and table.shape[0] != vocab:
+        rows = table.shape[0]
+        local = tokens.long() - tp.index() * rows
+        mine = (local >= 0) & (local < rows)
+        out = table[local.clamp(0, rows - 1)]
+        out = tp.sum_over(torch.where(mine[..., None], out,
+                                      out.new_zeros(())))
+    else:
+        out = table[tokens.long()]
     if scale_by_dim:  # gemma-style embedding scaling, in the table's dtype
         out = out * torch.tensor(out.shape[-1] ** 0.5, dtype=out.dtype,
                                  device=out.device)

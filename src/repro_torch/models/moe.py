@@ -23,8 +23,11 @@ sum's backward passes the cotangent on unchanged, and the replicated
 inputs' cotangents are summed over ``model``: so every member gets the
 gradient of ``moe_forward``, as the reference's ``jax.grad`` through its
 ``shard_map`` gives (measured bitwise on model 2 and 4 of the reduced
-qwen2-moe config). ``launch/steps.py::make_train_step`` switches it on
-(``set_expert_parallel_mesh``), unless ``REPRO_DISABLE_EP`` is set.
+qwen2-moe config). ``moe_forward`` takes this path while a mesh is named
+(``models/tp.py::set_model_mesh``, called by the step builders). The shared
+experts split over ``model`` as a dense MLP does, where their width
+divides (``shared_gate`` / ``shared_up`` by column, ``shared_down`` by
+row); their partial output joins the experts' before the one sum.
 """
 from __future__ import annotations
 
@@ -35,20 +38,10 @@ import torch.nn.functional as F
 
 from repro_torch import random as trandom
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.collectives import psum
+from repro_torch.models import tp
 from repro_torch.models.layers import dense_init
 
 Params = Dict[str, torch.Tensor]
-
-_EP_MESH = None  # set by the train step's builder; None -> moe_forward
-
-
-def set_expert_parallel_mesh(mesh) -> None:
-    """Route ``moe_forward`` through ``moe_forward_ep`` over ``mesh``'s
-    ``model`` axis (None, or a mesh without one, switches it off)."""
-    global _EP_MESH
-    _EP_MESH = mesh if (mesh is not None
-                        and "model" in mesh.axis_names) else None
 
 
 def padded_n_experts(cfg: ModelConfig, multiple: int = 16) -> int:
@@ -133,8 +126,9 @@ def moe_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
                 expert_pad_multiple: int = 16
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B,S,d) -> (out (B,S,d), aux_loss scalar)."""
-    if _EP_MESH is not None:
-        return moe_forward_ep(p, x, cfg, _EP_MESH, expert_pad_multiple)
+    if tp.model_mesh() is not None:
+        return moe_forward_ep(p, x, cfg, tp.model_mesh(),
+                              expert_pad_multiple)
     bsz, s, d = x.shape
     t, k = bsz * s, cfg.moe_top_k
     e_pad = padded_n_experts(cfg, expert_pad_multiple)
@@ -163,33 +157,6 @@ def moe_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
         hs = act(xf @ p["shared_gate"]) * (xf @ p["shared_up"])
         out = out + hs @ p["shared_down"]
     return out.reshape(bsz, s, d), r.aux
-
-
-class _SumOverAxis(torch.autograd.Function):
-    """Forward: the sum over the axis's members; backward: the cotangent as
-    it is (every member holds the same one)."""
-
-    @staticmethod
-    def forward(ctx, x, mesh, axis):
-        return psum(x, mesh, axis)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None, None
-
-
-class _CopyToAxis(torch.autograd.Function):
-    """Forward: a replicated input as it is; backward: the members'
-    partial cotangents summed over the axis."""
-
-    @staticmethod
-    def forward(ctx, x, mesh, axis):
-        ctx.mesh, ctx.axis = mesh, axis
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        return psum(g.contiguous(), ctx.mesh, ctx.axis), None, None
 
 
 def local_experts(w: torch.Tensor, cfg: ModelConfig, mesh,
@@ -225,11 +192,8 @@ def moe_forward_ep(p: Params, x: torch.Tensor, cfg: ModelConfig, mesh,
     wg, wu, wd = (local_experts(p[name], cfg, mesh, expert_pad_multiple,
                                 axis) for name in ("w_gate", "w_up",
                                                    "w_down"))
-    if n > 1:
-        xf_in = _CopyToAxis.apply(xf, mesh, axis)
-        weights = _CopyToAxis.apply(weights, mesh, axis)
-    else:
-        xf_in = xf
+    xf_in = tp.copy_to(xf, mesh, axis)
+    weights = tp.copy_to(weights, mesh, axis)
 
     # this member's experts: the others' choices go to the dropped slot
     le = r.flat_e - mesh.index(axis) * e_local
@@ -248,10 +212,19 @@ def moe_forward_ep(p: Params, x: torch.Tensor, cfg: ModelConfig, mesh,
     gathered = out_buf.index_select(0, slot)
     gathered = gathered * (weights * mine).to(gathered.dtype)[:, None]
     out = gathered.reshape(t, k, d).sum(dim=1)
-    if n > 1:
-        out = _SumOverAxis.apply(out, mesh, axis)
+    shared = cfg.n_shared_experts and split_shared(p, cfg)
+    if shared:  # this member's columns of the shared experts, one sum
+        hs = act(xf_in @ p["shared_gate"]) * (xf_in @ p["shared_up"])
+        out = out + hs @ p["shared_down"]
+    out = tp.sum_over(out, mesh, axis)
 
-    if cfg.n_shared_experts:
+    if cfg.n_shared_experts and not shared:
         hs = act(xf @ p["shared_gate"]) * (xf @ p["shared_up"])
         out = out + hs @ p["shared_down"]
     return out.reshape(bsz, s, d), r.aux
+
+
+def split_shared(p: Params, cfg: ModelConfig) -> bool:
+    """Whether ``p`` holds a block of the shared experts' width."""
+    width = cfg.n_shared_experts * cfg.d_ff_expert
+    return p["shared_down"].shape[-2] != width

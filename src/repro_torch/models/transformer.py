@@ -23,6 +23,14 @@ per-client grads) the layers run as they are. The numbers are the same
 either way. Caches are the reference's pytrees: nested dicts of stacked
 tensors and, for hybrid's ``rest``, a list of tuples. A decode step takes
 its position as a Python int and returns a new cache, its input untouched.
+
+Over a mesh's ``model`` axis (``models/tp.py``, named by the step builders)
+each member computes with its blocks of the leaves the axis splits
+(``launch/sharding.py::model_split``): its q and kv heads, its columns of
+the MLP, its rows of the vocabulary in the embedding, the unembedding and
+the cross-entropy (whose max, sum of exps and gold logit are reduced over
+``model``; the (B, chunk, V) logits are never gathered), and its kv heads
+of the caches. The ssm and hybrid trunks run whole.
 """
 from __future__ import annotations
 
@@ -35,6 +43,7 @@ from repro_torch import random as trandom
 from repro_torch.configs.base import LONG_CONTEXT_WINDOW, ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import tp
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xla_math
@@ -257,7 +266,7 @@ def _attn_block_fwd(p: Params, x, cfg: ModelConfig, *, window,
     if cfg.family == "moe" and "router" in p["mlp"]:
         out, aux = moe_mod.moe_forward(p["mlp"], h2, cfg)
     else:
-        out = apply_mlp(p["mlp"], h2, cfg.mlp_type)
+        out = apply_mlp(p["mlp"], h2, cfg.mlp_type, cfg.d_ff)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if return_kv:
         return x + out, aux, kv
@@ -266,12 +275,14 @@ def _attn_block_fwd(p: Params, x, cfg: ModelConfig, *, window,
 
 def _bidir_attn(p: Params, h, cfg: ModelConfig, q_chunk: int):
     """Whisper encoder: bidirectional self-attention (no mask, no rope)."""
-    b, s, _ = h.shape
-    q = attn.project_q(p["attn"], h, cfg.n_heads, cfg.head_dim)
-    k, v = attn.project_kv(p["attn"], h, cfg.n_kv_heads, cfg.head_dim)
-    out = attn.attention_core(q, k, v, n_kv_heads=cfg.n_kv_heads,
+    pa, nh = p["attn"], cfg.n_heads
+    h = attn.enter(pa, h, nh, cfg.head_dim)
+    q = attn.project_q(pa, h, nh, cfg.head_dim)
+    k, v = attn.project_kv(pa, h, cfg.n_kv_heads, cfg.head_dim, nh)
+    k, v = attn.local_kv(k, v, q.shape[2], nh, cfg.n_kv_heads)
+    out = attn.attention_core(q, k, v, n_kv_heads=k.shape[2],
                               causal=False, q_chunk=q_chunk)
-    return out.reshape(b, s, cfg.n_heads * cfg.head_dim) @ p["attn"]["wo"]
+    return attn.project_out(pa, out, nh)
 
 
 def _attn_block_decode(p: Params, x, ck, cv, pos: int, cfg: ModelConfig, *,
@@ -287,7 +298,7 @@ def _attn_block_decode(p: Params, x, ck, cv, pos: int, cfg: ModelConfig, *,
     if cfg.family == "moe" and "router" in p["mlp"]:
         out, _ = moe_mod.moe_forward(p["mlp"], h2, cfg)
     else:
-        out = apply_mlp(p["mlp"], h2, cfg.mlp_type)
+        out = apply_mlp(p["mlp"], h2, cfg.mlp_type, cfg.d_ff)
     return x + out, ck, cv
 
 
@@ -304,7 +315,7 @@ def _cross_block_fwd(p: Params, x, vis_k, vis_v, cfg: ModelConfig,
                                head_dim=cfg.head_dim, q_chunk=q_chunk)
     x = x + _gate(p["gate_attn"], x) * res
     h2 = apply_norm(p["norm2"], x, cfg.norm_type)
-    out = apply_mlp(p["mlp"], h2, cfg.mlp_type)
+    out = apply_mlp(p["mlp"], h2, cfg.mlp_type, cfg.d_ff)
     return x + _gate(p["gate_mlp"], x) * out
 
 
@@ -312,7 +323,9 @@ def _cross_layer_fwd(p: Params, x, vis, cfg: ModelConfig,
                      q_chunk: int = 1024):
     """A vlm superblock's cross layer: the vision k/v, then the block;
     returns (x, (k, v))."""
-    vk, vv = attn.project_kv(p["attn"], vis, cfg.n_kv_heads, cfg.head_dim)
+    vk, vv = attn.project_kv(
+        p["attn"], attn.enter(p["attn"], vis, cfg.n_heads, cfg.head_dim),
+        cfg.n_kv_heads, cfg.head_dim, cfg.n_heads)
     return _cross_block_fwd(p, x, vk, vv, cfg, q_chunk=q_chunk), (vk, vv)
 
 
@@ -363,7 +376,7 @@ def _dec_layer_fwd(p: Params, x, enc_k, enc_v, cfg: ModelConfig, *,
                                  n_kv_heads=cfg.n_kv_heads,
                                  head_dim=cfg.head_dim, q_chunk=q_chunk)
     h3 = apply_norm(p["norm3"], x, cfg.norm_type)
-    x = x + apply_mlp(p["mlp"], h3, cfg.mlp_type)
+    x = x + apply_mlp(p["mlp"], h3, cfg.mlp_type, cfg.d_ff)
     return (x, kv) if return_kv else x
 
 
@@ -371,8 +384,10 @@ def _audio_layer_fwd(p: Params, x, enc_h, cfg: ModelConfig, *,
                      q_chunk: int = 1024, return_kv: bool = False):
     """A whisper decoder layer over its own k/v of the encoder's output;
     with ``return_kv`` returns (x, (self k, v), (encoder k, v))."""
-    ek, ev = attn.project_kv(p["cross_attn"], enc_h, cfg.n_kv_heads,
-                             cfg.head_dim)
+    pc = p["cross_attn"]
+    ek, ev = attn.project_kv(pc, attn.enter(pc, enc_h, cfg.n_heads,
+                                            cfg.head_dim),
+                             cfg.n_kv_heads, cfg.head_dim, cfg.n_heads)
     out = _dec_layer_fwd(p, x, ek, ev, cfg, q_chunk=q_chunk,
                          return_kv=return_kv)
     return (*out, (ek, ev)) if return_kv else out
@@ -383,7 +398,8 @@ def _audio_layer_fwd(p: Params, x, enc_h, cfg: ModelConfig, *,
 # ===========================================================================
 def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
            pos_offset: int = 0):
-    x = embed_tokens(params["embed"], tokens, scale_by_dim=cfg.tie_embeddings)
+    x = embed_tokens(params["embed"], tokens, scale_by_dim=cfg.tie_embeddings,
+                     vocab=cfg.vocab_size)
     if cfg.pos_embed == "learned":
         table = params["pos_embed"]
         idx = (pos_offset + torch.arange(tokens.shape[1],
@@ -395,8 +411,12 @@ def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 def unembed(params: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     params = nest_params(params)
+    """Logits over this member's block of the vocabulary (all of it where
+    the table is whole)."""
     h = apply_norm(params["final_norm"], h, cfg.norm_type)
     table = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    if table.shape[-1] != cfg.vocab_size:
+        h = tp.copy_to(h)
     return h @ table
 
 
@@ -557,18 +577,38 @@ def encode_audio(params: Params, cfg: ModelConfig, audio_embeds,
 def chunked_xent(params: Params, cfg: ModelConfig, h: torch.Tensor,
                  labels: torch.Tensor, chunk: int = 512) -> torch.Tensor:
     """Mean token cross-entropy, (B,S,V) logits one sequence chunk at a
-    time."""
+    time; over this member's block of the vocabulary where it splits
+    (``_split_lse_gold``)."""
     b, s, _ = h.shape
     if s % chunk or s <= chunk:
         chunk = s
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     for c0 in range(0, s, chunk):
         logits = unembed(params, cfg, h[:, c0:c0 + chunk]).to(torch.float32)
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1,
-                            labels[:, c0:c0 + chunk, None].long())[..., 0]
+        lab = labels[:, c0:c0 + chunk].long()
+        if logits.shape[-1] != cfg.vocab_size:
+            lse, gold = _split_lse_gold(logits, lab)
+        else:
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, lab[..., None])[..., 0]
         tot = tot + (lse - gold).sum()
     return tot / (b * s)
+
+
+def _split_lse_gold(logits: torch.Tensor, labels: torch.Tensor):
+    """(logsumexp, gold logit) over the whole vocabulary from each member's
+    block of the logits: the max over ``model`` (detached, a shift), the
+    sum of exps over ``model``, and the gold logit from the member that
+    holds it, summed over ``model``."""
+    v = logits.shape[-1]
+    shift = tp.max_over(logits.amax(dim=-1))
+    lse = torch.log(tp.sum_over(
+        torch.exp(logits - shift[..., None]).sum(dim=-1))) + shift
+    local = labels - tp.index() * v
+    mine = (local >= 0) & (local < v)
+    gold = torch.gather(logits, -1, local.clamp(0, v - 1)[..., None])[..., 0]
+    gold = tp.sum_over(torch.where(mine, gold, torch.zeros_like(gold)))
+    return lse, gold
 
 
 def lm_loss(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
@@ -587,22 +627,28 @@ def lm_loss(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 # Prefill / decode
 # ===========================================================================
 def init_decode_cache(cfg: ModelConfig, batch: int, length: int, *,
-                      sliding: bool = False, device=None) -> PyTree:
+                      sliding: bool = False, device=None,
+                      model: int = 1) -> PyTree:
     """Zeroed cache pytree for decode, on ``device``. ``length`` = context
     size; ``sliding`` caps attention caches at LONG_CONTEXT_WINDOW (ring
-    buffers), and a sliding-attention config at its window."""
+    buffers), and a sliding-attention config at its window. ``model``: a
+    member's block over a ``model`` axis of that many members (its kv
+    heads, where they split)."""
     _check_family(cfg)
     dtype = torch_dtype(cfg.dtype)
     t_attn = min(length, LONG_CONTEXT_WINDOW) if sliding else length
     if cfg.attn_type == "sliding":
         t_attn = min(t_attn, cfg.sliding_window)
     fam = cfg.family
+    n_kv = cfg.n_kv_heads
+    if n_kv and n_kv % model == 0:
+        n_kv //= model
 
     def zeros(*shape, dt=dtype):
         return torch.zeros(shape, dtype=dt, device=device)
 
     def kv(*lead):
-        shape = (*lead, batch, t_attn, cfg.n_kv_heads, cfg.head_dim)
+        shape = (*lead, batch, t_attn, n_kv, cfg.head_dim)
         return zeros(*shape), zeros(*shape)
 
     if fam in ("dense", "moe"):
@@ -631,13 +677,11 @@ def init_decode_cache(cfg: ModelConfig, batch: int, length: int, *,
     if fam == "vlm":
         n_super = cfg.n_layers // cfg.cross_attn_every
         k, v = kv(n_super, cfg.cross_attn_every - 1)
-        cross = (n_super, batch, cfg.n_vision_tokens, cfg.n_kv_heads,
-                 cfg.head_dim)
+        cross = (n_super, batch, cfg.n_vision_tokens, n_kv, cfg.head_dim)
         return {"k": k, "v": v, "cross_k": zeros(*cross),
                 "cross_v": zeros(*cross)}
     k, v = kv(cfg.n_layers)  # audio
-    cross = (cfg.n_layers, batch, cfg.n_audio_frames, cfg.n_kv_heads,
-             cfg.head_dim)
+    cross = (cfg.n_layers, batch, cfg.n_audio_frames, n_kv, cfg.head_dim)
     return {"k": k, "v": v, "cross_k": zeros(*cross),
             "cross_v": zeros(*cross)}
 
@@ -711,7 +755,7 @@ def decode_step(params: Params, cfg: ModelConfig, cache: PyTree,
                 cache["cross_v"][i], n_heads=cfg.n_heads,
                 n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim)
             h3 = apply_norm(p_l["norm3"], x, cfg.norm_type)
-            x = x + apply_mlp(p_l["mlp"], h3, cfg.mlp_type)
+            x = x + apply_mlp(p_l["mlp"], h3, cfg.mlp_type, cfg.d_ff)
         ks, vs = _stack(kvs)
         cache = dict(cache, k=ks, v=vs)
     return unembed(params, cfg, x), cache

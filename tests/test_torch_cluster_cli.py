@@ -88,19 +88,24 @@ def test_cluster_main_matches_reference(arch, comp, tmp_path, monkeypatch,
 
 def test_cluster_raises_for_meshes_and_runs_every_family():
     """A mesh of more than one member raises outside a process group of as
-    many members (``tests/test_torch_cluster_cli_members.py`` runs one),
-    and a model axis above 1 on a config without experts raises (dense
-    tensor parallelism, ROADMAP queue A item 8); the vlm and audio families
-    train (on zero embeddings, as the reference's CLI feeds them;
-    ``tests/test_torch_vlm_audio.py`` holds them against it)."""
-    for flags, n in ((["--mesh-data", "2"], 2),
-                     (["--mesh-data", "2", "--mesh-model", "2"], 4)):
+    many members (``tests/test_torch_cluster_cli_members.py`` runs one), a
+    dense config's model axis too (``tests/test_torch_cluster_tp.py``
+    holds its steps against the reference's), and a model axis above 1 on
+    the ssm or hybrid family raises (their recurrent blocks, ROADMAP queue
+    A item 8b); the vlm and audio families train (on zero embeddings, as
+    the reference's CLI feeds them; ``tests/test_torch_vlm_audio.py`` holds
+    them against it)."""
+    for arch, flags, n in (
+            ("qwen2-moe-a2.7b", ["--mesh-data", "2"], 2),
+            ("qwen2-moe-a2.7b", ["--mesh-data", "2", "--mesh-model", "2"], 4),
+            ("gemma-2b", ["--mesh-model", "4"], 4)):
         with pytest.raises(RuntimeError, match=f"process group of {n} "):
-            ttrain.main(["--arch", "qwen2-moe-a2.7b", "--reduced",
-                         "--cluster"] + flags, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        ttrain.main(["--arch", "gemma-2b", "--reduced", "--cluster",
-                     "--mesh-model", "4"], device="cpu")
+            ttrain.main(["--arch", arch, "--reduced", "--cluster"] + flags,
+                        device="cpu")
+    for arch in ("falcon-mamba-7b", "recurrentgemma-2b"):
+        with pytest.raises(NotImplementedError, match="queue A item 8b"):
+            ttrain.main(["--arch", arch, "--reduced", "--cluster",
+                         "--mesh-model", "4"], device="cpu")
     for arch in ("llama-3.2-vision-11b", "whisper-base"):
         args = ttrain.parser().parse_args(
             ["--arch", arch, "--reduced", "--cluster", "--steps", "4",

@@ -32,6 +32,7 @@ pytest.importorskip("jax")
 from repro_torch.launch import members  # noqa: E402
 from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
+from repro_torch.models import tp  # noqa: E402
 from test_torch_cluster_steps import check_case  # noqa: E402
 from test_torch_moe import FWD, GRAD_L2  # noqa: E402
 from torch_cluster_jax import run_reference  # noqa: E402
@@ -88,11 +89,11 @@ def test_moe_forward_ep_on_one_member_is_moe_forward():
     got = tmoe.moe_forward_ep(p, x, cfg, make_local_mesh())
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    tmoe.set_expert_parallel_mesh(make_local_mesh())
+    tp.set_model_mesh(make_local_mesh())
     try:
         through = tmoe.moe_forward(p, x, cfg)
     finally:
-        tmoe.set_expert_parallel_mesh(None)
+        tp.set_model_mesh(None)
     for g, w in zip(through, want):
         assert torch.equal(g, w)
 

@@ -30,7 +30,8 @@ import pytest
 torch = pytest.importorskip("torch")
 pytest.importorskip("jax")
 
-from repro_torch.launch import members  # noqa: E402
+from repro_torch.launch import members, steps  # noqa: E402
+from repro_torch.launch.mesh import Mesh  # noqa: E402
 from test_torch_steps import (EF_OFF_SHARE, LOSS_RTOL,  # noqa: E402
                               PARAMS_REL_L2)
 from torch_cluster_jax import run_reference  # noqa: E402
@@ -48,8 +49,8 @@ def ref(tmp_path_factory):
 
 def _replicas(mode, shape, axes):
     """Groups of members holding the same params: every member in pssgd
-    (the expert stacks apart), the members of a pod in localsgd without
-    the pod sync, none in fsdp."""
+    (the leaves split over model apart), the members of a pod in localsgd
+    without the pod sync, none in fsdp."""
     n = int(np.prod(shape))
     if mode == "pssgd":
         return [list(range(n))]
@@ -58,6 +59,13 @@ def _replicas(mode, shape, axes):
         return [list(range(p * per_pod, (p + 1) * per_pod))
                 for p in range(shape[0])]
     return []
+
+
+def _model_split(case):
+    """The params a member of ``case`` holds a block of over ``model``."""
+    cfg, pol, shape, axes = workers._step_case(case)
+    specs = steps.held_specs(cfg, pol, Mesh(shape, axes, bind=False))
+    return {k for k, sp in specs["params"].items() if "model" in sp}
 
 
 def _rel_l2(got, want, keys):
@@ -101,9 +109,11 @@ def check_case(case, path, want, rdv):
         total = sum(w[k].size for k in ekeys)
         assert off <= EF_OFF_SHARE * total, (off, total)
     # members holding the same replica agree bit for bit after every step
+    # (the leaves split over model apart)
+    split = _model_split(case)
     for grp in _replicas(mode, shape, axes):
         for k in got[0]:
-            if k.startswith("local/") and "/mlp/w_" not in k:
+            if k.startswith("local/") and k.split("/", 2)[2] not in split:
                 for r in grp[1:]:
                     np.testing.assert_array_equal(got[r][k], got[grp[0]][k],
                                                   err_msg=k)

@@ -11,25 +11,34 @@ tensors on a fake process group of the mesh's size, this module's, which
 is destroyed at its end. Every byte and flop of difference is named:
 
 * argument bytes: the port's train step takes the global batch and cuts
-  its rows itself; the port holds whole what the reference splits over
-  ``model`` but expert stacks (``specs.held_spec``); its ``pos`` is a
-  Python int, the reference's a 4-byte argument;
+  its rows itself; its ``pos`` is a Python int, the reference's a 4-byte
+  argument. On (data 1, model 2) a member holds its block of every leaf
+  the reference splits over ``model`` (``steps.held_specs``): nothing more;
 * wire bytes: pssgd and localsgd equal kind for kind, but for the loss's
   all-reduce, which the port's ``psum`` pads to one element a member (4
   bytes more on 2 members); fsdp's port wire is its own all-gather of
   each split leaf, reduce-scatter of its gradient and all-reduce of the
   rest (XLA's partitioner picks other collectives there: its figure is in
-  PERF.md); the expert-parallel all-reduce of each MoE layer's output;
+  PERF.md). Over ``model`` (``_model_wire``): the all-reduce of the
+  embedding's rows, of each attention's and MoE layer's (T, d) partial
+  output, in a train step the backward's all-reduce at each split
+  region's input (each layer's attention input, the MoE input and its
+  routing weights, the unembedding's input), the cross-entropy's max (an
+  all-gather of the (B, S) maxima), sum of exps and gold logit, and the
+  recomputation of each layer's attention sum (``torch.utils.checkpoint``
+  stops recomputing at the last tensor the backward needs, before the
+  layer's closing MoE sum). XLA's prefill and decode send one (T, d)
+  all-reduce a layer more: it sums the shared experts' output apart from
+  the experts', where the port adds them before one sum;
 * flops: equal but for the reference's checkpointed cross-entropy chunk,
   which recomputes the logits in the backward, ``2 T d V`` more for T
   tokens a member (the port keeps the chunk's logits). On (data 1, model 2)
-  the port computes the dense dots whole and the expert dots on its block
-  of the stacks: the reference's count on (data 1, model 1) less the other
-  member's share of the expert dots, read off the port's (data 1, model 1)
-  op log (the reference splits the dense dots over ``model`` too, so its
-  own (data 1, model 2) count does not compare). The reference's fsdp step
-  is partitioned by XLA and its MoE train step on (data 1, model 2) does
-  not compile on JAX 0.9 (its own failure, asserted).
+  every dot splits but the router's (heads, MLP, shared and routed
+  experts, vocabulary): the port's count on (data 1, model 1) less the
+  other member's share of all but the router's dots, read off its op log
+  (``_router_dots``). The reference's fsdp step is partitioned by XLA and
+  its MoE train step on (data 1, model 2) does not compile on JAX 0.9 (its
+  own failure, asserted).
 """
 import math
 
@@ -46,7 +55,6 @@ from repro_torch.configs.base import ShapeSpec  # noqa: E402
 from repro_torch.launch import dryrun, specs  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.launch.sharding import shard_shape  # noqa: E402
-from repro_torch.models.layers import torch_dtype  # noqa: E402
 
 # the loss's all-reduce on 2 members: the port sends its 1-element psum
 # padded to 2 (4 B out in the reduce-scatter, 4 B in the all-gather), the
@@ -103,17 +111,36 @@ def _xent_recompute(cfg, tokens):
     return 2.0 * tokens * cfg.d_model * cfg.vocab_size
 
 
-def _expert_dots(log, cfg):
-    """Flops of the dots on the expert stacks in an op log: each ``bmm``
-    that reads or writes a (experts, d, d_ff) or (experts, d_ff, d) block,
-    a stack's or its gradient's."""
-    d, f = cfg.d_model, cfg.d_ff_expert
+def _router_dots(log, cfg):
+    """Flops of the dots on the router in an op log: each ``mm`` that
+    reads or writes a (d, experts) or (experts, d) matrix, the router's or
+    its gradient's."""
+    d, e_ = cfg.d_model, cfg.n_experts
     flops = 0.0
     for e in log:
-        if e[0] == "op" and e[1] == "aten.bmm.default" and any(
-                dims[1:] in ([d, f], [f, d]) for _, dims in e[2] + e[3]):
+        if e[0] == "op" and e[1] == "aten.mm.default" and any(
+                dims in ([d, e_], [e_, d]) for _, dims in e[2] + e[3]):
             flops += 2.0 * math.prod(e[3][0][1]) * e[2][0][1][-1]
     return flops
+
+
+def _model_wire(cfg, kind, tokens, n):
+    """The port's bytes over a ``model`` axis of ``n`` members in one
+    member's step of the MoE config (remat on), by kind (see above)."""
+    def psum(numel):
+        return 2.0 * (n - 1) * -(-numel // n) * 4
+
+    act = psum(tokens * cfg.d_model)
+    layers = cfg.n_layers * 2 * act          # attention's and MoE's sums
+    out = {"all-reduce": act + layers}       # and the embedding's
+    if kind == "train":
+        out["all-reduce"] += (
+            cfg.n_layers * act                # recomputed attention sums
+            + cfg.n_layers * (2 * act + psum(tokens * cfg.moe_top_k))
+            + act                             # the unembedding's input
+            + 2 * psum(tokens))               # sum of exps, gold logit
+        out["all-gather"] = (n - 1) * tokens * 4.0   # the max
+    return out
 
 
 @pytest.mark.parametrize("case", ACCOUNT_CASES,
@@ -139,12 +166,15 @@ def test_account_matches_reference(runs, case):
         assert parsed["flops"] + recompute <= ref["parsed"]["flops"]
     elif n_model > 1:
         one = case_key(arch, (n_data, 1), kind, policy)
-        expert = _expert_dots(got[one][4], cfg)
-        assert expert > 0
-        assert parsed["flops"] == (want[one]["parsed"]["flops"] - recompute
-                                   - expert * (n_model - 1) / n_model)
+        router = _router_dots(got[one][4], cfg)
+        assert router > 0
+        whole = want[one]["parsed"]["flops"] - recompute
+        assert parsed["flops"] == (whole - router) / n_model + router
     else:
         assert parsed["flops"] + recompute == ref["parsed"]["flops"]
+    wire = {k: v["bytes"] for k, v in colls.items()}
+    if n_model > 1:
+        assert wire == _model_wire(cfg, kind, tokens, n_model)
     if ref["status"] == "fail":
         return
 
@@ -155,11 +185,10 @@ def test_account_matches_reference(runs, case):
         batch = glob[1]
         assert extra == sum(_bytes(x.shape, x.dtype) * (n_data - 1) // n_data
                             for x in batch.values())
-    if n_model == 1 and n_data == 1:
+    if n_data == 1:   # (1, 2) holds its block of every split leaf
         assert extra == (-POS_BYTES if kind == "decode" else 0)
 
     # wire bytes
-    wire = {k: v["bytes"] for k, v in colls.items()}
     ref_wire = {k: v["bytes"] for k, v in ref["collectives"].items()
                 if v["bytes"]}
     if arch == "gemma-2b" and policy != "fsdp":
@@ -168,10 +197,10 @@ def test_account_matches_reference(runs, case):
     elif policy == "fsdp":
         assert wire == _fsdp_wire(cfg, mesh, glob[0]["params"])
     elif n_model > 1:
-        # the expert-parallel sum of each MoE layer's (tokens, d) output
-        out = tokens * cfg.d_model * torch_dtype(cfg.dtype).itemsize
-        assert wire == {"all-reduce": cfg.n_layers * 2 * out * (n_model - 1)
-                        / n_model}
+        # XLA's all-reduce of each layer's shared experts' (T, d) output
+        act = 2 * (n_model - 1) * tokens * cfg.d_model // n_model * 4
+        assert ref_wire == {"all-reduce": wire["all-reduce"]
+                            + cfg.n_layers * act}
     else:
         assert wire == ref_wire == {}
 

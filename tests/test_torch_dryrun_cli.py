@@ -5,13 +5,15 @@ tensors on the CPU (``--device cpu``).
 
 A case writes a record with the reference's keys (``lower_s`` /
 ``compile_s`` / ``hlo_bytes`` become ``trace_s`` and ``ops``) and its op
-log; a config without experts on the (16, 16) mesh is a ``fail`` record
-naming ``DENSE_TP``, and the CLI exits 1; ``reanalyze`` re-derives
+log; a dense config on the (16, 16) mesh is ``ok``, split over ``model``,
+and an ssm config there a ``fail`` record naming ``DENSE_TP``, with exit
+code 1; ``reanalyze`` re-derives
 ``parsed`` and ``collectives`` from the op logs exactly. The trainer's
 ``--cluster --reduced`` step on (data 2, model 2), traced with
 ``--reduced --no-remat``, sends what 4 gloo members send in each step.
 """
 import json
+import math
 import os
 import subprocess
 import sys
@@ -20,7 +22,10 @@ import pytest
 
 pytest.importorskip("torch")
 
-from repro_torch.launch import members  # noqa: E402
+from repro_torch.configs import SHAPES, get_config  # noqa: E402
+from repro_torch.launch import dryrun, members, specs  # noqa: E402
+from repro_torch.launch.mesh import Mesh  # noqa: E402
+from repro_torch.launch.sharding import shard_shape  # noqa: E402
 from repro_torch.launch.steps import DENSE_TP  # noqa: E402
 import torch_cluster_workers as workers  # noqa: E402
 
@@ -55,7 +60,9 @@ def out(tmp_path_factory):
                           "--mesh-shape", "256x1"],
                          ["--arch", "qwen2-moe-a2.7b", "--shape",
                           "long_500k"],
-                         ["--arch", "gemma-2b", "--shape", "train_4k"])]
+                         ["--arch", "gemma-2b", "--shape", "train_4k"],
+                         ["--arch", "falcon-mamba-7b", "--shape",
+                          "train_4k"])]
     return d, runs
 
 
@@ -84,18 +91,47 @@ def test_moe_on_production_mesh_is_ok(out):
 
 
 def test_dense_on_production_mesh_fails_with_dense_tp(out):
+    """A dense config on (16, 16) is split over model and its record is
+    ``ok``: each member holds its block of every leaf the reference splits
+    (gemma-2b: the MLP and the vocabulary; its 8 q heads and 1 kv head do
+    not divide by 16), and the step sends the all-reduces over model. An
+    ssm config fails with ``DENSE_TP`` (ROADMAP queue A item 8b)."""
     d, runs = out
-    assert runs[2].returncode == 1
-    assert "done: 0/1 ok" in runs[2].stdout
+    assert runs[2].returncode == 0, runs[2].stderr
+    assert "done: 1/1 ok" in runs[2].stdout
     rec = _record(d, "gemma-2b__train_4k__16x16__baseline")
+    assert rec["status"] == "ok" and rec["n_devices"] == 256
+    cfg = get_config("gemma-2b")
+    mesh = Mesh((16, 16), ("data", "model"), bind=False)
+    pol = dryrun.policy_from_name("baseline")
+    glob, sp, held = specs.case_specs(cfg, SHAPES["train_4k"], mesh, pol)
+    state, state_held = glob[0], held[0]
+    assert state_held["params"] == {
+        k: tuple(s) for k, s in sp[0]["params"].items()}
+    assert state_held["params"]["embed"] == ("model", None)
+    assert state_held["params"]["blocks/mlp/w_up"] == (None, None, "model")
+    assert state_held["params"]["blocks/attn/wq"] == (None, None, None)
+    params = sum(math.prod(shard_shape(x.shape, state_held["params"][k],
+                                       mesh)) * x.dtype.itemsize
+                 for k, x in state["params"].items())
+    whole = sum(math.prod(x.shape) * x.dtype.itemsize
+                for x in state["params"].values())
+    assert params < whole / 4
+    assert rec["memory"]["argument_bytes"] > params
+    assert rec["collectives"]["all-reduce"]["bytes"] > 0
+    assert runs[3].returncode == 1
+    assert "done: 0/1 ok" in runs[3].stdout
+    rec = _record(d, "falcon-mamba-7b__train_4k__16x16__baseline")
     assert rec["status"] == "fail"
     assert DENSE_TP in rec["error"] and "traceback" in rec
+    assert "queue A item 8b" in rec["error"]
 
 
 def test_reanalyze_reproduces_records(out):
     d, _ = out
     names = ["whisper-base__decode_32k__256x1__baseline",
-             "qwen2-moe-a2.7b__long_500k__16x16__baseline"]
+             "qwen2-moe-a2.7b__long_500k__16x16__baseline",
+             "gemma-2b__train_4k__16x16__baseline"]
     before = {n: _record(d, n) for n in names}
     for n in names:
         rec = dict(before[n], parsed={}, collectives={})
@@ -103,7 +139,7 @@ def test_reanalyze_reproduces_records(out):
             json.dump(rec, f)
     res = _run("repro_torch.launch.reanalyze", "--out", d)
     assert res.returncode == 0, res.stderr
-    assert "updated 2, missing op log for 0" in res.stdout
+    assert "updated 3, missing op log for 0" in res.stdout
     for n in names:
         assert _record(d, n) == before[n]
 

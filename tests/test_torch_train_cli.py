@@ -218,13 +218,14 @@ def test_vlm_and_audio_still_raise(arch, key):
 
 
 def test_cluster_flag_raises():
-    """``--cluster`` on a data axis of several members needs a process group
-    of as many (``tests/test_torch_cluster_cli_members.py``): outside one
-    it raises; a model axis on a dense config raises (ROADMAP queue A item
-    8)."""
-    with pytest.raises(RuntimeError, match="process group of 2 members"):
-        ttrain.main(["--arch", "gemma-2b", "--reduced", "--cluster",
-                     "--mesh-data", "2"], device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        ttrain.main(["--arch", "minicpm-2b", "--reduced", "--cluster",
+    """``--cluster`` on a data or model axis of several members needs a
+    process group of as many (``tests/test_torch_cluster_cli_members.py``):
+    outside one it raises; a model axis on the ssm family raises (ROADMAP
+    queue A item 8b)."""
+    for flag in ("--mesh-data", "--mesh-model"):
+        with pytest.raises(RuntimeError, match="process group of 2 members"):
+            ttrain.main(["--arch", "minicpm-2b", "--reduced", "--cluster",
+                         flag, "2"], device="cpu")
+    with pytest.raises(NotImplementedError, match="queue A item 8b"):
+        ttrain.main(["--arch", "falcon-mamba-7b", "--reduced", "--cluster",
                      "--mesh-model", "2"], device="cpu")

@@ -331,3 +331,236 @@ def cli(rank: int, argv) -> dict:
     with contextlib.redirect_stdout(buf):
         ttrain.main(list(argv), device="cpu")
     return {"stdout": buf.getvalue(), "wire": tc.WIRE.total}
+
+
+# tensor parallelism over ``model`` (``tests/test_torch_cluster_tp.py``):
+# reduced() configs with overrides; stablelm-12b's reduced() has 4 heads
+# and 2 kv heads, and 6 / 3 puts a member's q heads across a kv group on
+# a model axis of 2; whisper-base with an odd vocabulary keeps its
+# embedding and lm_head whole
+TP_CONFIGS = {
+    "gemma": ("gemma-2b", {}),
+    "stablelm": ("stablelm-12b", {}),
+    "stablelm_6_3": ("stablelm-12b", {"n_heads": 6, "n_kv_heads": 3}),
+    "vlm": ("llama-3.2-vision-11b", {}),
+    "whisper": ("whisper-base", {}),
+    "whisper_odd": ("whisper-base", {"vocab_size": 511}),
+    "qwen": ("qwen2-moe-a2.7b", {}),
+    # a capacity no choice overflows: the reference's serving step routes
+    # the whole batch as one capacity group, a member its rows
+    "qwen_nodrop": ("qwen2-moe-a2.7b", {"capacity_factor": 2.0}),
+}
+# serving: (config, mesh (data, model)), the reference jitted on the same
+# mesh; a (B, S) prompt, a decode cache of T, DECODE_STEPS teacher-forced
+# decode steps
+TP_SERVE_CASES = tuple(
+    (c, m) for m in ((1, 2), (2, 2))
+    for c in ("gemma", "stablelm", "vlm", "whisper",
+              "qwen" if m[0] == 1 else "qwen_nodrop")) + (
+    ("stablelm", (1, 4)), ("stablelm_6_3", (1, 2)), ("whisper_odd", (1, 2)))
+TP_B, TP_S, TP_T, TP_DECODE = 4, 16, 24, 3
+# training: (name, config, mode, compression, the port's mesh, the
+# reference's mesh); the reference's pssgd and localsgd steps do not
+# compile on (data 1, model 2), so those cases hold (1, 2) against its
+# (1, 1)
+TP_STEP_CASES = (
+    ("gemma_none_d2m2", "gemma", "pssgd", "none", (2, 2), (2, 2)),
+    ("gemma_int8_d2m2", "gemma", "pssgd", "int8", (2, 2), (2, 2)),
+    ("gemma_sign_d2m2", "gemma", "pssgd", "sign", (2, 2), (2, 2)),
+    ("gemma_localsgd_d2m2", "gemma", "localsgd", "none", (2, 2), (2, 2)),
+    ("gemma_fsdp_d2m2", "gemma", "fsdp", "none", (2, 2), (2, 2)),
+    ("gemma_none_m2", "gemma", "pssgd", "none", (1, 2), (1, 1)),
+    ("vlm_none_m2", "vlm", "pssgd", "none", (1, 2), (1, 1)),
+    ("whisper_odd_none_m2", "whisper_odd", "pssgd", "none", (1, 2),
+     (1, 1)),
+    ("gemma_fsdp_m2", "gemma", "fsdp", "none", (1, 2), (1, 2)),
+    ("stablelm_none_m4", "stablelm", "pssgd", "none", (1, 4), (1, 1)),
+    ("stablelm_6_3_none_m2", "stablelm_6_3", "pssgd", "none", (1, 2),
+     (1, 1)),
+)
+TP_STEPS, TP_STEP_BATCH, TP_STEP_SEQ = 2, 8, 16
+
+
+def tp_cfg(name: str):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    arch, kw = TP_CONFIGS[name]
+    return dataclasses.replace(get_config(arch).reduced(), **kw)
+
+
+def _extras(cfg, b: int, seed: int) -> dict:
+    rng = np.random.default_rng(seed)
+    if cfg.family == "vlm":
+        return {"vision_embeds": rng.standard_normal(
+            (b, cfg.n_vision_tokens, cfg.vision_dim)).astype(np.float32)}
+    if cfg.family == "audio":
+        return {"audio_embeds": rng.standard_normal(
+            (b, cfg.n_audio_frames, cfg.d_model)).astype(np.float32)}
+    return {}
+
+
+def tp_batches(cfg) -> list:
+    """The global train batches every member draws, as numpy (random
+    vision / audio embeddings for the vlm and audio families)."""
+    from repro_torch.data import SyntheticLMDataset
+    ds = SyntheticLMDataset(cfg.vocab_size, TP_STEP_SEQ, 512, seed=0)
+    return [dict(ds.get(np.arange(TP_STEP_BATCH) + TP_STEP_BATCH * i),
+                 **_extras(cfg, TP_STEP_BATCH, 10 + i))
+            for i in range(TP_STEPS)]
+
+
+def tp_serve_inputs(cfg) -> dict:
+    """The prompt (and embeddings) and the decode tokens, as numpy."""
+    rng = np.random.default_rng(5)
+    return dict(tokens=rng.integers(0, cfg.vocab_size, (TP_B, TP_S)).astype(
+        np.int32), steps=rng.integers(0, cfg.vocab_size,
+                                      (TP_B, TP_DECODE)).astype(np.int32),
+        **_extras(cfg, TP_B, 7))
+
+
+def tp_key(name, mesh) -> str:
+    return f"{name}/{mesh[0]}x{mesh[1]}"
+
+
+def _tp_gather_tree(tree, specs, mesh):
+    from repro_torch.launch import sharding
+    from repro_torch.launch.specs import tree_map
+    return tree_map(lambda x, sp: sharding.gather(x, sp, mesh).numpy(),
+                    tree, specs)
+
+
+def _flat_tree(tree, prefix: str, out: dict) -> dict:
+    """A cache pytree's leaves keyed by their ``/``-joined paths."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _flat_tree(v, f"{prefix}{k}/", out)
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            _flat_tree(v, f"{prefix}{i}/", out)
+    else:
+        out[prefix[:-1]] = tree
+    return out
+
+
+def _gates(params: dict) -> dict:
+    """The vlm's cross gates at 0.5 (they start at 0, which would hide the
+    cross layers), as ``torch_tp_jax._gates`` sets the reference's."""
+    for k in params:
+        if k.split("/")[-1] in ("gate_attn", "gate_mlp"):
+            params[k] = torch.full_like(params[k], 0.5)
+    return params
+
+
+def _tp_serve(name, mesh) -> dict:
+    """Prefill, then TP_DECODE teacher-forced decode steps, on this
+    member's blocks: the logits and caches gathered whole."""
+    from repro_torch import random as trandom
+    from repro_torch.launch import serve, sharding, specs, steps
+    from repro_torch.models import tp
+    from repro_torch.models import transformer as tf
+    cfg = tp_cfg(name)
+    params = _gates(tf.init_params(cfg, trandom.PRNGKey(1)))
+    held = steps.held_specs(cfg, steps.TrainPolicy(), mesh)["params"]
+    params = {k: sharding.shard(v, held[k], mesh) for k, v in params.items()}
+    inp = tp_serve_inputs(cfg)
+    batch = {k: torch.as_tensor(v) for k, v in inp.items() if k != "steps"}
+    bsp = sharding.batch_shardings(batch, mesh)
+    mine = {k: sharding.shard(v, bsp[k], mesh) for k, v in batch.items()}
+    rows = sharding.shard(torch.as_tensor(inp["steps"]), bsp["tokens"], mesh)
+    dp = bsp["tokens"][0]
+    lsp = (dp, None, "model" if cfg.vocab_size % mesh.n("model") == 0
+           else None)
+    res = {}
+    with torch.no_grad():
+        logits, pf = steps.make_prefill_step(cfg, mesh=mesh)(params, mine)
+        res["prefill/logits"] = sharding.gather(logits, lsp, mesh).numpy()
+
+        def cache_specs(length):
+            """The held spec of each leaf of a (TP_B, length) cache."""
+            glob = tf.init_decode_cache(cfg, TP_B, length, device="meta")
+            return specs.tree_map(
+                lambda x, sp: specs.held_cache_spec(cfg, sp), glob,
+                sharding.cache_shardings(cfg, glob, mesh, TP_B))
+        pf_sp = cache_specs(TP_S)
+        for k, v in _flat_tree(_tp_gather_tree(pf, pf_sp, mesh), "",
+                               {}).items():
+            res["prefill/cache/" + k] = v
+        b_local = rows.shape[0]
+        cache = tf.init_decode_cache(cfg, b_local, TP_T,
+                                     model=mesh.n("model"))
+        cache = serve._load_prefill(cfg, cache, pf, TP_S)
+        decode = steps.make_decode_step(cfg, circular=False, mesh=mesh)
+        for i in range(TP_DECODE):
+            logits, cache = decode(params, cache, rows[:, i:i + 1], TP_S + i)
+            res[f"decode/{i}/logits"] = sharding.gather(logits, lsp,
+                                                        mesh).numpy()
+        d_sp = cache_specs(TP_T)
+        for k, v in _flat_tree(_tp_gather_tree(cache, d_sp, mesh), "",
+                               {}).items():
+            res["decode/cache/" + k] = v
+    tp.set_model_mesh(None)
+    return res
+
+
+def _tp_step(case, mesh) -> dict:
+    """TP_STEPS train steps from this member's initial state (the
+    reference's unjitted init, bit for bit): the losses and the gathered
+    final params."""
+    from repro_torch import random as trandom
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.models import tp
+    name, cname, mode, comp, _, _ = next(c for c in TP_STEP_CASES
+                                         if c[0] == case)
+    cfg = tp_cfg(cname)
+    pol = tsteps.TrainPolicy(mode=mode, compression=comp,
+                             error_feedback=comp in ("int8", "sign"),
+                             **STEP_POLICY)
+    state = tsteps.make_init_fn(cfg, pol, mesh)(trandom.PRNGKey(0))
+    state["params"] = _gates(state["params"])
+    step = tsteps.make_train_step(cfg, pol, mesh)
+    res = {}
+    for i, b in enumerate(tp_batches(cfg)):
+        state, m = step(state, {k: torch.as_tensor(v) for k, v in b.items()})
+        res[f"loss/{i}"] = np.float64(m["loss"])
+    res.update({"final/" + k: v.numpy() for k, v in tsteps.gather_params(
+        cfg, pol, mesh, state["params"]).items()})
+    res.update({"local/" + k: v.numpy() for k, v in
+                state["params"].items()})
+    tp.set_model_mesh(None)
+    return res
+
+
+def tp_members(rank: int, mesh_shape, kind: str) -> dict:
+    """Every ``kind`` ("serve" or "train") case of the tensor-parallel
+    tests on ``mesh_shape``, on this member."""
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh(mesh_shape, ("data", "model"))
+    res = {}
+    if kind == "serve":
+        for name, m in TP_SERVE_CASES:
+            if tuple(m) == tuple(mesh_shape):
+                for k, v in _tp_serve(name, mesh).items():
+                    res[f"serve/{tp_key(name, m)}/{k}"] = v
+        return res
+    for case in TP_STEP_CASES:
+        if tuple(case[4]) == tuple(mesh_shape):
+            for k, v in _tp_step(case[0], mesh).items():
+                res[f"step/{case[0]}/{k}"] = v
+    return res
+
+
+def cli_runs(rank: int, argvs) -> list:
+    """``python -m repro_torch.launch.train`` with each of ``argvs`` in
+    turn on this member: what it printed."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train as ttrain
+    out = []
+    for argv in argvs:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            ttrain.main(list(argv), device="cpu")
+        out.append(buf.getvalue())
+    return out
