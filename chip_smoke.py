@@ -286,7 +286,11 @@ Phases (any failure exits non-zero):
    one process: loss a step, gathered params, greedy tokens and logits
    within TP_WIDE_*; the members' whole leaves bitwise alike; per member s
    a step, step-only peak, bytes held, wire a step by kind, ms a decode
-   step; ``cluster_launches`` in the kernels line.
+   step; (h) (g)'s run for the mamba and RG-LRU blocks split over model
+   (their channels and recurrent states): falcon-mamba-7b at its published
+   widths, depth 64 -> 2, and recurrentgemma-2b, depth 26 -> 3 (one
+   pattern period; its attention's 10 q heads split, its 1 kv head stays
+   whole); ``cluster_launches`` in the kernels line.
 
 21. dryrun: ``python -m repro_torch.launch.dryrun`` in subprocesses run
    side by side, one member's step under fake tensors on the card's device
@@ -301,12 +305,13 @@ Phases (any failure exits non-zero):
    held bytes, peak within DRYRUN_PEAK_RTOL of each member's step-only
    peak; (b moe) phase 20(c)'s qwen2-moe-a2.7b pssgd none on (data 2,
    model 2): its wire bytes a member a step, times 3 steps, equal to what
-   each member counted; (g) phase 20(g)'s case on (data 1, model 2): wire
-   bytes a step by kind and argument bytes equal to each member's, peak
-   within DRYRUN_PEAK_RTOL of each member's step-only peak; (c) gemma-2b
-   train_4k ok on 256x1 and on (16, 16), falcon-mamba-7b train_4k
-   ``DENSE_TP`` on (16, 16), qwen2-moe-a2.7b ok in all four shapes on (16,
-   16); every
+   each member counted; (g), (h) phase 20(g)'s and 20(h)'s cases on
+   (data 1, model 2): wire bytes a step by kind and argument bytes equal to
+   each member's, peak within DRYRUN_PEAK_RTOL of each member's step-only
+   peak; (c) gemma-2b train_4k ok on 256x1 and on (16, 16), falcon-mamba-7b
+   and recurrentgemma-2b train_4k ok on (16, 16) (traced from phase 17 on:
+   minutes of CPU each; the other cases from phase 20 on), qwen2-moe-a2.7b
+   ok in all four shapes on (16, 16); every
    kernel counter 0 in each case's own process (each record's
    ``kernel_launches``; their sum is ``dryrun_launches`` in the kernels
    line).
@@ -319,6 +324,7 @@ kernel table as JSON and the result.
 """
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -587,6 +593,11 @@ MOE_WIDE_DEPTH, MOE_WIDE_B, MOE_WIDE_SEQ = 2, 4, 128
 # 1.8e-06 relative L2; PERF.md section 6)
 TP_WIDE_PROMPT, TP_WIDE_GEN = (4, 128), 8
 TP_WIDE_LOSS_RTOL, TP_WIDE_PARAMS_L2, TP_WIDE_LOGITS_L2 = 1e-6, 2e-5, 2e-5
+# (h) (g)'s run for the mamba and RG-LRU blocks at their published widths:
+# falcon-mamba-7b (arXiv:2410.05355) depth 64 -> 2, recurrentgemma-2b
+# (arXiv:2402.19427) depth 26 -> 3 (one pattern period); (g)'s tolerances
+TP_RECURRENT = (("h falcon", "falcon-mamba-7b", 2),
+                ("h rgemma", "recurrentgemma-2b", 3))
 # phase 21, the dry-run (python -m repro_torch.launch.dryrun, fake tensors
 # on the card's device, a fake process group) in subprocesses run side by
 # side, held against what phases 17(b), 20(c), 20(d) and 20(g) measured in
@@ -605,11 +616,23 @@ DRYRUN_CASES = (
                  "--mesh-shape", "256x1"], 0),
     ("c 16x16 gemma", ["--arch", "gemma-2b", "--shape", "train_4k"], 0),
     ("c 16x16 falcon", ["--arch", "falcon-mamba-7b", "--shape", "train_4k"],
-     1),
+     0),
+    ("c 16x16 rgemma", ["--arch", "recurrentgemma-2b", "--shape",
+                        "train_4k"], 0),
     ("c 16x16 qwen", ["--arch", "qwen2-moe-a2.7b"], 0),
     ("g", ["--arch", "gemma-2b", "--batch", str(GEMMA_WIDE_B), "--seq-len",
            str(GEMMA_WIDE_SEQ), "--policy", "baseline", "--dtype", "float32",
-           "--depth", str(GEMMA_WIDE_DEPTH), "--mesh-shape", "1x2"], 0))
+           "--depth", str(GEMMA_WIDE_DEPTH), "--mesh-shape", "1x2"], 0)) + tuple(
+    (name, ["--arch", arch, "--batch", str(GEMMA_WIDE_B), "--seq-len",
+            str(GEMMA_WIDE_SEQ), "--policy", "baseline", "--dtype", "float32",
+            "--depth", str(depth), "--mesh-shape", "1x2"], 0)
+    for name, arch, depth in TP_RECURRENT)
+# the dry-run's cases compute nothing on the card and need no measurement
+# to run (phase 21 compares their records afterwards), so they run beside
+# other phases: the two production traces that take minutes of CPU from
+# phase 17 on (beside GPU-bound work), the rest from phase 20 on
+DRYRUN_EARLY = ("c 16x16 falcon", "c 16x16 rgemma")
+DRYRUN_PROCS: dict = {}
 DRYRUN_PEAK_RTOL = 0.10
 # what phases 17(b), 20(c), 20(d) and 20(g) measured, for phase 21
 MEASURED: dict = {}
@@ -3792,12 +3815,13 @@ def _tp_train(cfg, pol, mesh, dev, rank: int, world: int) -> dict:
     return out, state
 
 
-def _cluster_tp(rank: int, dev) -> dict:
-    """(g): gemma-2b at its published widths, depth cut, float32, pssgd
-    none, every leaf the rules split held in blocks over model on (data 1,
-    model 2); member 0 first runs the same on (1, 1) alone (the other
-    waits), and holds the members' losses, served tokens and logits and
-    gathered params against it."""
+def _cluster_tp(rank: int, dev, arch: str = "gemma-2b",
+                depth: int = GEMMA_WIDE_DEPTH) -> dict:
+    """(g), (h): ``arch`` at its published widths, ``depth`` layers,
+    float32, pssgd none, every leaf the rules split held in blocks over
+    model on (data 1, model 2); member 0 first runs the same on (1, 1)
+    alone (the other waits), and holds the members' losses, served tokens
+    and logits and gathered params against it."""
     import dataclasses
     import torch.distributed as dist
     from repro_torch.configs import get_config
@@ -3805,8 +3829,8 @@ def _cluster_tp(rank: int, dev) -> dict:
     from repro_torch.launch import steps as tsteps
     from repro_torch.launch.mesh import Mesh, make_local_mesh
     from repro_torch.models import tp
-    cfg = dataclasses.replace(get_config("gemma-2b"),
-                              n_layers=GEMMA_WIDE_DEPTH, dtype="float32")
+    cfg = dataclasses.replace(get_config(arch), n_layers=depth,
+                              dtype="float32")
     pol = tsteps.TrainPolicy(mode="pssgd", compression="none", lr=1e-3,
                              total_steps=GEMMA_WIDE_STEPS, remat=True)
     one = None
@@ -3975,7 +3999,9 @@ def _members_two(rank: int, device: str) -> dict:
     out = {}
     parts = (("c", lambda: _cluster_trainer(rank, dev, CLUSTER_TRAIN_TWO)),
              ("d", lambda: _cluster_gemma(rank, dev)),
-             ("g", lambda: _cluster_tp(rank, dev)))
+             ("g", lambda: _cluster_tp(rank, dev))) + tuple(
+        (name, functools.partial(_cluster_tp, rank, dev, arch, depth))
+        for name, arch, depth in TP_RECURRENT)
     for name, fn in parts:
         out[name], out[name + "_s"] = wall_s(fn)
     out["launches"] = _member_counts()
@@ -4101,9 +4127,13 @@ def run_cluster_phase(dev, smi: str) -> dict:
         f"(one process {one_s:.3f} s)")
     if sum(per) != one_counts["topk_rows"]:
         raise AssertionError(f"cluster (f): launches {per} vs {one_counts}")
-    _check_tp(b, smi)
+    _check_tp(b, smi, "g", "gemma-2b", GEMMA_WIDE_DEPTH, 18)
+    for name, arch, depth in TP_RECURRENT:
+        _check_tp(b, smi, name, arch, depth,
+                  {"falcon-mamba-7b": 64, "recurrentgemma-2b": 26}[arch])
+    parts = list("cdfg") + [name for name, *_ in TP_RECURRENT]
     log(f"cluster spawn B parts s: "
-        f"{ {k: round(b[0][k + '_s'], 2) for k in 'cdfg'} }")
+        f"{ {k: round(b[0][k + '_s'], 2) for k in parts} }")
     total = dict.fromkeys(one_counts, 0)
     for m in a + b:
         for n, v in m["launches"].items():
@@ -4118,17 +4148,18 @@ def run_cluster_phase(dev, smi: str) -> dict:
     return total
 
 
-def _check_tp(b: list, smi: str) -> None:
-    """(g): the (1, 2) members against the (1, 1) run: losses, served
+def _check_tp(b: list, smi: str, key: str, arch: str, depth: int,
+              published: int) -> None:
+    """(g), (h): the (1, 2) members against the (1, 1) run: losses, served
     tokens and logits, gathered params; the members' whole leaves bitwise
     alike; each member's figures, kept for phase 21."""
-    g = [m["g"] for m in b]
+    g = [m[key] for m in b]
     one = g[0]["one"]
     for r, m in enumerate([one] + g):
         what = "one process (1, 1)" if r == 0 else f"member {r - 1} of (1, 2)"
         dec = m["serve"]["decode_ms"]
-        log(f"cluster (g) gemma-2b at its published widths, depth 18 -> "
-            f"{GEMMA_WIDE_DEPTH}, float32, pssgd none, global batch "
+        log(f"cluster ({key}) {arch} at its published widths, depth "
+            f"{published} -> {depth}, float32, pssgd none, global batch "
             f"({GEMMA_WIDE_B}, {GEMMA_WIDE_SEQ}), {what}: init "
             f"{m['init_s']:.3f} s; s a step "
             f"{[round(x, 4) for x in m['step_s']]} (CUDA events "
@@ -4151,20 +4182,21 @@ def _check_tp(b: list, smi: str) -> None:
     gaps = [float(torch.topk(c[:, -1], 2).values.diff(dim=-1).abs().min())
             for c in one["serve"]["logits"]]
     alike = g[0]["digest"] == g[1]["digest"]
-    log(f"cluster (g) (1, 2) against (1, 1): loss max rel diff "
+    log(f"cluster ({key}) (1, 2) against (1, 1): loss max rel diff "
         f"{loss_err:.3g} (limit {TP_WIDE_LOSS_RTOL}); gathered params "
         f"relative L2 {g[0]['params_err']:.3g} (limit {TP_WIDE_PARAMS_L2}); "
         f"greedy tokens equal {tok_same} (smallest top-2 logit gap a step "
         f"{min(gaps):.3g}); logits relative L2 max {lg_err:.3g} (limit "
         f"{TP_WIDE_LOGITS_L2}); members' whole leaves bitwise alike {alike} "
         f"(split over model: {len(g[0]['split'])} leaves)")
-    MEASURED["cluster_g"] = g
+    MEASURED["cluster_" + key] = g
     if not (loss_err <= TP_WIDE_LOSS_RTOL
             and g[0]["params_err"] <= TP_WIDE_PARAMS_L2 and tok_same
             and lg_err <= TP_WIDE_LOGITS_L2 and alike
             and g[0]["loss"] == g[1]["loss"]
             and all(np.isfinite(m["loss"]).all() for m in g)):
-        raise AssertionError("cluster (g): the (1, 2) run against (1, 1)")
+        raise AssertionError(f"cluster ({key}): the (1, 2) run against "
+                             f"(1, 1)")
 
 
 def _dryrun_records(out_dir: str) -> dict:
@@ -4179,37 +4211,56 @@ def _dryrun_records(out_dir: str) -> dict:
     return recs
 
 
-def run_dryrun(dev, smi: str) -> dict:
-    """Phase 21: the dry-run's CLI in subprocesses, fake tensors on the
-    card's device, held against phase 17(b)'s trainer and phase 20(d)'s
-    members as this run measured them (a, b) and a sample of its table on
-    the production meshes (c). Returns each kernel's launches summed over
-    the dry-run's cases, each counted in the process that ran it (all 0)."""
+DRYRUN_DIR = os.path.join(ROOT, "build", "dryrun")
+
+
+def start_dryrun(dev, names=None) -> None:
+    """Start the dry-run's CLI in a subprocess for each of DRYRUN_CASES
+    (those in ``names``; every one not started yet by default), fake
+    tensors on the card's device; ``run_dryrun`` waits for them."""
     import shutil
-    out_dir = os.path.join(ROOT, "build", "dryrun")
-    shutil.rmtree(out_dir, ignore_errors=True)
-    os.makedirs(out_dir)
+    if not DRYRUN_PROCS:
+        shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+        os.makedirs(DRYRUN_DIR)
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [os.path.join(ROOT, "src")] + [p for p in [os.environ.get(
             "PYTHONPATH")] if p]))
-    procs = {}
     for name, argv, _ in DRYRUN_CASES:
-        logf = open(os.path.join(out_dir, f"{name.replace(' ', '_')}.log"),
-                    "w")
-        procs[name] = (subprocess.Popen(
+        if name in DRYRUN_PROCS or (names is not None and name not in names):
+            continue
+        logf = open(os.path.join(DRYRUN_DIR,
+                                 f"{name.replace(' ', '_')}.log"), "w")
+        DRYRUN_PROCS[name] = (subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.dryrun", *argv,
-             "--device", dev.type, "--out", out_dir], cwd=ROOT, env=env,
+             "--device", dev.type, "--out", DRYRUN_DIR], cwd=ROOT, env=env,
             stdout=logf, stderr=subprocess.STDOUT), logf)
+
+
+def stop_dryrun() -> None:
+    """Kill any dry-run subprocess still running."""
+    for p, logf in DRYRUN_PROCS.values():
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        logf.close()
+    DRYRUN_PROCS.clear()
+
+
+def run_dryrun(dev, smi: str) -> dict:
+    """Phase 21: the dry-run's CLI in subprocesses, fake tensors on the
+    card's device (started before phases 17 and 20), held against
+    phase 17(b)'s trainer and phase 20(d)'s, 20(g)'s and 20(h)'s members
+    as this run measured them (a, b, g, h) and a sample of its table on the
+    production meshes (c). Returns each kernel's launches summed over the
+    dry-run's cases, each counted in the process that ran it (all 0)."""
+    out_dir = DRYRUN_DIR
+    start_dryrun(dev)
     rcs = {}
     try:
-        for name, (p, logf) in procs.items():
+        for name, (p, logf) in DRYRUN_PROCS.items():
             rcs[name] = p.wait(timeout=600)
-            logf.close()
     finally:
-        for p, _ in procs.values():
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+        stop_dryrun()
     for name, argv, want in DRYRUN_CASES:
         with open(os.path.join(out_dir, f"{name.replace(' ', '_')}.log")) as f:
             text = f.read()
@@ -4278,45 +4329,46 @@ def run_dryrun(dev, smi: str) -> dict:
     if not all(w == CLUSTER_STEPS * wire(rm) for w in got):
         raise AssertionError(f"dryrun (b moe): {wire(rm)} vs {got}")
 
-    # (g) phase 20(g)'s case, each member of (data 1, model 2)
-    rg = recs[("gemma-2b", f"train_{GEMMA_WIDE_B}x{GEMMA_WIDE_SEQ}", "1x2")]
-    members = MEASURED["cluster_g"]
-    mem = rg["memory"]
-    kinds = {k: int(v["bytes"]) for k, v in rg["collectives"].items()}
-    peaks = [[x - m["base"] for x in m["peak"]] for m in members]
-    log(f"dryrun (g) gemma-2b depth {GEMMA_WIDE_DEPTH}, float32, pssgd none "
-        f"on (data 1, model 2): wire bytes a member a step by kind {kinds} "
-        f"(phase 20(g) measured {[m['wire'] for m in members]}); argument "
-        f"bytes {mem['argument_bytes']} (held {[m['held'] for m in members]}"
-        f"); peak {mem['peak_bytes']} B against the members' step-only peaks "
-        f"{peaks} B; flops {rg['cost']['flops']:.6e}; traced in "
-        f"{rg['trace_s']} s")
-    for m, pk in zip(members, peaks):
-        if not (all(w == kinds for w in m["wire"])
-                and all(h == mem["argument_bytes"] for h in m["held"])
-                and abs(mem["peak_bytes"] / max(pk) - 1.0)
-                <= DRYRUN_PEAK_RTOL):
-            raise AssertionError(f"dryrun (g): {mem}, {kinds} vs "
-                                 f"{m['wire']} {m['held']} {pk}")
+    # (g), (h) phase 20(g)'s and 20(h)'s cases, each member of (data 1,
+    # model 2)
+    for key, arch, depth in (("g", "gemma-2b", GEMMA_WIDE_DEPTH),
+                             ) + TP_RECURRENT:
+        rg = recs[(arch, f"train_{GEMMA_WIDE_B}x{GEMMA_WIDE_SEQ}", "1x2")]
+        members = MEASURED["cluster_" + key]
+        mem = rg["memory"]
+        kinds = {k: int(v["bytes"]) for k, v in rg["collectives"].items()}
+        peaks = [[x - m["base"] for x in m["peak"]] for m in members]
+        log(f"dryrun ({key}) {arch} depth {depth}, float32, pssgd none on "
+            f"(data 1, model 2): wire bytes a member a step by kind {kinds} "
+            f"(phase 20({key[0]}) measured {[m['wire'] for m in members]}); "
+            f"argument bytes {mem['argument_bytes']} (held "
+            f"{[m['held'] for m in members]}); peak {mem['peak_bytes']} B "
+            f"against the members' step-only peaks {peaks} B "
+            f"({[round(mem['peak_bytes'] / max(pk) - 1.0, 4) for pk in peaks]}"
+            f"); flops {rg['cost']['flops']:.6e}; traced in {rg['trace_s']} "
+            f"s")
+        for m, pk in zip(members, peaks):
+            if not (all(w == kinds for w in m["wire"])
+                    and all(h == mem["argument_bytes"] for h in m["held"])
+                    and abs(mem["peak_bytes"] / max(pk) - 1.0)
+                    <= DRYRUN_PEAK_RTOL):
+                raise AssertionError(f"dryrun ({key}): {mem}, {kinds} vs "
+                                     f"{m['wire']} {m['held']} {pk}")
 
     # (c) a sample of the table
-    from repro_torch.launch.steps import DENSE_TP
-    r256 = recs[("gemma-2b", "train_4k", "256x1")]
-    r1616 = recs[("gemma-2b", "train_4k", "16x16")]
-    rfm = recs[("falcon-mamba-7b", "train_4k", "16x16")]
-    moe = [recs[("qwen2-moe-a2.7b", s, "16x16")] for s in
-           ("train_4k", "prefill_32k", "decode_32k", "long_500k")]
-    for r in [r256, r1616] + moe:
+    sample = [recs[("gemma-2b", "train_4k", "256x1")]] + [
+        recs[(a, "train_4k", "16x16")] for a in (
+            "gemma-2b", "falcon-mamba-7b", "recurrentgemma-2b")] + [
+        recs[("qwen2-moe-a2.7b", s, "16x16")] for s in
+        ("train_4k", "prefill_32k", "decode_32k", "long_500k")]
+    for r in sample:
         log(f"dryrun (c) {r['arch']} {r['shape']} on {r['mesh']}: "
             f"{r['status']}; argument {r['memory']['argument_bytes']} B, "
             f"peak {r['memory']['peak_bytes']} B, flops "
-            f"{r['cost']['flops']:.6e}, wire {wire(r)} B, traced in "
-            f"{r['trace_s']} s, {r['ops']} ops")
-    log(f"dryrun (c) falcon-mamba-7b train_4k on 16x16: {rfm['status']}: "
-        f"{rfm.get('error', '')[:160]}")
-    if not (r256["status"] == "ok" and all(r["status"] == "ok" for r in moe)
-            and r1616["status"] == "ok" and rfm["status"] == "fail"
-            and DENSE_TP in rfm["error"]):
+            f"{r['cost']['flops']:.6e}, wire {wire(r)} B "
+            f"{ {k: int(v['bytes']) for k, v in r['collectives'].items()} }, "
+            f"traced in {r['trace_s']} s, {r['ops']} ops")
+    if not all(r["status"] == "ok" for r in sample):
         raise AssertionError("dryrun (c): the table's sample")
     log(f"dryrun kernel launches summed over the {len(recs)} cases' "
         f"records: {total}")
@@ -4371,17 +4423,22 @@ def main() -> int:
               ("gossip", lambda: run_gossip(dev, smi)),
               ("lm", lambda: run_lm(dev, smi)),
               ("families", lambda: run_families(dev, smi)),
+              ("dryrun start", lambda: start_dryrun(dev, DRYRUN_EARLY)),
               ("trainer", lambda: run_trainer(dev, smi)),
               ("serve", lambda: run_serve(dev, smi)),
               ("leaf", lambda: run_leaf(dev, smi)),
+              ("dryrun start rest", lambda: start_dryrun(dev)),
               ("cluster", lambda: run_cluster_phase(dev, smi)),
               ("dryrun", lambda: run_dryrun(dev, smi))]
     out = {}
     log(f"phase card: {time.perf_counter() - t0:.2f} s")
-    for name, fn in phases:
-        t = time.perf_counter()
-        out[name] = fn()
-        log(f"phase {name}: {time.perf_counter() - t:.2f} s")
+    try:
+        for name, fn in phases:
+            t = time.perf_counter()
+            out[name] = fn()
+            log(f"phase {name}: {time.perf_counter() - t:.2f} s")
+    finally:
+        stop_dryrun()
     log("kernels: no single PyTorch call computes any of the six "
         "functions, so library_ms is null")
     launches = dict(out["api"], **out["engine"][0])

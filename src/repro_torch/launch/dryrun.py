@@ -22,11 +22,9 @@ without ``--shape`` runs the arch's four shapes; ``--batch`` and
 takes the config's ``reduced()``, and ``--dtype`` and ``--depth`` replace
 its dtype and layer count; ``--no-remat`` keeps each layer's activations
 (the trainer's ``--reduced`` setting), where a policy recomputes them. A
-case that fails is a record with ``status`` "fail" and its error: on the
-production meshes the ssm and hybrid configs fail with
-``steps.DENSE_TP``, as the port holds their recurrent blocks whole over
-``model``. The CLI exits 1 if any case failed. Run it in a process of its
-own: it holds the process's default group, a fake one.
+case that fails is a record with ``status`` "fail" and its error. The CLI
+exits 1 if any case failed. Run it in a process of its own: it holds the
+process's default group, a fake one.
 """
 from __future__ import annotations
 

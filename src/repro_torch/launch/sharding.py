@@ -16,6 +16,19 @@ split over several axes, row-major; one axis is its name, as
 ``PartitionSpec`` normalizes it). Leaves are keyed by the port's
 ``/``-joined paths (``transformer.flatten_params``). ``shard`` cuts this
 member's block of a full tensor, ``gather`` puts the blocks back together.
+
+A member holds the block the rules give it of every leaf (``held_spec``),
+but for mamba's ``in_proj``, ``(d, 2 d_inner)``: its columns are the
+``x`` half, then the ``z`` half, and the rule's contiguous block of them
+would give member 0 of two every ``x`` column and no ``z`` column. Its
+``model`` entry is ``HALVES`` instead: a member holds its block of each
+half, joined (Megatron's layout of Mamba: the same bytes a member, no
+activation resharded). ``shard`` and ``gather`` read it, so every caller
+(init, EF rows, moments, the compressed all-reduce's gathered leaf, the
+gathered params) gets the reference's whole leaf back, column for column.
+Where ``2 d_inner`` divides over ``model`` and ``d_inner`` does not, the
+rules hold every other ``d_inner`` leaf whole, and the member holds
+``in_proj`` whole too: the block runs whole.
 """
 from __future__ import annotations
 
@@ -56,12 +69,14 @@ _RULES: Dict[str, Tuple[Optional[int], Optional[int]]] = {
 # expert dim in the trailing-3 position -> tp on the expert axis instead.
 _MOE_EXPERT_NAMES = {"w_gate": (-3, -2), "w_up": (-3, -2), "w_down": (-3, -1)}
 
-# the mamba and RG-LRU leaves, which the port holds whole over ``model``
-# where the rules split them (ROADMAP queue A item 8b)
-_RECURRENT_NAMES = frozenset((
-    "in_proj", "conv_w", "conv_b", "x_proj", "dt_proj", "dt_bias", "A_log",
-    "D", "out_proj", "in_x", "in_gate", "w_a", "w_i", "b_a", "b_i",
-    "Lambda"))
+
+class _Halves(str):
+    """A spec entry equal to ``"model"`` (it is the axis's name) on a dim
+    of two halves side by side: a member's block is its block of each
+    half, joined."""
+
+
+HALVES = _Halves("model")
 
 
 def data_entry(mesh: Mesh):
@@ -87,19 +102,18 @@ def is_expert_stack(path: str, shape, cfg: ModelConfig) -> bool:
                 and _in_moe_subtree(path) and len(shape) >= 3)
 
 
-def model_split(path: str) -> bool:
-    """Whether the port splits the leaf at ``path`` over ``model`` where
-    the rules do: every leaf but the mamba and RG-LRU blocks'."""
-    return _leaf_name(path) not in _RECURRENT_NAMES
-
-
-def held_spec(spec: Spec, path: str) -> Spec:
-    """The spec a member holds the param at ``path`` by, from its
-    reference-layout ``spec``: ``model`` dropped where the port holds the
-    leaf whole (``model_split``)."""
-    if model_split(path):
+def held_spec(spec: Spec, path: str, shape, mesh: Mesh) -> Spec:
+    """The spec a member holds the leaf at ``path`` (of full ``shape``) by,
+    from its reference-layout ``spec``: ``spec`` itself, but on mamba's
+    ``in_proj``, whose ``model`` entry is ``HALVES`` where each half
+    divides over ``model`` and dropped (the leaf whole) where only the
+    whole dim does."""
+    if _leaf_name(path) != "in_proj" or "model" not in spec:
         return spec
-    return tuple(None if a == "model" else a for a in spec)
+    dim = spec.index("model")
+    whole = (shape[dim] // 2) % mesh.n("model") != 0
+    return tuple(a if i != dim else None if whole else HALVES
+                 for i, a in enumerate(spec))
 
 
 def param_spec(path: str, shape: Tuple[int, ...], cfg: ModelConfig,
@@ -220,8 +234,16 @@ def shard(x: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
             continue
         n = mesh.n(axes)
         if n > 1:
-            size = x.shape[dim] // n
-            out = out.narrow(dim, mesh.index(axes) * size, size)
+            i = mesh.index(axes)
+            if isinstance(axes, _Halves):
+                half = x.shape[dim] // 2
+                size = half // n
+                out = torch.cat([out.narrow(dim, i * size, size),
+                                 out.narrow(dim, half + i * size, size)],
+                                dim=dim)
+            else:
+                size = x.shape[dim] // n
+                out = out.narrow(dim, i * size, size)
     return out.clone() if out is not x else x
 
 
@@ -229,5 +251,9 @@ def gather(x: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
     """The full tensor from every member's block ``x`` under ``spec``."""
     for dim, axes in enumerate(spec):
         if axes is not None and mesh.n(axes) > 1:
-            x = torch.cat(list(all_gather(x, mesh, axes)), dim=dim)
+            blocks = list(all_gather(x, mesh, axes))
+            if isinstance(axes, _Halves):
+                halves = [b.chunk(2, dim=dim) for b in blocks]
+                blocks = [h[0] for h in halves] + [h[1] for h in halves]
+            x = torch.cat(blocks, dim=dim)
     return x

@@ -12,20 +12,19 @@ moments, step and EF from ``steps.full_state``, the batch from
 ``batch_specs`` and the cache from ``transformer.init_decode_cache``. Each
 member's block is ``sharding.shard_shape`` of its global leaf under the
 spec the member holds it by. ``specs`` holds the reference-layout spec of
-every leaf, in the structure of ``args``; the held spec drops its
-``model`` axis on the mamba and RG-LRU leaves (``sharding.held_spec``)
-and, in a cache, wherever the rule puts it on another dim than the kv
-heads' (``held_cache_spec``). A ``pos`` is a Python int, as
-``transformer.decode_step`` takes it, with spec ``()``.
+every leaf, in the structure of ``args``; the held spec is the same (mamba's
+``in_proj`` by halves, ``sharding.held_spec``) but, in a cache, where the
+rule puts ``model`` on another dim than the kv heads' or the recurrent
+channels' (``held_cache_specs``): the member holds that leaf whole. A
+``pos`` is a Python int, as ``transformer.decode_step`` takes it, with
+spec ``()``.
 
 A train step is handed the global batch and cuts its rows itself
 (``steps.local_batch``), as ``run_cluster`` hands it to every member; the
 serving cases run as a member would: its block of the batch over the data
 axes (``batch_shardings``: replicated where the batch does not divide), its
 blocks of the params and caches, the layers split over ``model``
-(``steps.make_prefill_step`` / ``make_decode_step`` on the mesh). Every
-kind calls ``steps.check_model_axis``: a ``model`` axis above 1 on the
-ssm or hybrid family raises ``steps.DENSE_TP``.
+(``steps.make_prefill_step`` / ``make_decode_step`` on the mesh).
 """
 from __future__ import annotations
 
@@ -90,16 +89,35 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
-def held_cache_spec(cfg: ModelConfig, spec: tuple) -> tuple:
-    """The spec a member holds a cache leaf by: ``model`` kept where the
-    rule puts it on the kv heads (the dim before the last) of an attention
-    cache, dropped elsewhere (the rule finds the dim by its size, and may
-    pick the sequence dim where the kv heads do not divide; the recurrent
-    states of the ssm and hybrid families are held whole)."""
-    kv_dim = len(spec) - 2
-    keep = cfg.family not in ("ssm", "hybrid")
-    return tuple(None if a == "model" and not (keep and i == kv_dim) else a
-                 for i, a in enumerate(spec))
+def cache_split_dims(cfg: ModelConfig, cache):
+    """The dim (from the end) of each leaf of a decode cache that a
+    member's block cuts over ``model``: an attention cache's kv heads
+    (-2), a recurrent state's channels (the conv's last dim, mamba's
+    ``ssm`` ``d_inner``, RG-LRU's ``h`` last dim)."""
+    if cfg.family == "ssm":
+        return {"conv": -1, "ssm": -2}
+    if cfg.family == "hybrid":
+        pat = cfg.block_pattern
+        return {"super": {k: -2 if k.endswith(("_k", "_v")) else -1
+                          for k in cache["super"]},
+                "rest": [(-1, -1) if pat[j] == "rglru" else (-2, -2)
+                         for j in range(len(cache["rest"]))]}
+    return tree_map(lambda x: -2, cache)
+
+
+def held_cache_specs(cfg: ModelConfig, cache, mesh: Mesh, batch: int):
+    """(the reference's spec, the held spec) of every leaf of ``cache``,
+    a decode cache of ``batch`` rows. A member holds a leaf by the
+    reference's spec where it puts ``model`` on the leaf's kv heads or
+    channels (``cache_split_dims``), and whole over ``model`` elsewhere
+    (the rule finds the dim by its size, and may pick the sequence dim
+    where the kv heads do not divide)."""
+    ref = shard_rules.cache_shardings(cfg, cache, mesh, batch)
+
+    def held(x, spec, dim):
+        return tuple(None if a == "model" and i != len(spec) + dim else a
+                     for i, a in enumerate(spec))
+    return ref, tree_map(held, cache, ref, cache_split_dims(cfg, cache))
 
 
 def _train_inputs(cfg, shape, mesh, policy):
@@ -116,8 +134,9 @@ def _train_inputs(cfg, shape, mesh, policy):
 def _params_inputs(cfg, mesh):
     params = steps_mod.param_shapes(cfg)
     params_sh = shard_rules.param_shardings(cfg, params, mesh)
-    return params, params_sh, {k: shard_rules.held_spec(sp, k)
-                               for k, sp in params_sh.items()}
+    return params, params_sh, {
+        k: shard_rules.held_spec(sp, k, params[k].shape, mesh)
+        for k, sp in params_sh.items()}
 
 
 def _prefill_inputs(cfg, shape, mesh):
@@ -130,10 +149,8 @@ def _prefill_inputs(cfg, shape, mesh):
 def _decode_inputs(cfg, shape, mesh):
     params, params_sh, params_held = _params_inputs(cfg, mesh)
     d = decode_specs(cfg, shape)
-    cache_sh = shard_rules.cache_shardings(cfg, d["cache"], mesh,
-                                           shape.global_batch)
-    cache_held = tree_map(lambda x, sp: held_cache_spec(cfg, sp),
-                          d["cache"], cache_sh)
+    cache_sh, cache_held = held_cache_specs(cfg, d["cache"], mesh,
+                                            shape.global_batch)
     tok_sh = shard_rules.batch_shardings({"token": d["token"]},
                                          mesh)["token"]
     return ((params, d["cache"], d["token"], d["pos"]),
@@ -174,7 +191,6 @@ def train_case(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh,
                policy: steps_mod.TrainPolicy, fake: FakeTensorMode = None,
                device="cuda"):
     """(train_step, (state, global batch), their specs)."""
-    steps_mod.check_model_axis(cfg, mesh.shape.get("model", 1))
     return _case(mesh, steps_mod.make_train_step(cfg, policy, mesh),
                  _train_inputs(cfg, shape, mesh, policy), fake, device)
 

@@ -16,12 +16,14 @@ of ``repro/launch/steps.py``'s ``TrainPolicy``, ``make_init_fn``,
 The reference maps the step over its mesh with ``shard_map``; here each
 member is a process (``launch/mesh.py``) that keeps its block of every
 state leaf, as ``state_shardings`` places it, and receives its rows of the
-batch (``P(dp)``). The ``model`` axis splits every leaf the rules split but
-the mamba and RG-LRU blocks' (``held_specs``): the layers compute with
-their blocks, Megatron-style (``models/tp.py``, named by the builders), and
-the expert stacks go through ``models/moe.py::moe_forward_ep``; that gives
-the numbers of the reference's XLA-managed tensor parallelism up to the
-order of the sums over ``model``. A leaf split over ``model`` is gathered
+batch (``P(dp)``). The ``model`` axis splits every leaf the rules split
+(``held_specs``; mamba's ``in_proj`` by halves, ``sharding.HALVES``): the
+layers compute with their blocks, Megatron-style (``models/tp.py``, named
+by the step builders: attention, MLP, vocabulary, the mamba and RG-LRU
+blocks with their recurrent states), and the expert stacks go through
+``models/moe.py::moe_forward_ep``; that gives the numbers of the
+reference's XLA-managed tensor parallelism up to the order of the sums
+over ``model``. A leaf split over ``model`` is gathered
 for a compressed all-reduce, whose scales and ``min_size`` cut cover the
 whole leaf, and cut again; the plain float32 mean is elementwise and
 reduces the member's block as it is. On one member every ``pmean`` is the
@@ -57,10 +59,6 @@ from repro_torch.optim.optimizers import (OptState, apply_updates,
 from repro_torch.optim.schedules import get_schedule
 
 State = Dict[str, Any]
-
-DENSE_TP = ("tensor parallelism of the mamba and RG-LRU blocks (splitting "
-            "their leaves and recurrent states over the model axis) is "
-            "ROADMAP queue A item 8b")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,15 +114,6 @@ def _param_shapes(cfg: ModelConfig) -> Dict:
     return tf.init_params(cfg, trandom.PRNGKey(0, "meta"))
 
 
-def check_model_axis(cfg: ModelConfig, model: int) -> None:
-    """A ``model`` axis of more than one member on the ssm or hybrid
-    family raises: their recurrent blocks run whole."""
-    if model > 1 and cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"a model axis of {model} on {cfg.name}, of the {cfg.family} "
-            f"family: {DENSE_TP}")
-
-
 # ===========================================================================
 # Shardings
 # ===========================================================================
@@ -178,21 +167,23 @@ def full_state(cfg: ModelConfig, policy: TrainPolicy, mesh: Mesh,
 
 def held_specs(cfg: ModelConfig, policy: TrainPolicy, mesh: Mesh) -> State:
     """The spec of every leaf of a member's state, as ``state_shardings``
-    places the reference's, but with the mamba and RG-LRU leaves whole over
-    ``model`` (``sharding.model_split``)."""
-    params = param_shapes(cfg)
-    specs = state_shardings(cfg, policy, mesh,
-                            full_state(cfg, policy, mesh, params))
+    places the reference's (mamba's ``in_proj`` by halves:
+    ``sharding.held_spec``)."""
+    state = full_state(cfg, policy, mesh, param_shapes(cfg))
+    specs = state_shardings(cfg, policy, mesh, state)
 
-    def held(tree):
+    def held(tree, shapes):
         if tree is None:
             return None
-        return {k: shard_rules.held_spec(spec, k) for k, spec in tree.items()}
-    out = {"params": held(specs["params"]),
-           "opt": OptState((), held(specs["opt"].m), held(specs["opt"].v)),
+        return {k: shard_rules.held_spec(spec, k, shapes[k].shape, mesh)
+                for k, spec in tree.items()}
+    opt = state["opt"]
+    out = {"params": held(specs["params"], state["params"]),
+           "opt": OptState((), held(specs["opt"].m, opt.m),
+                           held(specs["opt"].v, opt.v)),
            "step": ()}
     if "ef" in specs:
-        out["ef"] = held(specs["ef"])
+        out["ef"] = held(specs["ef"], state["ef"])
     return out
 
 
@@ -246,7 +237,6 @@ def make_init_fn(cfg: ModelConfig, policy: TrainPolicy, mesh: Mesh):
     seeded draw on every member: params, ``OptState``, the step and, with
     EF on a compressed wire, the member's float32 error row (``ef[i]`` of
     the reference's ``(n_dp, ...)`` leaf)."""
-    check_model_axis(cfg, mesh.shape.get("model", 1))
     specs = held_specs(cfg, policy, mesh)
     stacked = policy.mode == "localsgd"
 
@@ -280,7 +270,6 @@ def make_init_fn(cfg: ModelConfig, policy: TrainPolicy, mesh: Mesh):
 # Train steps
 # ===========================================================================
 def make_train_step(cfg: ModelConfig, policy: TrainPolicy, mesh: Mesh):
-    check_model_axis(cfg, mesh.shape.get("model", 1))
     set_model_mesh(mesh)
     if policy.mode == "fsdp":
         return _make_fsdp_step(cfg, policy, mesh)
@@ -317,9 +306,10 @@ def local_batch(batch: Dict, mesh: Mesh, *, divisible: bool = True) -> Dict:
 
 def _allreduce_leaf(k, g, e, axes, policy, mesh, mspec):
     """The compressed all-reduce of one leaf over ``axes``: a leaf split
-    over ``model`` (an expert stack) is gathered whole first, so that the
-    scales and the ``min_size`` cut cover the leaf, and cut again after;
-    the plain float32 mean gives the same bits on the block."""
+    over ``model`` is gathered whole first (in the reference's layout,
+    ``sharding.gather``), so that the scales and the ``min_size`` cut
+    cover the leaf, and cut again after; the plain float32 mean gives the
+    same bits on the block."""
     split = (policy.compression != "none"
              and any(a is not None for a in mspec))
     if split:
@@ -505,7 +495,6 @@ def make_prefill_step(cfg: ModelConfig, q_chunk: int = 1024, mesh=None):
     and receives its block of the logits (over the vocabulary, where it
     splits: ``models/tp.py::gather_last``) and of the cache."""
     if mesh is not None:
-        check_model_axis(cfg, mesh.shape.get("model", 1))
         set_model_mesh(mesh)
 
     def prefill_step(params, batch):
@@ -519,7 +508,6 @@ def make_decode_step(cfg: ModelConfig, *, circular: bool, mesh=None):
     """(params, cache, token, pos) -> (logits, new cache); ``pos`` a Python
     int. On ``mesh``, a member's blocks, as ``make_prefill_step``."""
     if mesh is not None:
-        check_model_axis(cfg, mesh.shape.get("model", 1))
         set_model_mesh(mesh)
 
     def decode_step(params, cache, token, pos):

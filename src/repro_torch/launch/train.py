@@ -19,9 +19,8 @@ A mesh of more than one member runs inside a process group of as many
 members (``torchrun``, or a caller's group, ``launch/members.py``) and
 raises outside one. Only rank 0 prints, and the checkpoint is gathered to
 rank 0 in the reference's layout. ``--mesh-model`` above 1 splits the
-transformer block over the model axis (heads, MLP, vocabulary, the MoE
-expert stacks); on the ssm and hybrid families it raises (their recurrent
-blocks, ROADMAP queue A item 8b). Trains all six families;
+blocks over the model axis (heads, MLP, vocabulary, the MoE expert
+stacks, the mamba and RG-LRU channels). Trains all six families;
 ``--cluster`` feeds the vlm and audio families zero vision / audio
 embeddings, as the reference does, and the federated path feeds none, so
 it fails on them with the reference's ``KeyError``.
@@ -49,9 +48,8 @@ from repro_torch.data import (FederatedLoader, SyntheticLMDataset,
 from repro_torch.fl import runtime as fl_runtime
 from repro_torch.launch.members import init_from_env, member_device
 from repro_torch.launch.mesh import make_local_mesh, members_line
-from repro_torch.launch.steps import (TrainPolicy, check_model_axis,
-                                      gather_params, make_init_fn,
-                                      make_train_step)
+from repro_torch.launch.steps import (TrainPolicy, gather_params,
+                                      make_init_fn, make_train_step)
 from repro_torch.models import transformer as tf
 
 
@@ -70,7 +68,6 @@ def run_cluster(args, cfg=None, device="cuda"):
         cfg = get_config(args.arch)
         if args.reduced:
             cfg = cfg.reduced()
-    check_model_axis(cfg, args.mesh_model)
     init_from_env(device)
     mesh = make_local_mesh(args.mesh_data, args.mesh_model)
     dev = fl_runtime.resolve_device(member_device(device, mesh.rank))

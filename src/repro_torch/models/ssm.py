@@ -7,6 +7,16 @@ State-space recurrence (per channel c, state n):
 with input-dependent (selective) dt, B, C. ``mamba_forward`` also takes an
 incoming state and returns the final one (prefill), and
 ``mamba_decode_step`` advances the state by one token (decode).
+
+Over a mesh's ``model`` axis (``models/tp.py``) a member may hold its block
+of the ``d_inner`` channels (``split``): its columns of each half of
+``in_proj`` (``x``'s, then ``z``'s: ``launch/sharding.py::HALVES``), of
+``dt_proj``, the conv and the per-channel leaves, its rows of ``x_proj``
+and ``out_proj``. The block enters at ``tp.copy_to``; ``x_proj``'s partial
+product ``proj``, which every channel reads, is summed over ``model`` and
+enters the block again (its cotangent, partial on each member, summed);
+``out_proj``'s partial outputs are summed. The scan, the conv and the
+states run on the member's channels as they are.
 """
 from __future__ import annotations
 
@@ -17,7 +27,7 @@ import torch.nn.functional as F
 
 from repro_torch import random as trandom
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import xla_math
+from repro_torch.models import tp, xla_math
 from repro_torch.models.layers import dense_init
 from repro_torch.models.scan_utils import (causal_depthwise_conv,
                                            chunked_linear_recurrence,
@@ -53,11 +63,26 @@ def init_mamba_block(key, cfg: ModelConfig, dtype) -> Params:
     }
 
 
-def _selective_terms(p: Params, xc: torch.Tensor, cfg: ModelConfig):
+def split(p: Params, cfg: ModelConfig) -> bool:
+    """Whether ``p`` holds this member's block of the ``d_inner``
+    channels."""
+    return p["in_proj"].shape[-1] != 2 * cfg.d_inner
+
+
+def _project(p: Params, xc: torch.Tensor, split_: bool) -> torch.Tensor:
+    """``xc @ x_proj`` (dt_rank + 2n wide): on a block of the channels, the
+    members' partial products summed over ``model``, entering the block
+    again through ``tp.copy_to``."""
+    proj = xc @ p["x_proj"].to(xc.dtype)
+    return tp.copy_to(tp.sum_over(proj)) if split_ else proj
+
+
+def _selective_terms(p: Params, xc: torch.Tensor, cfg: ModelConfig,
+                     split_: bool = False):
     """Input-dependent dt/B/C from the conv'd activation xc (B,S,di),
     float32 (the weights promoted to it, as the reference promotes)."""
     n, dtr = cfg.ssm_state, cfg.dt_rank_eff
-    proj = xc @ p["x_proj"].to(xc.dtype)  # (B,S,dtr+2n)
+    proj = _project(p, xc, split_)  # (B,S,dtr+2n)
     dt_in, b_in, c_in = torch.split(proj, [dtr, n, n], dim=-1)
     dt = softplus(dt_in @ p["dt_proj"].to(xc.dtype)
                   + p["dt_bias"].to(torch.float32))  # (B,S,di)
@@ -75,19 +100,24 @@ def mamba_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     the reference's does); ``return_state`` also returns the final state,
     the conv's last ``d_conv - 1`` inputs and h."""
     bsz = x.shape[0]
+    split_ = split(p, cfg)
+    if split_:
+        x = tp.copy_to(x)
     xz = x @ p["in_proj"]
     x_ssm, z = xz.chunk(2, dim=-1)
     xc = causal_depthwise_conv(x_ssm, p["conv_w"], p["conv_b"])
     xc = F.silu(xc).to(torch.float32)
-    a_bar, bx, c_in = _selective_terms(p, xc, cfg)
+    a_bar, bx, c_in = _selective_terms(p, xc, cfg, split_)
     h0 = (state[1] if state is not None else
-          torch.zeros((bsz, cfg.d_inner, cfg.ssm_state), dtype=torch.float32,
-                      device=x.device))
+          torch.zeros((bsz, x_ssm.shape[-1], cfg.ssm_state),
+                      dtype=torch.float32, device=x.device))
     h_all, h_last = chunked_linear_recurrence(a_bar, bx, h0, chunk=chunk)
     y = torch.einsum("bsdn,bsn->bsd", h_all, c_in.to(torch.float32))
     y = y + p["D"].to(torch.float32) * xc
     y = (y * F.silu(z.to(torch.float32))).to(x.dtype)
     out = y @ p["out_proj"]
+    if split_:
+        out = tp.sum_over(out)
     if return_state:
         return out, (x_ssm[:, -(cfg.d_conv - 1):, :], h_last)
     return out
@@ -100,12 +130,15 @@ def mamba_decode_step(p: Params, x: torch.Tensor, state: Tuple,
     the reference's order of operations (not through ``_selective_terms``)."""
     conv_state, h = state
     n, dtr = cfg.ssm_state, cfg.dt_rank_eff
+    split_ = split(p, cfg)
+    if split_:
+        x = tp.copy_to(x)
     xz = x[:, 0] @ p["in_proj"]
     x_ssm, z = xz.chunk(2, dim=-1)  # (B,di)
     conv_state, xc = conv_step(conv_state.to(x_ssm.dtype), x_ssm,
                                p["conv_w"], p["conv_b"])
     xc = F.silu(xc).to(torch.float32)  # (B,di)
-    proj = xc @ p["x_proj"].to(xc.dtype)
+    proj = _project(p, xc, split_)
     dt_in, b_in, c_in = torch.split(proj, [dtr, n, n], dim=-1)
     dt = softplus(dt_in @ p["dt_proj"].to(xc.dtype)
                   + p["dt_bias"].to(torch.float32))
@@ -115,7 +148,10 @@ def mamba_decode_step(p: Params, x: torch.Tensor, state: Tuple,
     h = a_bar * h + bx
     y = torch.einsum("bdn,bn->bd", h, c_in) + p["D"].to(torch.float32) * xc
     y = (y * F.silu(z.to(torch.float32))).to(x.dtype)
-    return (y @ p["out_proj"])[:, None, :], (conv_state, h)
+    out = y @ p["out_proj"]
+    if split_:
+        out = tp.sum_over(out)
+    return out[:, None, :], (conv_state, h)
 
 
 def init_mamba_state(batch: int, cfg: ModelConfig, dtype, device=None

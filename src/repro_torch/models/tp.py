@@ -1,10 +1,10 @@
 """The ``model`` axis of a mesh inside the model: Megatron-style tensor
-parallelism of the transformer block and expert parallelism of the MoE
-layer share these helpers.
+parallelism of the transformer, mamba and RG-LRU blocks and expert
+parallelism of the MoE layer share these helpers.
 
 The step builders (``launch/steps.py``, ``launch/specs.py``) name the mesh
 (``set_model_mesh``); the layers read it. A member holds its block of each
-leaf the ``model`` axis splits (``launch/sharding.py::model_split``) and
+leaf the ``model`` axis splits (``launch/sharding.py::held_spec``) and
 the whole of every other, and a layer tells the two apart by the leaf's
 shape against the config's width. The residual stream is replicated over
 ``model``: a region that computes with split leaves starts at ``copy_to``
@@ -13,7 +13,11 @@ summed over ``model``) and ends at ``sum_over`` (forward: the members'
 partial outputs summed; backward: the cotangent as it is). A whole leaf
 used inside such a region (``wk`` / ``wv`` when the kv heads do not split
 but the q heads do) goes through ``copy_to`` too, so that its gradient,
-partial on each member, is summed.
+partial on each member, is summed. A split activation that a split
+leaf's rows need whole (RG-LRU's ``xc`` before ``w_a`` / ``w_i``, split by
+columns) goes through ``gather_from`` (forward: the members' blocks
+joined along the last dim; backward: the cotangent summed over ``model``,
+this member's block kept: a reduce-scatter).
 
 On a ``model`` axis of one member (or with no mesh named) every helper
 returns its input and adds no op. Sums take ``collectives.psum``'s order
@@ -23,7 +27,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.collectives import all_gather, psum
+from repro_torch.core.collectives import (all_gather, psum,
+                                          reduce_scatter_sum)
 
 AXIS = "model"
 
@@ -80,6 +85,27 @@ class _CopyToAxis(torch.autograd.Function):
         return psum(g.contiguous(), ctx.mesh, ctx.axis), None, None
 
 
+class _GatherFromAxis(torch.autograd.Function):
+    """Forward: the members' blocks joined along the last dim; backward:
+    the cotangent summed over the axis in ``psum``'s order, this member's
+    block kept."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return torch.cat(list(all_gather(x.contiguous(), mesh, axis)),
+                         dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = ctx.mesh.n(ctx.axis)
+        blocks = g.reshape(*g.shape[:-1], n, g.shape[-1] // n).movedim(-2, 0)
+        part = reduce_scatter_sum(
+            blocks.reshape(n * g.shape[0], *blocks.shape[2:]), ctx.mesh,
+            ctx.axis)
+        return part.to(g.dtype), None, None
+
+
 def sum_over(x: torch.Tensor, mesh=None, axis: str = AXIS) -> torch.Tensor:
     """The sum of the members' partial ``x`` over ``axis`` (the named
     mesh's ``model`` axis by default)."""
@@ -98,6 +124,17 @@ def copy_to(x: torch.Tensor, mesh=None, axis: str = AXIS) -> torch.Tensor:
     return _CopyToAxis.apply(x, mesh, axis)
 
 
+def gather_from(x: torch.Tensor, mesh=None,
+                axis: str = AXIS) -> torch.Tensor:
+    """The whole of an activation split over ``axis`` along its last dim,
+    joined from every member's block (its gradient summed over ``axis``
+    and cut back to this member's block)."""
+    mesh = _MESH if mesh is None else mesh
+    if mesh is None or mesh.n(axis) == 1:
+        return x
+    return _GatherFromAxis.apply(x, mesh, axis)
+
+
 def max_over(x: torch.Tensor) -> torch.Tensor:
     """The elementwise max of the members' ``x`` over ``model``, detached
     (an all-gather of the small ``x``, then a max)."""
@@ -111,6 +148,4 @@ def gather_last(x: torch.Tensor, full: int) -> torch.Tensor:
     """The whole of a tensor split over ``model`` along its last dim (e.g.
     a member's logits over its block of the vocabulary); ``x`` as it is
     when its last dim is already ``full``."""
-    if x.shape[-1] == full:
-        return x
-    return torch.cat(list(all_gather(x.contiguous(), _MESH, AXIS)), dim=-1)
+    return x if x.shape[-1] == full else gather_from(x)

@@ -26,11 +26,12 @@ its position as a Python int and returns a new cache, its input untouched.
 
 Over a mesh's ``model`` axis (``models/tp.py``, named by the step builders)
 each member computes with its blocks of the leaves the axis splits
-(``launch/sharding.py::model_split``): its q and kv heads, its columns of
-the MLP, its rows of the vocabulary in the embedding, the unembedding and
-the cross-entropy (whose max, sum of exps and gold logit are reduced over
-``model``; the (B, chunk, V) logits are never gathered), and its kv heads
-of the caches. The ssm and hybrid trunks run whole.
+(``launch/sharding.py::held_spec``): its q and kv heads, its columns of
+the MLP, its channels of the mamba and RG-LRU blocks (``models/ssm.py``,
+``models/rglru.py``), its rows of the vocabulary in the embedding, the
+unembedding and the cross-entropy (whose max, sum of exps and gold logit
+are reduced over ``model``; the (B, chunk, V) logits are never gathered),
+and its kv heads and recurrent channels of the caches.
 """
 from __future__ import annotations
 
@@ -338,7 +339,7 @@ def _rglru_block_fwd(p: Params, x, cfg: ModelConfig, *, state=None,
         res, st = res
     x = x + res
     h2 = apply_norm(p["norm2"], x, cfg.norm_type)
-    x = x + apply_mlp(p["mlp"], h2, cfg.mlp_type)
+    x = x + apply_mlp(p["mlp"], h2, cfg.mlp_type, cfg.d_ff)
     return (x, st) if return_state else x
 
 
@@ -347,7 +348,7 @@ def _rglru_block_decode(p: Params, x, state, cfg: ModelConfig):
     res, state = rglru_mod.rglru_decode_step(p["rec"], h, state, cfg)
     x = x + res
     h2 = apply_norm(p["norm2"], x, cfg.norm_type)
-    return x + apply_mlp(p["mlp"], h2, cfg.mlp_type), state
+    return x + apply_mlp(p["mlp"], h2, cfg.mlp_type, cfg.d_ff), state
 
 
 def _mamba_block_fwd(p: Params, x, cfg: ModelConfig, *, state=None,
@@ -633,7 +634,7 @@ def init_decode_cache(cfg: ModelConfig, batch: int, length: int, *,
     size; ``sliding`` caps attention caches at LONG_CONTEXT_WINDOW (ring
     buffers), and a sliding-attention config at its window. ``model``: a
     member's block over a ``model`` axis of that many members (its kv
-    heads, where they split)."""
+    heads and its channels of the recurrent states, where they split)."""
     _check_family(cfg)
     dtype = torch_dtype(cfg.dtype)
     t_attn = min(length, LONG_CONTEXT_WINDOW) if sliding else length
@@ -643,6 +644,8 @@ def init_decode_cache(cfg: ModelConfig, batch: int, length: int, *,
     n_kv = cfg.n_kv_heads
     if n_kv and n_kv % model == 0:
         n_kv //= model
+    di, w = (c // model if c % model == 0 else c
+             for c in (cfg.d_inner, cfg.lru_width))
 
     def zeros(*shape, dt=dtype):
         return torch.zeros(shape, dtype=dt, device=device)
@@ -654,9 +657,8 @@ def init_decode_cache(cfg: ModelConfig, batch: int, length: int, *,
     if fam in ("dense", "moe"):
         return dict(zip(("k", "v"), kv(cfg.n_layers)))
     if fam == "ssm":
-        return {"conv": zeros(cfg.n_layers, batch, cfg.d_conv - 1,
-                              cfg.d_inner),
-                "ssm": zeros(cfg.n_layers, batch, cfg.d_inner, cfg.ssm_state,
+        return {"conv": zeros(cfg.n_layers, batch, cfg.d_conv - 1, di),
+                "ssm": zeros(cfg.n_layers, batch, di, cfg.ssm_state,
                              dt=torch.float32)}
     if fam == "hybrid":
         pat = cfg.block_pattern
@@ -664,14 +666,12 @@ def init_decode_cache(cfg: ModelConfig, batch: int, length: int, *,
         sup = {}
         for i, kind in enumerate(pat):
             if kind == "rglru":
-                sup[f"p{i}_conv"] = zeros(n_super, batch, cfg.d_conv - 1,
-                                          cfg.lru_width)
-                sup[f"p{i}_h"] = zeros(n_super, batch, cfg.lru_width,
-                                       dt=torch.float32)
+                sup[f"p{i}_conv"] = zeros(n_super, batch, cfg.d_conv - 1, w)
+                sup[f"p{i}_h"] = zeros(n_super, batch, w, dt=torch.float32)
             else:
                 sup[f"p{i}_k"], sup[f"p{i}_v"] = kv(n_super)
-        rest = [(zeros(batch, cfg.d_conv - 1, cfg.lru_width),
-                 zeros(batch, cfg.lru_width, dt=torch.float32))
+        rest = [(zeros(batch, cfg.d_conv - 1, w),
+                 zeros(batch, w, dt=torch.float32))
                 if pat[j] == "rglru" else kv() for j in range(rem)]
         return {"super": sup, "rest": rest}
     if fam == "vlm":

@@ -11,7 +11,8 @@ package's, on the CPU. The reference runs on the Auto-axis mesh of
     (the params within a relative L2 error of 1e-3 of the reference's own,
     as ``test_torch_steps.py`` holds the steps) and by the port's, bitwise;
     meshes of more than one member raise outside a process group, a model
-    axis raises on a dense config, and the vlm and audio families train.
+    axis too, and the vlm and audio families train; the ssm and hybrid
+    families train split over a model axis of 2 (two ``gloo`` members).
 (b) ``train_fl_100m`` at its mini size for 3 steps against the reference's
     example: the model line and the printed losses equal; both raise the
     example's assertion (3 steps do not lower the loss by 0.3); the full
@@ -39,9 +40,11 @@ from repro_torch import convert  # noqa: E402
 from repro_torch import random as trandom  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.examples import train_fl_100m as tex  # noqa: E402
+from repro_torch.launch import members  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
 from test_torch_steps import (  # noqa: E402,F401
     PARAMS_REL_L2, _np, _one_thread, _rel_l2, auto_mesh)
+import torch_cluster_workers as workers  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -86,26 +89,35 @@ def test_cluster_main_matches_reference(arch, comp, tmp_path, monkeypatch,
         assert torch.equal(ours[k], v), k
 
 
-def test_cluster_raises_for_meshes_and_runs_every_family():
+def test_cluster_raises_for_meshes_and_runs_every_family(tmp_path):
     """A mesh of more than one member raises outside a process group of as
     many members (``tests/test_torch_cluster_cli_members.py`` runs one), a
-    dense config's model axis too (``tests/test_torch_cluster_tp.py``
-    holds its steps against the reference's), and a model axis above 1 on
-    the ssm or hybrid family raises (their recurrent blocks, ROADMAP queue
-    A item 8b); the vlm and audio families train (on zero embeddings, as
-    the reference's CLI feeds them; ``tests/test_torch_vlm_audio.py`` holds
-    them against it)."""
+    model axis too (``tests/test_torch_cluster_tp.py`` and
+    ``_tp_recurrent.py`` hold the steps against the reference's); the ssm
+    and hybrid families train over a model axis of 2 inside a group of two
+    members, their recurrent blocks split (ROADMAP queue A item 8b), each
+    member printing or silent as rank 0 or 1; the vlm and audio families
+    train (on zero embeddings, as the reference's CLI feeds them;
+    ``tests/test_torch_vlm_audio.py`` holds them against it)."""
     for arch, flags, n in (
             ("qwen2-moe-a2.7b", ["--mesh-data", "2"], 2),
             ("qwen2-moe-a2.7b", ["--mesh-data", "2", "--mesh-model", "2"], 4),
-            ("gemma-2b", ["--mesh-model", "4"], 4)):
+            ("gemma-2b", ["--mesh-model", "4"], 4),
+            ("falcon-mamba-7b", ["--mesh-model", "4"], 4),
+            ("recurrentgemma-2b", ["--mesh-model", "4"], 4)):
         with pytest.raises(RuntimeError, match=f"process group of {n} "):
             ttrain.main(["--arch", arch, "--reduced", "--cluster"] + flags,
                         device="cpu")
-    for arch in ("falcon-mamba-7b", "recurrentgemma-2b"):
-        with pytest.raises(NotImplementedError, match="queue A item 8b"):
-            ttrain.main(["--arch", arch, "--reduced", "--cluster",
-                         "--mesh-model", "4"], device="cpu")
+    recurrent = ("falcon-mamba-7b", "recurrentgemma-2b")
+    got = members.spawn(workers.cli_runs, 2, ([
+        ["--arch", a, "--reduced", "--cluster", "--mesh-model", "2",
+         "--steps", "4", "--seq-len", "16", "--batch", "8", "--lr", "3e-3"]
+        for a in recurrent],), rendezvous_dir=str(tmp_path))
+    for arch, out, quiet in zip(recurrent, got[0], got[1]):
+        assert quiet == "" and out.startswith("members: 2 members"), arch
+        losses = _losses(out)
+        assert len(losses) == 4 and losses[-1] < losses[0], arch
+        assert "final loss" in out
     for arch in ("llama-3.2-vision-11b", "whisper-base"):
         args = ttrain.parser().parse_args(
             ["--arch", arch, "--reduced", "--cluster", "--steps", "4",

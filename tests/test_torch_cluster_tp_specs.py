@@ -8,9 +8,13 @@ nothing is allocated); and the trainer's command line on a model axis of
 (f) For every leaf of the state (pssgd int8 + EF: params, moments and the
 client-stacked EF; fsdp: split over the data axis too) on (data 1, model
 2), (data 2, model 2) and a (16, 16) description, the held spec equals the
-reference's, leaf for leaf, but for ``model`` on the mamba and RG-LRU
-leaves, which the port holds whole (``sharding.model_split``; ROADMAP
-queue A item 8b).
+reference's, leaf for leaf, the mamba and RG-LRU leaves too (mamba's
+``in_proj`` by halves, ``sharding.HALVES``, which equals ``"model"``).
+(g) The recurrent leaves of falcon-mamba-7b and recurrentgemma-2b
+``reduced()`` on (1, 2) and (1, 4): each member's block cut by
+``sharding.shard`` and joined by ``gather`` against the reference's whole
+leaves (its unjitted init), ``in_proj``'s block its columns of each half;
+with ``d_inner`` 130 on (1, 4) ``in_proj`` is held whole.
 """
 import re
 
@@ -25,8 +29,11 @@ from jax.sharding import AbstractMesh  # noqa: E402
 from repro.configs import ARCHS  # noqa: E402
 from repro.configs import get_config as jget_config  # noqa: E402
 from repro.launch import dryrun as jdryrun  # noqa: E402
+from repro.launch import sharding as jsharding  # noqa: E402
 from repro.launch import steps as jsteps  # noqa: E402
+from repro.models import transformer as jtf  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch import convert  # noqa: E402
 from repro_torch.launch import dryrun, members, sharding  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.launch import steps as tsteps  # noqa: E402
@@ -79,13 +86,56 @@ def test_held_specs_match_reference(arch, mesh, policy):
         assert sorted(specs) == sorted(want[part]), part
         for k, sp in specs.items():
             ref = _spec(want[part][k], len(shapes[part][k].shape))
-            if sharding.model_split(k):
-                assert sp == ref, (part, k)
-            else:   # held whole over model: item 8b
-                assert sp == tuple(None if a == "model" else a
-                                   for a in ref), (part, k)
+            assert sp == ref, (part, k)
+            assert any(a is sharding.HALVES for a in sp) == (
+                k.endswith("/in_proj") and "model" in ref), (part, k)
             n_split += "model" in sp
     assert n_split > 0
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (1, 4)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_recurrent_blocks_shard_and_gather_against_reference(tmp_path,
+                                                              shape):
+    got = members.spawn(workers.recurrent_layout, shape[1], (shape,),
+                        rendezvous_dir=str(tmp_path))
+    m = shape[1]
+    for name in workers.LAYOUT_CONFIGS:
+        cfg = workers.tp_cfg(name)
+        jparams = jtf.init_params(cfg, jax.random.PRNGKey(0))
+        want = convert.lm_params_from_jax(jax.tree.map(np.asarray, jparams))
+        held = tsteps.held_specs(cfg, tsteps.TrainPolicy(), Mesh(
+            shape, ("data", "model"), bind=False))["params"]
+        ref = flatten_params(jsharding.param_shardings(
+            cfg, jparams, AbstractMesh(shape, ("data", "model"))))
+        rec = [k for k in want if "/mamba/" in k or "/rec/" in k]
+        assert rec
+        if name == "mamba_part":   # the partial case on 4, not on 2
+            assert (cfg.d_inner % m == 0) == (m == 2)
+        whole = cfg.family == "ssm" and cfg.d_inner % m != 0
+        for k in rec:
+            spec = _spec(ref[k], want[k].ndim)
+            if whole and k.endswith("/in_proj"):
+                assert "model" in spec and held[k] == (None,) * want[k].ndim
+            else:
+                assert held[k] == spec, k
+            assert ("model" in held[k]) == (not whole), k
+            for r, res in enumerate(got):
+                np.testing.assert_array_equal(res[f"{name}/gather/{k}"],
+                                              want[k], err_msg=k)
+                block = res[f"{name}/local/{k}"]
+                if "model" not in held[k]:
+                    np.testing.assert_array_equal(block, want[k])
+                elif k.endswith("/in_proj"):
+                    c = cfg.d_inner // m
+                    np.testing.assert_array_equal(block, np.concatenate(
+                        [want[k][..., r * c:(r + 1) * c],
+                         want[k][..., cfg.d_inner + r * c:
+                                 cfg.d_inner + (r + 1) * c]], axis=-1))
+                else:
+                    dim = held[k].index("model")
+                    np.testing.assert_array_equal(block, np.split(
+                        want[k], m, axis=dim)[r], err_msg=k)
 
 
 CLI_ARCHS = ("gemma-2b", "stablelm-12b", "llama-3.2-vision-11b",

@@ -6,8 +6,8 @@ tensors on the CPU (``--device cpu``).
 A case writes a record with the reference's keys (``lower_s`` /
 ``compile_s`` / ``hlo_bytes`` become ``trace_s`` and ``ops``) and its op
 log; a dense config on the (16, 16) mesh is ``ok``, split over ``model``,
-and an ssm config there a ``fail`` record naming ``DENSE_TP``, with exit
-code 1; ``reanalyze`` re-derives
+and so is an ssm config's decode step there, its recurrent states split
+too; ``reanalyze`` re-derives
 ``parsed`` and ``collectives`` from the op logs exactly. The trainer's
 ``--cluster --reduced`` step on (data 2, model 2), traced with
 ``--reduced --no-remat``, sends what 4 gloo members send in each step.
@@ -26,7 +26,7 @@ from repro_torch.configs import SHAPES, get_config  # noqa: E402
 from repro_torch.launch import dryrun, members, specs  # noqa: E402
 from repro_torch.launch.mesh import Mesh  # noqa: E402
 from repro_torch.launch.sharding import shard_shape  # noqa: E402
-from repro_torch.launch.steps import DENSE_TP  # noqa: E402
+from repro_torch.launch.specs import tree_map  # noqa: E402
 import torch_cluster_workers as workers  # noqa: E402
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -62,7 +62,7 @@ def out(tmp_path_factory):
                           "long_500k"],
                          ["--arch", "gemma-2b", "--shape", "train_4k"],
                          ["--arch", "falcon-mamba-7b", "--shape",
-                          "train_4k"])]
+                          "decode_32k"])]
     return d, runs
 
 
@@ -95,7 +95,9 @@ def test_dense_on_production_mesh_fails_with_dense_tp(out):
     ``ok``: each member holds its block of every leaf the reference splits
     (gemma-2b: the MLP and the vocabulary; its 8 q heads and 1 kv head do
     not divide by 16), and the step sends the all-reduces over model. An
-    ssm config fails with ``DENSE_TP`` (ROADMAP queue A item 8b)."""
+    ssm config's decode step is ``ok`` too (ROADMAP queue A item 8b): a
+    member holds its block of every mamba leaf and recurrent state, and
+    its argument bytes are those blocks'."""
     d, runs = out
     assert runs[2].returncode == 0, runs[2].stderr
     assert "done: 1/1 ok" in runs[2].stdout
@@ -119,19 +121,29 @@ def test_dense_on_production_mesh_fails_with_dense_tp(out):
     assert params < whole / 4
     assert rec["memory"]["argument_bytes"] > params
     assert rec["collectives"]["all-reduce"]["bytes"] > 0
-    assert runs[3].returncode == 1
-    assert "done: 0/1 ok" in runs[3].stdout
-    rec = _record(d, "falcon-mamba-7b__train_4k__16x16__baseline")
-    assert rec["status"] == "fail"
-    assert DENSE_TP in rec["error"] and "traceback" in rec
-    assert "queue A item 8b" in rec["error"]
+    assert runs[3].returncode == 0, runs[3].stderr
+    assert "done: 1/1 ok" in runs[3].stdout
+    rec = _record(d, "falcon-mamba-7b__decode_32k__16x16__baseline")
+    assert rec["status"] == "ok" and rec["n_devices"] == 256
+    cfg = get_config("falcon-mamba-7b")
+    glob, sp, held = specs.case_specs(cfg, SHAPES["decode_32k"], mesh, pol)
+    assert held[0]["blocks/mamba/in_proj"] == (None, None, "model")
+    assert held[1] == {"conv": (None, "data", None, "model"),
+                       "ssm": (None, "data", "model", None)}
+    sizes = []
+    tree_map(lambda x, h: sizes.append(math.prod(shard_shape(
+        x.shape, h, mesh)) * x.dtype.itemsize) if hasattr(x, "shape")
+        else None, glob, held)
+    assert rec["memory"]["argument_bytes"] == sum(sizes)
+    assert rec["collectives"]["all-reduce"]["bytes"] > 0
 
 
 def test_reanalyze_reproduces_records(out):
     d, _ = out
     names = ["whisper-base__decode_32k__256x1__baseline",
              "qwen2-moe-a2.7b__long_500k__16x16__baseline",
-             "gemma-2b__train_4k__16x16__baseline"]
+             "gemma-2b__train_4k__16x16__baseline",
+             "falcon-mamba-7b__decode_32k__16x16__baseline"]
     before = {n: _record(d, n) for n in names}
     for n in names:
         rec = dict(before[n], parsed={}, collectives={})
@@ -139,7 +151,7 @@ def test_reanalyze_reproduces_records(out):
             json.dump(rec, f)
     res = _run("repro_torch.launch.reanalyze", "--out", d)
     assert res.returncode == 0, res.stderr
-    assert "updated 3, missing op log for 0" in res.stdout
+    assert "updated 4, missing op log for 0" in res.stdout
     for n in names:
         assert _record(d, n) == before[n]
 

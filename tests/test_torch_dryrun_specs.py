@@ -9,9 +9,10 @@ reference's, leaf for leaf (``case_specs`` on a described mesh), for the
 dry-run's policy of each case (baseline; llama3-405b's train step as fsdp,
 the reference's rule). A member's inputs (``member_inputs``, fake tensors)
 have ``shard_shape`` of the global leaf under the spec the member holds it
-by (the reference's, but for ``model`` on the mamba and RG-LRU leaves and
-on a cache dim other than the kv heads'); the ssm and hybrid configs raise
-``DENSE_TP`` there. On (256, 1) the
+by (the reference's, but for ``model`` on a cache dim other than the kv
+heads' or the recurrent channels'); the ssm and hybrid configs build their
+cases there, their recurrent leaves and states split over ``model``. On
+(256, 1) the
 step itself runs under fake tensors on a fake process group of 256 for a
 few cheap cases (the full-size traces of every case belong to the CLI),
 and its outputs' shapes and dtypes equal the reference's ``jax.eval_shape``
@@ -34,7 +35,6 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.launch import dryrun, specs  # noqa: E402
 from repro_torch.launch.mesh import Mesh, make_mesh  # noqa: E402
 from repro_torch.launch.sharding import shard_shape  # noqa: E402
-from repro_torch.launch.steps import DENSE_TP  # noqa: E402
 from repro_torch.models.transformer import flatten_params  # noqa: E402
 from repro_torch.optim.optimizers import OptState  # noqa: E402
 
@@ -144,11 +144,22 @@ def test_inputs_and_specs_match_reference(arch, mesh):
             # batch)
             assert all(a == b or a is None for a, b in zip(h, s))
         n_model = sum("model" in h for h in got_held)
-        assert n_model > 0 or cfg.family in ("ssm", "hybrid")
+        assert n_model > 0
         if cfg.family in ("ssm", "hybrid"):
-            with pytest.raises(NotImplementedError, match="queue A item 8b"):
-                specs.build_case(cfg, shape, tmesh, pol, device="cpu")
-    assert "queue A item 8b" in DENSE_TP
+            # the recurrent blocks split too (ROADMAP queue A item 8b)
+            fn, args, _ = specs.build_case(cfg, shape, tmesh, pol,
+                                           device="cpu")
+            dryrun.reset_globals()
+            assert callable(fn) and len(_leaves(args)) == len(got)
+            if shape.kind == "decode":   # every recurrent state splits
+                c = held[1]
+                states = ([c["conv"], c["ssm"]] if cfg.family == "ssm" else
+                          [sp for k, sp in c["super"].items()
+                           if k.endswith(("_conv", "_h"))]
+                          + [sp for j, t in enumerate(c["rest"])
+                             if cfg.block_pattern[j] == "rglru"
+                             for sp in t])
+                assert states and all("model" in h for h in states)
 
 
 @pytest.fixture(scope="module")

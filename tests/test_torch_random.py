@@ -80,6 +80,16 @@ def test_normal_and_exponential_within_ulps(shape):
         assert _ulps(je, trandom.exponential(tk, shape).numpy()).max() <= 2
 
 
+@pytest.mark.parametrize("shape", [(3, 3001), (9001,)])
+def test_normal_in_chunks_is_the_whole_draw(monkeypatch, shape):
+    """A normal drawn CHUNK elements at a time (one key, a leaf past CHUNK)
+    is the draw made whole, bit for bit, across chunk boundaries."""
+    whole = [trandom.normal(tk, shape) for _, tk in _keys()]
+    monkeypatch.setattr(trandom, "CHUNK", 1000)
+    for (_, tk), want in zip(_keys(), whole):
+        assert torch.equal(trandom.normal(tk, shape), want)
+
+
 def test_erfinv_edges():
     x = torch.tensor([-1.0, 1.0, 0.0, 0.5, -0.999999])
     got = trandom.erfinv(x).numpy()

@@ -24,9 +24,12 @@ trainer (``repro_torch.launch.train``) against the JAX package, on the CPU.
     threshold-sized step (the MoE's third round lands 3.1e-4 off).
 (d) The federated path still fails on the vlm and audio families, with
     the reference's ``KeyError`` (its batches carry no embeddings), and
-    ``--cluster`` raises on a mesh of more than one card.
+    ``--cluster`` raises on a mesh of more than one member outside a
+    process group of as many; falcon-mamba-7b's runs on a model axis of 2
+    inside one.
 """
 import dataclasses
+import re
 import sys
 
 import numpy as np
@@ -44,8 +47,10 @@ from repro.models import transformer as jtf  # noqa: E402
 from repro_torch import configs, convert  # noqa: E402
 from repro_torch import random as trandom  # noqa: E402
 from repro_torch.core.algorithms import registry as talg  # noqa: E402
+from repro_torch.launch import members  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
+import torch_cluster_workers as workers  # noqa: E402
 from test_torch_hfl import _keep_engine_caches  # noqa: E402,F401
 
 FWD = dict(rtol=1e-5, atol=1e-6)
@@ -217,15 +222,27 @@ def test_vlm_and_audio_still_raise(arch, key):
         ttrain.run_federated(args, device="cpu")
 
 
-def test_cluster_flag_raises():
+def test_cluster_flag_raises(tmp_path):
     """``--cluster`` on a data or model axis of several members needs a
     process group of as many (``tests/test_torch_cluster_cli_members.py``):
-    outside one it raises; a model axis on the ssm family raises (ROADMAP
-    queue A item 8b)."""
-    for flag in ("--mesh-data", "--mesh-model"):
-        with pytest.raises(RuntimeError, match="process group of 2 members"):
-            ttrain.main(["--arch", "minicpm-2b", "--reduced", "--cluster",
-                         flag, "2"], device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A item 8b"):
-        ttrain.main(["--arch", "falcon-mamba-7b", "--reduced", "--cluster",
-                     "--mesh-model", "2"], device="cpu")
+    outside one it raises, on the ssm family too; inside a group of two
+    ``gloo`` members falcon-mamba-7b trains on a model axis of 2, its
+    mamba blocks split (ROADMAP queue A item 8b), and its losses agree
+    with one member's to their 4 printed decimals (within one unit of the
+    last: the sums over ``model`` add in another order)."""
+    for arch in ("minicpm-2b", "falcon-mamba-7b"):
+        for flag in ("--mesh-data", "--mesh-model"):
+            with pytest.raises(RuntimeError,
+                               match="process group of 2 members"):
+                ttrain.main(["--arch", arch, "--reduced", "--cluster",
+                             flag, "2"], device="cpu")
+    argv = ["--arch", "falcon-mamba-7b", "--reduced", "--cluster", "--steps",
+            "4", "--seq-len", "16", "--batch", "8", "--lr", "3e-3"]
+    out = members.spawn(workers.cli_runs, 2, ([argv + ["--mesh-model",
+                                                       "2"]],),
+                        rendezvous_dir=str(tmp_path))[0][0]
+    args = ttrain.parser().parse_args(argv)
+    want, _ = ttrain.run_cluster(args, device="cpu")
+    got = [float(x) for x in re.findall(r"^step +\d+ +loss ([0-9.]+)", out,
+                                        re.M)]
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)

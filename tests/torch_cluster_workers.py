@@ -349,6 +349,12 @@ TP_CONFIGS = {
     # a capacity no choice overflows: the reference's serving step routes
     # the whole batch as one capacity group, a member its rows
     "qwen_nodrop": ("qwen2-moe-a2.7b", {"capacity_factor": 2.0}),
+    # the mamba and RG-LRU blocks (``tests/test_torch_cluster_tp_recurrent.
+    # py``); mamba_part: d_inner 130, so 2 d_inner divides over model 4 and
+    # d_inner does not (the block held whole, in_proj too)
+    "mamba": ("falcon-mamba-7b", {}),
+    "rgemma": ("recurrentgemma-2b", {}),
+    "mamba_part": ("falcon-mamba-7b", {"expand": 1, "d_model": 130}),
 }
 # serving: (config, mesh (data, model)), the reference jitted on the same
 # mesh; a (B, S) prompt, a decode cache of T, DECODE_STEPS teacher-forced
@@ -379,6 +385,30 @@ TP_STEP_CASES = (
      (1, 1)),
 )
 TP_STEPS, TP_STEP_BATCH, TP_STEP_SEQ = 2, 8, 16
+# the mamba and RG-LRU blocks over model, as TP_STEP_CASES: int8 + EF on
+# (2, 2) gathers in_proj whole for the all-reduce (its layout by halves)
+TPR_STEP_CASES = tuple(
+    (f"{c}_{tag}", c, mode, comp, port, ref)
+    for c in ("mamba", "rgemma")
+    for tag, mode, comp, port, ref in (
+        ("none_d2m2", "pssgd", "none", (2, 2), (2, 2)),
+        ("int8_d2m2", "pssgd", "int8", (2, 2), (2, 2)),
+        ("none_m2", "pssgd", "none", (1, 2), (1, 1)),
+        ("fsdp_m2", "fsdp", "none", (1, 2), (1, 2)))) + (
+    ("mamba_none_m4", "mamba", "pssgd", "none", (1, 4), (1, 1)),
+    ("mamba_part_none_m4", "mamba_part", "pssgd", "none", (1, 4), (1, 1)))
+# serving on (1, 2): the TP_SERVE_CASES steps, then TPR_GREEDY greedy
+# decode steps from the prefill's token, and each recurrent state against
+# one process's
+TPR_SERVE_CASES = (("mamba", (1, 2)), ("rgemma", (1, 2)))
+TPR_GREEDY = 6
+
+
+def tp_cases(kind: str) -> tuple:
+    """The cases of a ``kind``: "train" and "serve" (the transformer
+    block), "rtrain" and "rserve" (the recurrent blocks)."""
+    return {"train": TP_STEP_CASES, "serve": TP_SERVE_CASES,
+            "rtrain": TPR_STEP_CASES, "rserve": TPR_SERVE_CASES}[kind]
 
 
 def tp_cfg(name: str):
@@ -452,9 +482,10 @@ def _gates(params: dict) -> dict:
     return params
 
 
-def _tp_serve(name, mesh) -> dict:
+def _tp_serve(name, mesh, recurrent: bool = False) -> dict:
     """Prefill, then TP_DECODE teacher-forced decode steps, on this
-    member's blocks: the logits and caches gathered whole."""
+    member's blocks: the logits and caches gathered whole; ``recurrent``
+    adds ``_tpr_checks``."""
     from repro_torch import random as trandom
     from repro_torch.launch import serve, sharding, specs, steps
     from repro_torch.models import tp
@@ -479,9 +510,7 @@ def _tp_serve(name, mesh) -> dict:
         def cache_specs(length):
             """The held spec of each leaf of a (TP_B, length) cache."""
             glob = tf.init_decode_cache(cfg, TP_B, length, device="meta")
-            return specs.tree_map(
-                lambda x, sp: specs.held_cache_spec(cfg, sp), glob,
-                sharding.cache_shardings(cfg, glob, mesh, TP_B))
+            return specs.held_cache_specs(cfg, glob, mesh, TP_B)[1]
         pf_sp = cache_specs(TP_S)
         for k, v in _flat_tree(_tp_gather_tree(pf, pf_sp, mesh), "",
                                {}).items():
@@ -490,16 +519,78 @@ def _tp_serve(name, mesh) -> dict:
         cache = tf.init_decode_cache(cfg, b_local, TP_T,
                                      model=mesh.n("model"))
         cache = serve._load_prefill(cfg, cache, pf, TP_S)
+        first = cache
         decode = steps.make_decode_step(cfg, circular=False, mesh=mesh)
+        states = [pf]
         for i in range(TP_DECODE):
             logits, cache = decode(params, cache, rows[:, i:i + 1], TP_S + i)
             res[f"decode/{i}/logits"] = sharding.gather(logits, lsp,
                                                         mesh).numpy()
+            states.append(cache)
         d_sp = cache_specs(TP_T)
         for k, v in _flat_tree(_tp_gather_tree(cache, d_sp, mesh), "",
                                {}).items():
             res["decode/cache/" + k] = v
+        if recurrent:
+            res.update(_tpr_checks(cfg, params, held, mine, rows, first,
+                                   states, (pf_sp, d_sp), lsp, mesh))
     tp.set_model_mesh(None)
+    return res
+
+
+def _tpr_checks(cfg, params, held, mine, rows, first, states, sps, lsp,
+                mesh) -> dict:
+    """Against one process on the member's rows (the params gathered
+    whole, no mesh named): the largest difference of each state after the
+    prefill and each decode step from this member's block of one
+    process's (``state_err/...``); then TPR_GREEDY greedy decode steps
+    from the prefill on both (``greedy/mesh``, ``greedy/one``: the
+    tokens, the mesh's logits gathered whole in ``greedy/logits``)."""
+    from repro_torch.launch import serve, sharding, steps
+    from repro_torch.launch.specs import tree_map
+    from repro_torch.models import tp
+    from repro_torch.models import transformer as tf
+    whole = {k: sharding.gather(v, held[k], mesh) for k, v in params.items()}
+    decode = steps.make_decode_step(cfg, circular=False, mesh=mesh)
+
+    def greedy(step, p, logits, cache):
+        toks, out = [], []
+        for i in range(TPR_GREEDY):
+            whole_logits = tp.gather_last(logits[:, -1, :], cfg.vocab_size)
+            tok = whole_logits.argmax(dim=-1).to(torch.int32)[:, None]
+            toks.append(tok)
+            logits, cache = step(p, cache, tok, TP_S + i)
+            out.append(logits)
+        return torch.cat(toks, dim=1), out
+
+    res = {}
+    logits, _ = steps.make_prefill_step(cfg, mesh=mesh)(params, mine)
+    res["greedy/mesh"], out = greedy(decode, params, logits, first)
+    res["greedy/mesh"] = res["greedy/mesh"].numpy()
+    res["greedy/logits"] = np.stack([sharding.gather(x, lsp, mesh).numpy()
+                                     for x in out])
+    tp.set_model_mesh(None)
+    logits, pf = tf.prefill(whole, cfg, mine["tokens"])
+    cache = serve._load_prefill(cfg, tf.init_decode_cache(
+        cfg, rows.shape[0], TP_T), pf, TP_S)
+    one = [pf]
+    for i in range(TP_DECODE):
+        _, cache = tf.decode_step(whole, cfg, cache, rows[:, i:i + 1],
+                                  TP_S + i)
+        one.append(cache)
+    for i, (got, want) in enumerate(zip(states, one)):
+        sp = sps[min(i, 1)]
+        err = _flat_tree(tree_map(lambda g, w, s: float(
+            (g - sharding.shard(w, s, mesh)).abs().max()), got, want, sp),
+            "", {})
+        tag = "prefill" if i == 0 else f"decode/{i - 1}"
+        for k, v in err.items():
+            res[f"state_err/{tag}/{k}"] = np.float64(v)
+    one_cache = serve._load_prefill(cfg, tf.init_decode_cache(
+        cfg, rows.shape[0], TP_T), pf, TP_S)
+    toks, _ = greedy(lambda p, c, t, pos: tf.decode_step(p, cfg, c, t, pos),
+                     whole, logits, one_cache)
+    res["greedy/one"] = toks.numpy()
     return res
 
 
@@ -510,8 +601,8 @@ def _tp_step(case, mesh) -> dict:
     from repro_torch import random as trandom
     from repro_torch.launch import steps as tsteps
     from repro_torch.models import tp
-    name, cname, mode, comp, _, _ = next(c for c in TP_STEP_CASES
-                                         if c[0] == case)
+    name, cname, mode, comp, _, _ = next(
+        c for c in TP_STEP_CASES + TPR_STEP_CASES if c[0] == case)
     cfg = tp_cfg(cname)
     pol = tsteps.TrainPolicy(mode=mode, compression=comp,
                              error_feedback=comp in ("int8", "sign"),
@@ -531,22 +622,48 @@ def _tp_step(case, mesh) -> dict:
     return res
 
 
-def tp_members(rank: int, mesh_shape, kind: str) -> dict:
-    """Every ``kind`` ("serve" or "train") case of the tensor-parallel
-    tests on ``mesh_shape``, on this member."""
+def tp_members(rank: int, mesh_shape, kinds) -> dict:
+    """Every case of ``kinds`` (a kind of ``tp_cases`` or a tuple of them)
+    of the tensor-parallel tests on ``mesh_shape``, on this member."""
     from repro_torch.launch.mesh import make_mesh
     mesh = make_mesh(mesh_shape, ("data", "model"))
     res = {}
-    if kind == "serve":
-        for name, m in TP_SERVE_CASES:
-            if tuple(m) == tuple(mesh_shape):
-                for k, v in _tp_serve(name, mesh).items():
-                    res[f"serve/{tp_key(name, m)}/{k}"] = v
-        return res
-    for case in TP_STEP_CASES:
-        if tuple(case[4]) == tuple(mesh_shape):
-            for k, v in _tp_step(case[0], mesh).items():
-                res[f"step/{case[0]}/{k}"] = v
+    for kind in (kinds,) if isinstance(kinds, str) else kinds:
+        if kind in ("serve", "rserve"):
+            for name, m in tp_cases(kind):
+                if tuple(m) == tuple(mesh_shape):
+                    for k, v in _tp_serve(name, mesh,
+                                          kind == "rserve").items():
+                        res[f"serve/{tp_key(name, m)}/{k}"] = v
+            continue
+        for case in tp_cases(kind):
+            if tuple(case[4]) == tuple(mesh_shape):
+                for k, v in _tp_step(case[0], mesh).items():
+                    res[f"step/{case[0]}/{k}"] = v
+    return res
+
+
+LAYOUT_CONFIGS = ("mamba", "rgemma", "mamba_part")
+
+
+def recurrent_layout(rank: int, mesh_shape) -> dict:
+    """Each ``LAYOUT_CONFIGS`` config's params (the reference's unjitted
+    init, bit for bit) cut to this member's blocks (``held_specs``) and
+    gathered whole again."""
+    from repro_torch import random as trandom
+    from repro_torch.launch import sharding, steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as tf
+    mesh = make_mesh(mesh_shape, ("data", "model"))
+    res = {}
+    for name in LAYOUT_CONFIGS:
+        cfg = tp_cfg(name)
+        held = steps.held_specs(cfg, steps.TrainPolicy(), mesh)["params"]
+        for k, v in tf.init_params(cfg, trandom.PRNGKey(0)).items():
+            block = sharding.shard(v, held[k], mesh)
+            res[f"{name}/local/{k}"] = block.numpy()
+            res[f"{name}/gather/{k}"] = sharding.gather(block, held[k],
+                                                        mesh).numpy()
     return res
 
 

@@ -1,7 +1,9 @@
-"""The reference's side of ``tests/test_torch_cluster_tp.py`` and
-``tests/test_torch_cluster_tp_serve.py``: every train case of
-``torch_cluster_workers.TP_STEP_CASES`` or serving case of
-``TP_SERVE_CASES``, jitted with its shardings on a mesh of Auto axes over
+"""The reference's side of ``tests/test_torch_cluster_tp.py``,
+``tests/test_torch_cluster_tp_serve.py`` and
+``tests/test_torch_cluster_tp_recurrent.py``: every case of a kind of
+``torch_cluster_workers.tp_cases`` (train or serving, of the transformer
+block or the recurrent blocks), jitted with its shardings on a mesh of Auto
+axes over
 forced CPU devices, in one process; the results go to an ``.npz`` keyed
 as the port's members key theirs. ``start_reference`` starts it in a
 subprocess under ``--xla_force_host_platform_device_count`` (the test
@@ -75,7 +77,7 @@ def _gates(params):
     return params
 
 
-def _serve(name, shape, res):
+def _serve(name, shape, res, greedy: bool = False):
     import jax
     import jax.numpy as jnp
     from jax.sharding import NamedSharding
@@ -87,13 +89,15 @@ def _serve(name, shape, res):
     from repro.models import moe as jmoe
     from repro.models import transformer as jtf
     from torch_cluster_workers import (TP_B, TP_DECODE, TP_S, TP_T,
-                                       _flat_tree, tp_key, tp_serve_inputs)
+                                       TPR_GREEDY, _flat_tree, tp_key,
+                                       tp_serve_inputs)
     cfg = _cfg(name)
     mesh = _mesh(shape)
     key = f"serve/{tp_key(name, shape)}/"
     jmoe.set_expert_parallel_mesh(mesh if cfg.n_experts else None)
+    # the unjitted init outside the mesh's context, as in ``_step``
+    params = _gates(jtf.init_params(cfg, jax.random.PRNGKey(1)))
     with mesh:
-        params = _gates(jtf.init_params(cfg, jax.random.PRNGKey(1)))
         psh = jsh.param_shardings(cfg, params, mesh)
         params = jax.device_put(params, psh)
         inp = tp_serve_inputs(cfg)
@@ -106,6 +110,7 @@ def _serve(name, shape, res):
             res[key + "prefill/cache/" + k] = np.asarray(v)
         cache = jserve._load_prefill(cfg, jtf.init_decode_cache(
             cfg, TP_B, TP_T), pf, TP_S)
+        first = cache
         csh = jsh.cache_shardings(cfg, cache, mesh, TP_B)
         steps = jnp.asarray(inp["steps"])
         tsh = jsh.batch_shardings({"t": steps[:, :1]}, mesh)["t"]
@@ -118,48 +123,69 @@ def _serve(name, shape, res):
             res[key + f"decode/{i}/logits"] = np.asarray(logits)
         for k, v in _flat_tree(cache, "", {}).items():
             res[key + "decode/cache/" + k] = np.asarray(v)
+        if greedy:   # from the prefill's token, as the port's members
+            logits = res[key + "prefill/logits"]
+            cache, toks, outs = first, [], []
+            for i in range(TPR_GREEDY):
+                tok = jnp.argmax(logits[:, -1, :], axis=-1).astype(
+                    jnp.int32)[:, None]
+                toks.append(np.asarray(tok))
+                logits, cache = decode(params, jax.device_put(cache, csh),
+                                       tok, jnp.int32(TP_S + i))
+                outs.append(np.asarray(logits))
+            res[key + "greedy/ref"] = np.concatenate(toks, axis=1)
+            res[key + "greedy/logits"] = np.stack(outs)
     jmoe.set_expert_parallel_mesh(None)
 
 
 def _step(case, res):
+    """One train case's losses and final params; the unjitted init runs
+    outside the mesh's context, so that its op-by-op compilations are
+    shared by every case of a config."""
     import jax
     import jax.numpy as jnp
 
     from repro.launch import steps as jsteps
     from repro_torch import convert
-    from torch_cluster_workers import STEP_POLICY, TP_STEP_CASES, tp_batches
-    name, cname, mode, comp, _, shape = next(c for c in TP_STEP_CASES
-                                             if c[0] == case)
+    from torch_cluster_workers import STEP_POLICY, tp_batches
+    name, cname, mode, comp, _, shape = case
     cfg = _cfg(cname)
     pol = jsteps.TrainPolicy(mode=mode, compression=comp,
                              error_feedback=comp in ("int8", "sign"),
                              **STEP_POLICY)
     mesh = _mesh(shape)
+    state = jsteps.make_init_fn(cfg, pol, mesh)(jax.random.PRNGKey(0))
     with mesh:
-        state = jsteps.make_init_fn(cfg, pol, mesh)(jax.random.PRNGKey(0))
         state["params"] = _gates(state["params"])
         state = jax.device_put(state, jsteps.state_shardings(
             cfg, pol, mesh, state))
         step = jax.jit(jsteps.make_train_step(cfg, pol, mesh))
         for i, b in enumerate(tp_batches(cfg)):
             state, m = step(state, {k: jnp.asarray(v) for k, v in b.items()})
-            res[f"step/{case}/loss/{i}"] = np.float64(m["loss"])
+            res[f"step/{name}/loss/{i}"] = np.float64(m["loss"])
         final = convert.lm_params_from_jax(jax.tree.map(
             np.asarray, state["params"]))
-        res.update({f"step/{case}/final/{k}": v.numpy()
+        res.update({f"step/{name}/final/{k}": v.numpy()
                     for k, v in final.items()})
 
 
 def reference(kind: str, out: str) -> None:
-    """Every ``kind`` ("serve" or "train") case's reference outputs, keyed
-    as the port's members key theirs (``torch_cluster_workers.
-    tp_members``)."""
-    from torch_cluster_workers import TP_SERVE_CASES, TP_STEP_CASES
+    """Every ``kind`` case's reference outputs (``torch_cluster_workers.
+    tp_cases``), keyed as the port's members key theirs (``tp_members``)."""
+    from torch_cluster_workers import tp_cases
     res = {}
-    if kind == "serve":
-        for name, shape in TP_SERVE_CASES:
-            _serve(name, shape, res)
-    else:
-        for case in TP_STEP_CASES:
-            _step(case[0], res)
+    if kind in ("serve", "rserve"):
+        for name, shape in tp_cases(kind):
+            _serve(name, shape, res, greedy=kind == "rserve")
+    else:   # a case whose computation an earlier one made is copied
+        done = {}
+        for case in tp_cases(kind):
+            same = done.setdefault(case[1:4] + case[5:], case[0])
+            if same == case[0]:
+                _step(case, res)
+            else:
+                pre = f"step/{same}/"
+                res.update({f"step/{case[0]}/{k[len(pre):]}": v
+                            for k, v in list(res.items())
+                            if k.startswith(pre)})
     np.savez(out, **res)
