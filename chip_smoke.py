@@ -184,7 +184,7 @@ Phases (any failure exits non-zero):
    one (1, D) row against its plain version (bitwise) and timed, then the
    two forced ``fl_round``s of phase 15 (b) at this D, EF rows and params
    bit for bit against plain versions; (c) qwen2-moe-a2.7b (60 experts,
-   top-4, 4 shared, capacity 1.25) at 2 layers and recurrentgemma-2b at one
+   top-4, 4 shared, capacity 1.25) at 1 layer and recurrentgemma-2b at one
    pattern period (3 layers), published widths, float32: one (4, 32) batch
    through ``lm_loss`` and its gradient on the card and on the CPU (init on
    the card, copied), loss within rtol 1e-5, the gradient's relative L2
@@ -208,8 +208,9 @@ Phases (any failure exits non-zero):
    per second, the peak memory in the steps, the loss falling (the CLI's
    assertion), and its ``--ckpt-dir`` checkpoint loaded back bit for bit;
    (c) ``python -m repro_torch.examples.train_fl_100m --full-100m`` at its
-   default 300 steps (its tokens per second and the loss's fall of at least
-   0.3, which the example asserts); ``trainer_launches`` in the kernels
+   default 300 steps, the ~100M config's widths, lr and remat at depth 12
+   -> 4 (its tokens per second and the loss's fall of at least 0.3, which
+   the example asserts); ``trainer_launches`` in the kernels
    line.
 
 18. serve: the serving path (``launch/serve.py``, ``launch/steps.py``'s
@@ -276,7 +277,7 @@ Phases (any failure exits non-zero):
    global batch (8, 128), 3 steps: per member s a step (CUDA events and
    wall clock), peak GB, wire bytes, params bitwise alike after every step,
    the EF identity within the float32 bound; (e) qwen2-moe-a2.7b at its
-   published widths, 2 layers, one (4, 128) batch's loss and gradient
+   published widths, 1 layer, one (4, 128) batch's loss and gradient
    through ``moe_forward_ep`` on (data 1, model 4) against the
    one-process ``moe_forward``; (f) the fleet config's top-k sweep over 2
    members, bitwise the one-process sweep, ``topk_rows`` launches a member
@@ -290,7 +291,19 @@ Phases (any failure exits non-zero):
    (their channels and recurrent states): falcon-mamba-7b at its published
    widths, depth 64 -> 2, and recurrentgemma-2b, depth 26 -> 3 (one
    pattern period; its attention's 10 q heads split, its 1 kv head stays
-   whole); ``cluster_launches`` in the kernels line.
+   whole); (i) fsdp a layer at a time: (1) gemma-2b as in (d), fsdp (the
+   dry-run's policy: bf16 moments, remat) on (data 2), each layer's leaves
+   gathered where the layer runs and again in its recomputation, against
+   the same on (1, 1) in one process: loss a step and gathered params
+   within TP_WIDE_*, both members' gathered params bitwise alike; per
+   member s a step, step-only peak, bytes held, wire a step by kind; (2)
+   qwen2-moe-a2.7b at its published widths, 2 layers, at its own capacity
+   factor: a (4, 128) prompt and 8 greedy decode steps on (data 2, model 1),
+   a member's rows routed as its part of the whole batch, against one
+   process over the whole batch: tokens equal, logits within
+   SERVE_SPLIT_TOL, the choices dropped equal and more than 0, and bitwise
+   the members replayed in one process at their shapes (``_replayed``);
+   ``cluster_launches`` in the kernels line.
 
 21. dryrun: ``python -m repro_torch.launch.dryrun`` in subprocesses run
    side by side, one member's step under fake tensors on the card's device
@@ -308,11 +321,14 @@ Phases (any failure exits non-zero):
    each member counted; (g), (h) phase 20(g)'s and 20(h)'s cases on
    (data 1, model 2): wire bytes a step by kind and argument bytes equal to
    each member's, peak within DRYRUN_PEAK_RTOL of each member's step-only
-   peak; (c) gemma-2b train_4k ok on 256x1 and on (16, 16), falcon-mamba-7b
-   and recurrentgemma-2b train_4k ok on (16, 16) (traced from phase 17 on:
-   minutes of CPU each; the other cases from phase 20 on), qwen2-moe-a2.7b
-   ok in all four shapes on (16, 16); every
-   kernel counter 0 in each case's own process (each record's
+   peak; (i) phase 20(i)(1)'s case on (data 2): the same three checks;
+   (c) gemma-2b train_4k ok on 256x1 and on (16, 16), falcon-mamba-7b
+   and recurrentgemma-2b train_4k ok on (16, 16) and llama3-405b train_4k
+   (fsdp) on 256x1, its peak at most LLAMA_PEAK_LIMIT_GB, printed beside
+   the whole-gather step's 1 848.7 GB and the prediction (traced from
+   phase 17 on: minutes of CPU each; the other cases from phase 20 on),
+   qwen2-moe-a2.7b ok in all four shapes on (16, 16); every kernel counter
+   0 in each case's own process (each record's
    ``kernel_launches``; their sum is ``dryrun_launches`` in the kernels
    line).
 
@@ -449,7 +465,7 @@ FM_ARGS = ["--arch", "falcon-mamba-7b", "--n-devices", "4", "--n-scheduled",
            "--seq-len", "128", "--compressor", "topk", "--rounds",
            str(FM_ROUNDS)]
 # published widths, one (4, 32) batch: (arch, depth)
-WIDE_ARCHS = (("qwen2-moe-a2.7b", 2), ("recurrentgemma-2b", 3))
+WIDE_ARCHS = (("qwen2-moe-a2.7b", 1), ("recurrentgemma-2b", 3))
 WIDE_B, WIDE_SEQ = 4, 32
 # the one-card trainer at --reduced: gemma-2b (cosine) and minicpm-2b (wsd),
 # 6 steps of (8, 64) batches at the CLI's lr 1e-3, each mode x compression
@@ -466,8 +482,10 @@ GEMMA_ARGS = ["--arch", "gemma-2b", "--cluster", "--mode", "pssgd",
               "--compression", "int8", "--steps", "10"]
 GEMMA_TIMED = slice(2, 10)
 # the 100M example at its default 300 steps: in 30 its loss falls from
-# 10.903 to 10.846 on an H100, short of the 0.3 the example asserts
-FL100M_ARGS = ["--full-100m"]
+# 10.903 to 10.846 on an H100, short of the 0.3 the example asserts; the
+# ~100M config's widths, lr and remat with its depth cut 12 -> FL100M_DEPTH
+# (the script's time limit)
+FL100M_ARGS, FL100M_DEPTH = ["--full-100m"], 4
 # phase 18, the serving path: (a) serve --reduced for one config of each
 # family (batch 2, prompt 32, 16 greedy steps) and circular decode past a
 # window of 16, card against CPU; every step's logits within SERVE_TOL of
@@ -580,9 +598,9 @@ CLUSTER_TRAIN_TWO = (
 # CLI's lr 1e-3, remat, global batch (8, 128), 3 steps
 GEMMA_WIDE_DEPTH, GEMMA_WIDE_B, GEMMA_WIDE_SEQ, GEMMA_WIDE_STEPS = (4, 8,
                                                                     128, 3)
-# (e) qwen2-moe-a2.7b at its published widths, 2 layers (as phase 16(c)),
-# one (4, 128) batch
-MOE_WIDE_DEPTH, MOE_WIDE_B, MOE_WIDE_SEQ = 2, 4, 128
+# (e) qwen2-moe-a2.7b at its published widths, 1 layer (as phase 16(c)),
+# one (4, 128) batch; (i)(2) serves it at 2 layers
+MOE_WIDE_DEPTH, MOE_WIDE_B, MOE_WIDE_SEQ, MOE_SERVE_DEPTH = 1, 4, 128, 2
 # (g) gemma-2b at its published widths split over model: (d)'s depth,
 # dtype, optimizer, remat, batch and steps, pssgd none on (data 1, model 2)
 # (int8 on a data axis of 1 would gather every split leaf for its scales),
@@ -598,11 +616,30 @@ TP_WIDE_LOSS_RTOL, TP_WIDE_PARAMS_L2, TP_WIDE_LOGITS_L2 = 1e-6, 2e-5, 2e-5
 # (arXiv:2402.19427) depth 26 -> 3 (one pattern period); (g)'s tolerances
 TP_RECURRENT = (("h falcon", "falcon-mamba-7b", 2),
                 ("h rgemma", "recurrentgemma-2b", 3))
+# (i) fsdp a layer at a time: (1) (d)'s gemma-2b, its batch and steps, at
+# the dry-run's fsdp policy (bf16 moments, remat), held to (g)'s tolerances
+# against one process; (2) qwen2-moe-a2.7b at its published widths, 2
+# layers, served on (data 2, model 1) against one process over the whole
+# batch within tests/test_torch_serve.py's TOL
+FSDP_POLICY = dict(mode="fsdp", compression="none",
+                   opt_state_dtype="bfloat16", lr=1e-3,
+                   total_steps=GEMMA_WIDE_STEPS, remat=True)
+SERVE_SPLIT_TOL = dict(rtol=1e-5, atol=1e-5)
+# the dry-run's record of llama3-405b train_4k on 256x1 before fsdp held a
+# layer at a time, the prediction written before the change (PERF.md) and
+# the most a member's peak may be
+LLAMA_PARENT_PEAK_GB, LLAMA_PREDICTED_GB, LLAMA_PEAK_LIMIT_GB = (
+    1848.731, 70.0, 85.0)
 # phase 21, the dry-run (python -m repro_torch.launch.dryrun, fake tensors
 # on the card's device, a fake process group) in subprocesses run side by
 # side, held against what phases 17(b), 20(c), 20(d) and 20(g) measured in
 # this run: (name, CLI arguments, the exit code it must give)
 DRYRUN_CASES = (
+    ("i", ["--arch", "gemma-2b", "--batch", str(GEMMA_WIDE_B), "--seq-len",
+           str(GEMMA_WIDE_SEQ), "--policy", "fsdp", "--dtype", "float32",
+           "--depth", str(GEMMA_WIDE_DEPTH), "--mesh-shape", "2x1"], 0),
+    ("c 256x1 llama", ["--arch", "llama3-405b", "--shape", "train_4k",
+                       "--mesh-shape", "256x1"], 0),
     ("a", ["--arch", "gemma-2b", "--batch", "8", "--seq-len", "128",
            "--policy", "int8_ef", "--dtype", "float32", "--mesh-shape",
            "1x1"], 0),
@@ -631,7 +668,7 @@ DRYRUN_CASES = (
 # to run (phase 21 compares their records afterwards), so they run beside
 # other phases: the two production traces that take minutes of CPU from
 # phase 17 on (beside GPU-bound work), the rest from phase 20 on
-DRYRUN_EARLY = ("c 16x16 falcon", "c 16x16 rgemma")
+DRYRUN_EARLY = ("c 16x16 falcon", "c 16x16 rgemma", "c 256x1 llama")
 DRYRUN_PROCS: dict = {}
 DRYRUN_PEAK_RTOL = 0.10
 # what phases 17(b), 20(c), 20(d) and 20(g) measured, for phase 21
@@ -2749,9 +2786,16 @@ def run_trainer(dev, smi: str) -> dict:
     torch.cuda.empty_cache()
     took("(b) gemma-2b")
 
-    # (c) the 100M example on the card
-    _, secs = wall_s(lambda: ex.main(FL100M_ARGS, device=dev))
-    log(f"trainer (c) train_fl_100m {' '.join(FL100M_ARGS)}: {secs:.3f} s")
+    # (c) the 100M example on the card, its depth cut
+    model = ex.model_100m
+    ex.model_100m = lambda full: dataclasses.replace(
+        model(full), n_layers=FL100M_DEPTH)
+    try:
+        _, secs = wall_s(lambda: ex.main(FL100M_ARGS, device=dev))
+    finally:
+        ex.model_100m = model
+    log(f"trainer (c) train_fl_100m {' '.join(FL100M_ARGS)}, depth 12 -> "
+        f"{FL100M_DEPTH}: {secs:.3f} s")
     took("(c) train_fl_100m")
     got = read()
     log(f"trainer kernel launches across phase 17: {got}")
@@ -3770,11 +3814,13 @@ def _tp_serve(cfg, params, mesh, dev) -> dict:
     return out
 
 
-def _tp_train(cfg, pol, mesh, dev, rank: int, world: int) -> dict:
+def _tp_train(cfg, pol, mesh, dev, rank: int, world: int,
+              serve: bool = True) -> dict:
     """(g)'s run on ``mesh``: the init (in turns over ``world`` members),
-    the serving of ``_tp_serve``, then GEMMA_WIDE_STEPS train steps, each
-    timed (wall clock and CUDA events), with its step-only peak, the state
-    and batch held and the wire by kind; returns the state too."""
+    the serving of ``_tp_serve`` (with ``serve``), then GEMMA_WIDE_STEPS
+    train steps, each timed (wall clock and CUDA events), with its
+    step-only peak, the state and batch held and the wire by kind; returns
+    the state too."""
     from repro_torch import random as trandom
     from repro_torch.core import collectives as coll
     from repro_torch.launch import steps as tsteps
@@ -3786,8 +3832,9 @@ def _tp_train(cfg, pol, mesh, dev, rank: int, world: int) -> dict:
                            if world > 1 else make())
     out = dict(init_s=init_s, base=base, step_s=[], event_s=[], peak=[],
                held=[], wire=[], loss=[])
-    out["serve"] = _tp_serve(cfg, state["params"], mesh, dev)
-    torch.cuda.empty_cache()
+    if serve:
+        out["serve"] = _tp_serve(cfg, state["params"], mesh, dev)
+        torch.cuda.empty_cache()
     step = tsteps.make_train_step(cfg, pol, mesh)
     coll.WIRE.record_calls()
     try:
@@ -3863,6 +3910,183 @@ def _cluster_tp(rank: int, dev, arch: str = "gemma-2b",
         del one["params"]
         out["one"] = one
     tp.set_model_mesh(None)
+    dist.barrier()
+    return out
+
+
+def _cluster_fsdp(rank: int, dev) -> dict:
+    """(i)(1): gemma-2b at its published widths, depth cut, float32, fsdp
+    on (data 2), a layer's leaves gathered where the layer runs; member 0
+    first runs the same on (1, 1) alone (the other waits) and holds the
+    members' losses and gathered params against it; every member's
+    gathered params' digest."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.launch.mesh import Mesh, make_local_mesh
+    from repro_torch.models import tp
+    cfg = dataclasses.replace(get_config("gemma-2b"),
+                              n_layers=GEMMA_WIDE_DEPTH, dtype="float32")
+    pol = tsteps.TrainPolicy(**FSDP_POLICY)
+    one = None
+    if rank == 0:
+        one, state = _tp_train(cfg, pol, Mesh((1, 1), ("data", "model"),
+                                                bind=False), dev, 0, 1,
+                               serve=False)
+        one["params"] = {k: v.cpu() for k, v in state["params"].items()}
+        del state
+        torch.cuda.empty_cache()
+    tp.set_model_mesh(None)
+    dist.barrier()
+    mesh = make_local_mesh(2, 1)
+    out, state = _tp_train(cfg, pol, mesh, dev, rank, 2, serve=False)
+    whole = tsteps.gather_params(cfg, pol, mesh, state["params"])
+    del state
+    out["digest"] = _digest(whole)
+    if rank == 0:
+        num = den = 0.0
+        for k in sorted(whole):
+            g, r = whole[k].double(), one["params"].pop(k).to(dev).double()
+            num += float(((g - r) ** 2).sum())
+            den += float((r ** 2).sum())
+        out["params_err"] = (num / den) ** 0.5
+        del one["params"]
+        out["one"] = one
+    del whole
+    torch.cuda.empty_cache()
+    tp.set_model_mesh(None)
+    dist.barrier()
+    return out
+
+
+def _served_greedy(cfg, params, prompt, mesh=None, global_batch=None
+                   ) -> dict:
+    """``prompt``'s rows (this member's on ``mesh``, of a global batch of
+    ``global_batch`` rows) prefilled, then TP_WIDE_GEN greedy decode steps:
+    the tokens, each step's logits (on the host) and the choices the MoE
+    layers' capacity dropped."""
+    from repro_torch.launch import serve
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.models import moe, transformer as tf
+    route, drops = moe.route, []
+
+    def counted(*a, **kw):
+        r = route(*a, **kw)
+        drops.append(r.overflow.sum())
+        return r
+    moe.route = counted
+    b, s_ = prompt.shape
+    out = dict(tokens=[], logits=[])
+    try:
+        with torch.no_grad():
+            logits, pf = tsteps.make_prefill_step(
+                cfg, mesh=mesh, global_batch=global_batch)(
+                params, {"tokens": prompt})
+            cache = serve._load_prefill(cfg, tf.init_decode_cache(
+                cfg, b, s_ + TP_WIDE_GEN, device=prompt.device), pf, s_)
+            del pf
+            decode = tsteps.make_decode_step(cfg, circular=False, mesh=mesh,
+                                             global_batch=global_batch)
+            for i in range(TP_WIDE_GEN + 1):
+                token = logits[:, -1, :].argmax(dim=-1).to(torch.int32)
+                out["tokens"].append(token[:, None].cpu())
+                out["logits"].append(logits.cpu())
+                if i < TP_WIDE_GEN:
+                    logits, cache = decode(params, cache, token[:, None],
+                                           s_ + i)
+    finally:
+        moe.route = route
+    out["drops"] = int(sum(int(d) for d in drops))
+    return out
+
+
+def _replayed(cfg, params, prompt, n: int = 2) -> list:
+    """(i)(2)'s members served in this one process, one after another:
+    member r's rows of ``prompt`` through ``_served_greedy`` on a
+    description of (data n, model 1) placed at r, each MoE layer handed
+    the per-expert counts of the lower-ranked members' same layer and step
+    in place of the all-gather (the higher ranks' enter only the aux loss,
+    which serving drops: zeros). The members' shapes and routing without
+    the process group."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import moe, tp
+    gather, counts = moe.all_gather, [[] for _ in range(n)]
+
+    def replay(x, mesh, axes, log=True):
+        r = mesh.index(axes)
+        counts[r].append(x)
+        i = len(counts[r]) - 1
+        return torch.stack([c[i] for c in counts[:r]] + [x] + [
+            torch.zeros_like(x)] * (n - 1 - r))
+    moe.all_gather = replay
+    b = prompt.shape[0]
+    outs = []
+    try:
+        for r in range(n):
+            mesh = Mesh((n, 1), ("data", "model"), bind=False)
+            mesh.coords = mesh.coords_of(r)
+            outs.append(_served_greedy(
+                cfg, params, prompt[r * b // n:(r + 1) * b // n], mesh, b))
+    finally:
+        moe.all_gather = gather
+        tp.set_model_mesh(None)
+    return outs
+
+
+def _row_drift(cfg, params, dev) -> dict:
+    """The largest |difference| between the first rows of one float32
+    product on the card computed over a member's rows and over the whole
+    batch's: a (rows, d_model) x (d_model, d_model) product at the
+    prefill's 256 and 512 token rows, and the unembedding at the decode's
+    2 and 4 rows."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    d = cfg.d_model
+    w = torch.randn(d, d, generator=g, device=dev) / d ** 0.5
+    table = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    out = {}
+    for name, m, mat in (("prefill rows", TP_WIDE_PROMPT[0]
+                          * TP_WIDE_PROMPT[1], w),
+                         ("unembedding", TP_WIDE_PROMPT[0], table)):
+        x = torch.randn(m, d, generator=g, device=dev)
+        half = x[:m // 2] @ mat
+        out[name] = float((half - (x @ mat)[:m // 2]).abs().max())
+    return out
+
+
+def _cluster_moe_serve(rank: int, dev) -> dict:
+    """(i)(2): qwen2-moe-a2.7b at its published widths, 2 layers, float32,
+    a (4, 128) prompt and TP_WIDE_GEN greedy steps on (data 2, model 1),
+    each member its 2 rows, routed as its part of the whole batch; member
+    0 first serves the whole prompt alone and replays the members at their
+    shapes (``_replayed``), the other waiting."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch import random as trandom
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import tp, transformer as tf
+    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b"),
+                              n_layers=MOE_SERVE_DEPTH, dtype="float32")
+    b, s_ = TP_WIDE_PROMPT
+    prompt = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (b, s_)), dtype=torch.int32, device=dev)
+    params = _in_turns(rank, 2, lambda: tf.init_params(
+        cfg, trandom.PRNGKey(0, dev)), dev)
+    out = {"cf": cfg.capacity_factor}
+    if rank == 0:
+        out["one"], out["one_s"] = wall_s(
+            lambda: _served_greedy(cfg, params, prompt))
+        out["replay"] = _replayed(cfg, params, prompt)
+        out["drift"] = _row_drift(cfg, params, dev)
+    dist.barrier()
+    mesh = make_local_mesh(2, 1)
+    rows = prompt[rank * b // 2:(rank + 1) * b // 2]
+    out["mesh"], out["mesh_s"] = wall_s(
+        lambda: _served_greedy(cfg, params, rows, mesh, b))
+    tp.set_model_mesh(None)
+    del params
+    torch.cuda.empty_cache()
     dist.barrier()
     return out
 
@@ -4001,7 +4225,9 @@ def _members_two(rank: int, device: str) -> dict:
              ("d", lambda: _cluster_gemma(rank, dev)),
              ("g", lambda: _cluster_tp(rank, dev))) + tuple(
         (name, functools.partial(_cluster_tp, rank, dev, arch, depth))
-        for name, arch, depth in TP_RECURRENT)
+        for name, arch, depth in TP_RECURRENT) + (
+        ("i", lambda: _cluster_fsdp(rank, dev)),
+        ("i moe", lambda: _cluster_moe_serve(rank, dev)))
     for name, fn in parts:
         out[name], out[name + "_s"] = wall_s(fn)
     out["launches"] = _member_counts()
@@ -4131,7 +4357,10 @@ def run_cluster_phase(dev, smi: str) -> dict:
     for name, arch, depth in TP_RECURRENT:
         _check_tp(b, smi, name, arch, depth,
                   {"falcon-mamba-7b": 64, "recurrentgemma-2b": 26}[arch])
-    parts = list("cdfg") + [name for name, *_ in TP_RECURRENT]
+    _check_fsdp(b, smi)
+    _check_moe_serve(b, smi)
+    parts = list("cdfg") + [name for name, *_ in TP_RECURRENT] + [
+        "i", "i moe"]
     log(f"cluster spawn B parts s: "
         f"{ {k: round(b[0][k + '_s'], 2) for k in parts} }")
     total = dict.fromkeys(one_counts, 0)
@@ -4199,16 +4428,100 @@ def _check_tp(b: list, smi: str, key: str, arch: str, depth: int,
                              f"(1, 1)")
 
 
+def _check_fsdp(b: list, smi: str) -> None:
+    """(i)(1): the (data 2) members against the (1, 1) run: losses and
+    gathered params; both members' gathered params bitwise alike; each
+    member's figures, kept for phase 21."""
+    g = [m["i"] for m in b]
+    one = g[0]["one"]
+    for r, m in enumerate([one] + g):
+        what = "one process (1, 1)" if r == 0 else f"member {r - 1} of (2, 1)"
+        log(f"cluster (i) gemma-2b at its published widths, depth 18 -> "
+            f"{GEMMA_WIDE_DEPTH}, float32, fsdp (bf16 moments, remat, a "
+            f"layer gathered at a time), global batch ({GEMMA_WIDE_B}, "
+            f"{GEMMA_WIDE_SEQ}), {what}: init {m['init_s']:.3f} s; s a step "
+            f"{[round(x, 4) for x in m['step_s']]} (CUDA events "
+            f"{[round(x, 4) for x in m['event_s']]}); step-only peak B "
+            f"{[x - m['base'] for x in m['peak']]} (peak GB "
+            f"{[round(x / 1e9, 3) for x in m['peak']]}); state and batch "
+            f"held {m['held']} B; wire bytes a step by kind {m['wire']}; "
+            f"loss {m['loss']} on {smi}")
+    loss_err = max(abs(a - c) / abs(c) for m in g
+                   for a, c in zip(m["loss"], one["loss"]))
+    alike = g[0]["digest"] == g[1]["digest"]
+    log(f"cluster (i) (data 2) against (1, 1): loss max rel diff "
+        f"{loss_err:.3g} (limit {TP_WIDE_LOSS_RTOL}); gathered params "
+        f"relative L2 {g[0]['params_err']:.3g} (limit {TP_WIDE_PARAMS_L2}); "
+        f"members' gathered params bitwise alike {alike}")
+    MEASURED["cluster_i"] = g
+    if not (loss_err <= TP_WIDE_LOSS_RTOL
+            and g[0]["params_err"] <= TP_WIDE_PARAMS_L2 and alike
+            and g[0]["loss"] == g[1]["loss"]
+            and all(np.isfinite(m["loss"]).all() for m in g)):
+        raise AssertionError("cluster (i): the (2, 1) fsdp run against "
+                             "(1, 1)")
+
+
+def _check_moe_serve(b: list, smi: str) -> None:
+    """(i)(2): the members' rows against one process over the whole
+    batch: tokens equal, logits within SERVE_SPLIT_TOL, the drops equal
+    and more than 0; against the members replayed in one process at their
+    shapes: tokens, logits and drops bitwise equal."""
+    r = [m["i moe"] for m in b]
+    one, replay = r[0]["one"], r[0]["replay"]
+    replayed = all(
+        m["mesh"]["drops"] == p["drops"]
+        and all(torch.equal(x, y) for key in ("tokens", "logits")
+                for x, y in zip(m["mesh"][key], p[key]))
+        for m, p in zip(r, replay))
+    tokens = torch.cat([torch.cat(m["mesh"]["tokens"], 1) for m in r])
+    same = torch.equal(tokens, torch.cat(one["tokens"], 1))
+    worst = 0.0
+    for i, want in enumerate(one["logits"]):
+        got = torch.cat([m["mesh"]["logits"][i] for m in r])
+        err = (got.double() - want.double()).abs() - SERVE_SPLIT_TOL[
+            "rtol"] * want.double().abs()
+        worst = max(worst, float(err.max()))
+    drops = [m["mesh"]["drops"] for m in r]
+    log(f"cluster (i moe) qwen2-moe-a2.7b at its published widths, "
+        f"{MOE_SERVE_DEPTH} layers, float32, capacity factor {r[0]['cf']}: a "
+        f"{TP_WIDE_PROMPT} prompt and {TP_WIDE_GEN} greedy steps on (data 2, "
+        f"model 1), each member's rows routed as its part of the whole "
+        f"batch, against one process: tokens equal {same}; logits' largest "
+        f"|diff| - rtol |want| {worst:.3g} (atol {SERVE_SPLIT_TOL['atol']}); "
+        f"choices dropped by the capacity a member {drops} (one process "
+        f"{one['drops']}); s {[round(m['mesh_s'], 3) for m in r]} (one "
+        f"process {r[0]['one_s']:.3f}) on {smi}")
+    log(f"cluster (i moe) the members against their replay in one process "
+        f"at their shapes: tokens, logits and drops bitwise equal "
+        f"{replayed}; so the logits' drift from one process is its row "
+        f"count: a float32 product's first rows over a member's rows "
+        f"against over the whole batch's, largest |diff| {r[0]['drift']}")
+    if not (same and worst <= SERVE_SPLIT_TOL["atol"] and replayed
+            and sum(drops) == one["drops"] > 0):
+        raise AssertionError("cluster (i moe): the members' serving against "
+                             "one process")
+
+
 def _dryrun_records(out_dir: str) -> dict:
-    """{(arch, shape, mesh): record} of the dry-run's records in
+    """{(arch, shape, mesh, policy): record} of the dry-run's records in
     ``out_dir``."""
     recs = {}
     for name in sorted(os.listdir(out_dir)):
         if name.endswith(".json"):
             with open(os.path.join(out_dir, name)) as f:
                 r = json.load(f)
-            recs[(r["arch"], r["shape"], r["mesh"])] = r
+            recs[(r["arch"], r["shape"], r["mesh"], r["policy"])] = r
     return recs
+
+
+def _dryrun_record(recs: dict, arch: str, shape: str, mesh: str,
+                   policy: str = "") -> dict:
+    """The one record of (arch, shape, mesh) whose policy starts with
+    ``policy``."""
+    (r,) = [r for k, r in recs.items()
+            if k[:3] == (arch, shape, mesh) and k[3].startswith(policy)]
+    return r
 
 
 DRYRUN_DIR = os.path.join(ROOT, "build", "dryrun")
@@ -4249,10 +4562,11 @@ def stop_dryrun() -> None:
 def run_dryrun(dev, smi: str) -> dict:
     """Phase 21: the dry-run's CLI in subprocesses, fake tensors on the
     card's device (started before phases 17 and 20), held against
-    phase 17(b)'s trainer and phase 20(d)'s, 20(g)'s and 20(h)'s members
-    as this run measured them (a, b, g, h) and a sample of its table on the
-    production meshes (c). Returns each kernel's launches summed over the
-    dry-run's cases, each counted in the process that ran it (all 0)."""
+    phase 17(b)'s trainer and phase 20(d)'s, 20(g)'s, 20(h)'s and 20(i)'s
+    members as this run measured them (a, b, g, h, i) and a sample of its
+    table on the production meshes (c). Returns each kernel's launches
+    summed over the dry-run's cases, each counted in the process that ran
+    it (all 0)."""
     out_dir = DRYRUN_DIR
     start_dryrun(dev)
     rcs = {}
@@ -4279,7 +4593,7 @@ def run_dryrun(dev, smi: str) -> dict:
         return int(sum(v["bytes"] for v in r["collectives"].values()))
 
     # (a) phase 17(b)'s case on one member
-    ra = recs[("gemma-2b", "train_8x128", "1x1")]
+    ra = _dryrun_record(recs, "gemma-2b", "train_8x128", "1x1")
     tb = MEASURED["trainer_b"]
     mem = ra["memory"]
     share = mem["peak_bytes"] / tb["step_peak"] - 1.0
@@ -4298,7 +4612,8 @@ def run_dryrun(dev, smi: str) -> dict:
         raise AssertionError(f"dryrun (a): {mem} vs {tb}")
 
     # (b) phase 20(d)'s case, member 0 of (data 2)
-    rb = recs[("gemma-2b", f"train_{GEMMA_WIDE_B}x{GEMMA_WIDE_SEQ}", "2x1")]
+    wide = f"train_{GEMMA_WIDE_B}x{GEMMA_WIDE_SEQ}"
+    rb = _dryrun_record(recs, "gemma-2b", wide, "2x1", "int8_ef")
     members = MEASURED["cluster_d"]
     mem = rb["memory"]
     log(f"dryrun (b) gemma-2b depth {GEMMA_WIDE_DEPTH}, float32, int8 + EF "
@@ -4319,7 +4634,8 @@ def run_dryrun(dev, smi: str) -> dict:
                                  f"{m['wire']} {m['held']} {peaks}")
 
     # (b moe) phase 20(c)'s expert stacks split over model, plain mean
-    rm = recs[("qwen2-moe-a2.7b", f"train_{CLUSTER_B}x{CLUSTER_SEQ}", "2x2")]
+    rm = _dryrun_record(recs, "qwen2-moe-a2.7b",
+                        f"train_{CLUSTER_B}x{CLUSTER_SEQ}", "2x2")
     got = MEASURED["cluster_moe"]
     log(f"dryrun (b moe) qwen2-moe-a2.7b --reduced, pssgd none, no remat, "
         f"on (data 2, model 2): wire bytes a member a step {wire(rm)} "
@@ -4333,7 +4649,7 @@ def run_dryrun(dev, smi: str) -> dict:
     # model 2)
     for key, arch, depth in (("g", "gemma-2b", GEMMA_WIDE_DEPTH),
                              ) + TP_RECURRENT:
-        rg = recs[(arch, f"train_{GEMMA_WIDE_B}x{GEMMA_WIDE_SEQ}", "1x2")]
+        rg = _dryrun_record(recs, arch, wide, "1x2")
         members = MEASURED["cluster_" + key]
         mem = rg["memory"]
         kinds = {k: int(v["bytes"]) for k, v in rg["collectives"].items()}
@@ -4355,11 +4671,42 @@ def run_dryrun(dev, smi: str) -> dict:
                 raise AssertionError(f"dryrun ({key}): {mem}, {kinds} vs "
                                      f"{m['wire']} {m['held']} {pk}")
 
+    # (i) phase 20(i)(1)'s case, each member of (data 2)
+    ri = _dryrun_record(recs, "gemma-2b", wide, "2x1", "fsdp")
+    members = MEASURED["cluster_i"]
+    mem = ri["memory"]
+    kinds = {k: int(v["bytes"]) for k, v in ri["collectives"].items()}
+    peaks = [[x - m["base"] for x in m["peak"]] for m in members]
+    log(f"dryrun (i) gemma-2b depth {GEMMA_WIDE_DEPTH}, float32, fsdp on "
+        f"(data 2), a layer gathered at a time: wire bytes a member a step "
+        f"by kind {kinds} (phase 20(i) measured "
+        f"{[m['wire'] for m in members]}); argument bytes "
+        f"{mem['argument_bytes']} (held {[m['held'] for m in members]}); "
+        f"peak {mem['peak_bytes']} B against the members' step-only peaks "
+        f"{peaks} B "
+        f"({[round(mem['peak_bytes'] / max(pk) - 1.0, 4) for pk in peaks]}"
+        f"); flops {ri['cost']['flops']:.6e}; traced in {ri['trace_s']} s")
+    for m, pk in zip(members, peaks):
+        if not (all(w == kinds for w in m["wire"])
+                and all(h == mem["argument_bytes"] for h in m["held"])
+                and abs(mem["peak_bytes"] / max(pk) - 1.0)
+                <= DRYRUN_PEAK_RTOL):
+            raise AssertionError(f"dryrun (i): {mem}, {kinds} vs "
+                                 f"{m['wire']} {m['held']} {pk}")
+
     # (c) a sample of the table
-    sample = [recs[("gemma-2b", "train_4k", "256x1")]] + [
-        recs[(a, "train_4k", "16x16")] for a in (
+    rl = _dryrun_record(recs, "llama3-405b", "train_4k", "256x1")
+    log(f"dryrun (c) llama3-405b train_4k on 256x1 ({rl['policy']}): peak "
+        f"{rl['memory']['peak_bytes'] / 1e9:.3f} GB a member, against "
+        f"{LLAMA_PARENT_PEAK_GB} GB with every leaf gathered for the step "
+        f"and ~{LLAMA_PREDICTED_GB} GB predicted (PERF.md); limit "
+        f"{LLAMA_PEAK_LIMIT_GB} GB")
+    if not rl["memory"]["peak_bytes"] <= LLAMA_PEAK_LIMIT_GB * 1e9:
+        raise AssertionError("dryrun (c): llama3-405b's peak on 256x1")
+    sample = [_dryrun_record(recs, "gemma-2b", "train_4k", "256x1"), rl] + [
+        _dryrun_record(recs, a, "train_4k", "16x16") for a in (
             "gemma-2b", "falcon-mamba-7b", "recurrentgemma-2b")] + [
-        recs[("qwen2-moe-a2.7b", s, "16x16")] for s in
+        _dryrun_record(recs, "qwen2-moe-a2.7b", s, "16x16") for s in
         ("train_4k", "prefill_32k", "decode_32k", "long_500k")]
     for r in sample:
         log(f"dryrun (c) {r['arch']} {r['shape']} on {r['mesh']}: "

@@ -111,11 +111,12 @@ def all_gather(x: torch.Tensor, mesh=None, axis="data", log: bool = True
     n = dist.get_world_size(group)
     host = _host_staged("all_gather", x, group)
     src = (x.cpu() if host else x).contiguous()
-    outs = [torch.empty_like(src) for _ in range(n)]
-    dist.all_gather(outs, src, group=group)
+    # the members' messages land in the rows of one buffer
+    out = src.new_empty((n,) + src.shape)
+    dist.all_gather(list(out.unbind(0)), src, group=group)
     WIRE.add("all_gather", (n - 1) * src.numel() * src.element_size(),
              ("all-gather", n) if log else None)
-    return torch.stack(outs).to(x.device)
+    return out.to(x.device)
 
 
 def all_to_all(x: torch.Tensor, mesh=None, axis="data", log: bool = True
@@ -136,10 +137,11 @@ def all_to_all(x: torch.Tensor, mesh=None, axis="data", log: bool = True
 
 
 def _ordered_sum(parts: torch.Tensor) -> torch.Tensor:
-    """float32 sum over dim 0, one member after another from member 0."""
+    """float32 sum over dim 0, one member after another from member 0 (a
+    narrower part is widened exactly inside the add)."""
     s = parts[0].float()
     for p in parts[1:]:
-        s = s + p.float()
+        s = s + p
     return s
 
 

@@ -168,14 +168,20 @@ def stacked_client_shardings(cfg: ModelConfig, params: Dict,
             for k, p in params.items()}
 
 
+def batch_splits(rows: int, mesh: Mesh) -> bool:
+    """Whether a global batch of ``rows`` rows splits over the data axes
+    (``batch_shardings``); where it does not, every member holds it
+    whole."""
+    return rows > 0 and rows % mesh.n(data_entry(mesh)) == 0
+
+
 def batch_shardings(batch: Dict, mesh: Mesh) -> Dict[str, Spec]:
     """Dim 0 (the batch) over the data axes; replicated if indivisible."""
     dp = data_entry(mesh)
-    n = mesh.n(dp)
 
     def leaf(x):
         nd = len(x.shape)
-        if nd >= 1 and x.shape[0] % n == 0 and x.shape[0] > 0:
+        if nd >= 1 and batch_splits(x.shape[0], mesh):
             return (dp,) + (None,) * (nd - 1)
         return (None,) * nd
     return {k: leaf(x) for k, x in batch.items()}

@@ -198,7 +198,8 @@ def train_case(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh,
 def prefill_case(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh,
                  fake: FakeTensorMode = None, device="cuda"):
     """(prefill_step, (params, batch), their specs)."""
-    return _case(mesh, steps_mod.make_prefill_step(cfg, mesh=mesh),
+    return _case(mesh, steps_mod.make_prefill_step(
+        cfg, mesh=mesh, global_batch=shape.global_batch),
                  _prefill_inputs(cfg, shape, mesh), fake, device)
 
 
@@ -206,7 +207,8 @@ def decode_case(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh,
                 fake: FakeTensorMode = None, device="cuda"):
     """(decode_step, (params, cache, token, pos), their specs)."""
     step_fn = steps_mod.make_decode_step(
-        cfg, circular=shape.sliding_window_decode, mesh=mesh)
+        cfg, circular=shape.sliding_window_decode, mesh=mesh,
+        global_batch=shape.global_batch)
     return _case(mesh, step_fn, _decode_inputs(cfg, shape, mesh), fake,
                  device)
 

@@ -9,9 +9,14 @@ of ``repro/launch/steps.py``'s ``TrainPolicy``, ``make_init_fn``,
   micro-batches between compressed delta-consensus rounds over the intra
   axes, then the dense bf16 pod sync of Alg. 9 when the mesh has ``pod``;
 * ``fsdp``     -- params and moments at rest split over the data axes
-  (``state_shardings``): a step all-gathers every leaf, takes its rows'
-  gradient, reduce-scatters it to the owned block (the mean over members)
-  and updates only that block.
+  (``state_shardings``): a step gathers each layer's leaves where the
+  layer runs and again where the backward recomputes it (or reads a saved
+  leaf), reduce-scatters each layer's gradient to the owned block (the
+  mean over members) as the backward makes it, gathers the embedding,
+  unembedding and other top-level leaves once for the step, and updates
+  only the owned blocks. MoE layers route the step's global batch as one
+  capacity group, as the reference's jitted step does
+  (``models/moe.py::routed_over``).
 
 The reference maps the step over its mesh with ``shard_map``; here each
 member is a process (``launch/mesh.py``) that keeps its block of every
@@ -31,7 +36,9 @@ identity, but the compressed all-reduce still quantizes twice. Gradients
 come from autograd on the flat param dict, the layers rematerialized when
 ``policy.remat`` asks (``transformer.forward_trunk``). The serving steps
 (``make_prefill_step``, ``make_decode_step``) wrap ``transformer.prefill``
-and ``decode_step``.
+and ``decode_step``; on a mesh whose data axes split the batch, their MoE
+layers route the global batch as one capacity group, as the reference's
+jitted serving steps do.
 
 A step takes its state over, as the reference's jitted step is handed a
 state it then drops: it replaces the state's params, moments and EF leaf
@@ -52,6 +59,7 @@ from repro_torch.core.collectives import (hierarchical_allreduce, pmean,
                                           reduce_scatter_sum)
 from repro_torch.launch import sharding as shard_rules
 from repro_torch.launch.mesh import Mesh, data_axes, n_data_shards
+from repro_torch.models import moe
 from repro_torch.models import transformer as tf
 from repro_torch.models.tp import set_model_mesh
 from repro_torch.optim.optimizers import (OptState, apply_updates,
@@ -278,10 +286,14 @@ def make_train_step(cfg: ModelConfig, policy: TrainPolicy, mesh: Mesh):
     return _make_pssgd_step(cfg, policy, mesh)
 
 
-def _value_and_grad(cfg: ModelConfig, policy: TrainPolicy, params, batch):
-    """The loss (detached) and its gradient a leaf, by autograd."""
+def _value_and_grad(cfg: ModelConfig, policy: TrainPolicy, params, batch,
+                    gather=None):
+    """The loss (detached) and its gradient a leaf, by autograd; ``gather``
+    (``_LayerGather``) makes each layer's params from the leaves it is
+    handed (``transformer._layer``)."""
     leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
-    loss, _ = tf.lm_loss(leaves, cfg, batch, remat=policy.remat)
+    loss, _ = tf.lm_loss(leaves, cfg, batch, remat=policy.remat,
+                         gather=gather)
     grads = torch.autograd.grad(loss, list(leaves.values()))
     return loss.detach(), dict(zip(leaves, grads))
 
@@ -453,30 +465,110 @@ def _reduce_scatter_mean(g: torch.Tensor, spec: tuple, mesh: Mesh,
     return (s / n).to(g.dtype).reshape(parts.shape[1:])
 
 
+class _GatherOverData(torch.autograd.Function):
+    """Forward: a leaf whole from the members' blocks over the data axes
+    (``sharding.gather``); backward: this member's block of the mean of
+    the cotangent over them (``_reduce_scatter_mean``)."""
+
+    @staticmethod
+    def forward(ctx, block, spec, mesh, axes):
+        ctx.spec, ctx.mesh, ctx.axes = spec, mesh, axes
+        return shard_rules.gather(block, spec, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_reduce_scatter_mean(g, ctx.spec, ctx.mesh, ctx.axes),
+                None, None, None)
+
+
+def _storage(t: torch.Tensor) -> int:
+    return t.untyped_storage()._cdata
+
+
+class _LayerGather:
+    """The fsdp step's ``gather`` (``transformer._layer``): a layer's
+    params from this member's blocks, each leaf that the data axes split
+    all-gathered whole inside the layer's function (``_GatherOverData``).
+    A recomputed layer gathers again in the backward. A layer that is not
+    recomputed keeps no gathered leaf either: autograd's saved copy of one
+    is packed as the member's block (a saved-tensor hook) and gathered
+    again where the backward reads it."""
+
+    def __init__(self, specs: Dict[str, tuple], mesh: Mesh, axes):
+        self.specs, self.mesh, self.axes = specs, mesh, axes
+
+    def __call__(self, fn, path: str, depth: int, recomputed: bool):
+        def run(p, *args, **kw):
+            whole, blocks = {}, {}
+            for k, x in tf.flatten_params(p).items():
+                spec = self.specs[f"{path}/{k}"][depth:]
+                if self.axes in spec:
+                    w = _GatherOverData.apply(x, spec, self.mesh, self.axes)
+                    blocks[_storage(w)] = (x.detach(), spec)
+                    x = w
+                whole[k] = x
+            whole = tf.nest_params(whole)
+            if recomputed or not blocks:
+                return fn(whole, *args, **kw)
+            with torch.autograd.graph.saved_tensors_hooks(
+                    functools.partial(self._pack, blocks), self._unpack):
+                return fn(whole, *args, **kw)
+        return run
+
+    @staticmethod
+    def _pack(blocks: dict, t: torch.Tensor):
+        src = blocks.get(_storage(t))
+        if src is None:
+            return t
+        return src + (t.size(), t.stride(), t.storage_offset())
+
+    def _unpack(self, packed):
+        if torch.is_tensor(packed):
+            return packed
+        block, spec, size, stride, offset = packed
+        return shard_rules.gather(block, spec, self.mesh).as_strided(
+            size, stride, offset)
+
+
+def _routing(mesh, rows: int, *, aux: bool = False):
+    """``moe.routed_over`` the data axes of ``mesh`` where they split a
+    global batch of ``rows`` rows (``sharding.batch_splits``); where every
+    member holds it whole, a member routes it alone."""
+    split = mesh is not None and shard_rules.batch_splits(rows, mesh)
+    return moe.routed_over(mesh if split else None,
+                           () if mesh is None else data_axes(mesh), aux=aux)
+
+
 def _make_fsdp_step(cfg: ModelConfig, policy: TrainPolicy, mesh: Mesh):
     dp = data_axes(mesh)
     dpe = shard_rules.data_entry(mesh)
     schedule = get_schedule(cfg.lr_schedule, policy.lr, policy.total_steps)
     opt_fn = apply_updates(policy.optimizer)
-    # every leaf whole over the data axes for the step: gathered (the
-    # split over model stays)
+    # every leaf whole over the data axes for its use (the split over model
+    # stays): a layer's leaves a layer at a time, the others for the step
     dspecs = {k: tuple(a if a == dpe else None for a in sp) for k, sp in
               held_specs(cfg, policy, mesh)["params"].items()}
+    split = mesh.n(dp) > 1
+    gather = _LayerGather(dspecs, mesh, dpe) if split else None
+    layered = {k for k in dspecs if split and k.startswith(tf.LAYER_KEYS)}
 
     def train_step(state: State, batch):
         params = state["params"]
-        full = {k: shard_rules.gather(p, dspecs[k], mesh)
+        full = {k: p if k in layered else shard_rules.gather(p, dspecs[k],
+                                                             mesh)
                 for k, p in params.items()}
-        loss, grads = _value_and_grad(cfg, policy, full,
-                                      local_batch(batch, mesh,
-                                                  divisible=False))
+        with _routing(mesh, batch["tokens"].shape[0], aux=True):
+            loss, grads = _value_and_grad(
+                cfg, policy, full, local_batch(batch, mesh, divisible=False),
+                gather)
         del full
         for k in list(grads):
-            g = grads[k]
-            if dpe in dspecs[k] and mesh.n(dp) > 1:
-                grads[k] = _reduce_scatter_mean(g, dspecs[k], mesh, dpe)
+            if split and dpe in dspecs[k]:
+                if k not in layered:   # a layer's comes back as the block
+                    grads[k] = _reduce_scatter_mean(grads[k], dspecs[k],
+                                                    mesh, dpe)
             else:
-                grads[k] = pmean(g, mesh, dp)
+                grads[k] = pmean(grads[k], mesh, dp)
         opt = _apply(opt_fn, params, grads, state["opt"],
                      schedule(state["step"]))
         return (dict(state, opt=opt, step=state["step"] + 1),
@@ -488,29 +580,48 @@ def _make_fsdp_step(cfg: ModelConfig, policy: TrainPolicy, mesh: Mesh):
 # ===========================================================================
 # Serving steps
 # ===========================================================================
-def make_prefill_step(cfg: ModelConfig, q_chunk: int = 1024, mesh=None):
+def _serving_mesh(mesh, global_batch) -> None:
+    """Name ``mesh`` for the layers; a mesh with several data members
+    cannot tell from a member's rows whether the batch split, so it needs
+    ``global_batch``."""
+    if mesh is None:
+        return
+    if global_batch is None and n_data_shards(mesh) > 1:
+        raise ValueError(f"a serving step on the mesh {mesh.shape} needs "
+                         "global_batch: a member's rows do not say whether "
+                         "the batch split over its data members")
+    set_model_mesh(mesh)
+
+
+def make_prefill_step(cfg: ModelConfig, q_chunk: int = 1024, mesh=None,
+                      global_batch=None):
     """(params, batch) -> (last-token logits, cache); ``batch`` holds the
     tokens and any vision / audio embeddings. On ``mesh`` a member passes
-    its blocks of the params (``held_specs``) and its rows of the batch,
-    and receives its block of the logits (over the vocabulary, where it
-    splits: ``models/tp.py::gather_last``) and of the cache."""
-    if mesh is not None:
-        set_model_mesh(mesh)
+    its blocks of the params (``held_specs``) and its rows of the batch
+    (``sharding.batch_shardings``: a global batch of ``global_batch`` rows,
+    which a mesh with several data members needs, split over the data axes
+    or held whole by every member where it does not divide), and receives
+    its block of the logits (over the vocabulary, where it splits:
+    ``models/tp.py::gather_last``) and of the cache."""
+    _serving_mesh(mesh, global_batch)
 
     def prefill_step(params, batch):
         extras = {k: v for k, v in batch.items() if k != "tokens"}
-        return tf.prefill(params, cfg, batch["tokens"], extras,
-                          q_chunk=q_chunk)
+        tokens = batch["tokens"]
+        with _routing(mesh, global_batch or tokens.shape[0]):
+            return tf.prefill(params, cfg, tokens, extras, q_chunk=q_chunk)
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig, *, circular: bool, mesh=None):
+def make_decode_step(cfg: ModelConfig, *, circular: bool, mesh=None,
+                     global_batch=None):
     """(params, cache, token, pos) -> (logits, new cache); ``pos`` a Python
-    int. On ``mesh``, a member's blocks, as ``make_prefill_step``."""
-    if mesh is not None:
-        set_model_mesh(mesh)
+    int. On ``mesh``, a member's blocks and rows, as
+    ``make_prefill_step``."""
+    _serving_mesh(mesh, global_batch)
 
     def decode_step(params, cache, token, pos):
-        return tf.decode_step(params, cfg, cache, token, pos,
-                              circular=circular)
+        with _routing(mesh, global_batch or token.shape[0]):
+            return tf.decode_step(params, cfg, cache, token, pos,
+                                  circular=circular)
     return decode_step

@@ -28,20 +28,56 @@ qwen2-moe config). ``moe_forward`` takes this path while a mesh is named
 experts split over ``model`` as a dense MLP does, where their width
 divides (``shared_gate`` / ``shared_up`` by column, ``shared_down`` by
 row); their partial output joins the experts' before the one sum.
+
+The whole batch as one capacity group (``routed_over``): where the
+reference jits a step over its mesh and leaves the data split to XLA (its
+prefill, decode and fsdp train steps), routing sees the global batch: the
+capacity comes from the global token count and a choice's slot from one
+cumsum over the global (T*k) choices, token by token. A member holds the
+rows of its place along the data axes (``P(dp)``: contiguous, in rank
+order), so its slots are its own cumsum plus the choices of each expert on
+the lower-ranked members, from one all-gather of every member's (E_pad,)
+int32 counts a layer. With ``aux`` the load-balance loss takes ``me`` and
+``fe`` over the whole batch too (``me``'s mean through ``tp.mean_over``,
+``fe`` from the gathered counts). The reference's pssgd and localsgd steps
+``shard_map`` over the data axes and route a member's rows alone, as does
+every call outside ``routed_over``.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+import contextlib
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch import random as trandom
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.collectives import all_gather
 from repro_torch.models import tp
 from repro_torch.models.layers import dense_init
 
 Params = Dict[str, torch.Tensor]
+
+# (mesh, data axes, aux) while a step routes a member's rows as its part of
+# the whole batch (``routed_over``); None -> the rows alone
+_GROUP: Optional[tuple] = None
+
+
+@contextlib.contextmanager
+def routed_over(mesh, axes, *, aux: bool = False):
+    """MoE layers run inside route this member's rows as its part of one
+    capacity group over the members along ``axes`` of ``mesh`` (nothing
+    changes with no mesh or on one member); ``aux``: the load-balance loss
+    over the whole batch too (a train step's)."""
+    global _GROUP
+    prev = _GROUP
+    _GROUP = (None if mesh is None or mesh.n(axes) == 1
+              else (mesh, axes, aux))
+    try:
+        yield
+    finally:
+        _GROUP = prev
 
 
 def padded_n_experts(cfg: ModelConfig, multiple: int = 16) -> int:
@@ -89,28 +125,39 @@ class Route(NamedTuple):
 
 def route(p: Params, xf: torch.Tensor, cfg: ModelConfig,
           expert_pad_multiple: int = 16) -> Route:
-    """Router, top-k, aux loss and positions for tokens xf (T, d)."""
+    """Router, top-k, aux loss and positions for tokens xf (T, d): this
+    member's rows of the whole batch inside ``routed_over``."""
     t = xf.shape[0]
     e_real, k = cfg.n_experts, cfg.moe_top_k
     e_pad = padded_n_experts(cfg, expert_pad_multiple)
-    cap = capacity(cfg, t)
+    group = _GROUP
+    n = 1 if group is None else group[0].n(group[1])
+    cap = capacity(cfg, t * n)
     probs = torch.softmax(xf.to(torch.float32) @ p["router"], dim=-1)
     # lax.top_k: descending, ties to the lower index (a stable sort)
     vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     top_p, top_e = vals[:, :k], idx[:, :k]
     top_p = top_p / top_p.sum(dim=-1, keepdim=True)
 
-    me = probs.mean(dim=0)
-    experts = torch.arange(e_real, device=xf.device)
-    assign = (top_e[..., None] == experts).to(torch.float32)  # (T,k,E)
-    fe = assign.sum(dim=1).mean(dim=0) / k
-    aux = e_real * (me * fe).sum()
-
     flat_e = top_e.reshape(t * k)
     onehot = (flat_e[:, None] == torch.arange(e_pad, device=xf.device)
               ).to(torch.int32)  # (T*k, E_pad)
     pos_all = torch.cumsum(onehot, dim=0) - 1
     flat_pos = (pos_all * onehot).sum(dim=-1)
+    me = probs.mean(dim=0)
+    if group is None:
+        experts = torch.arange(e_real, device=xf.device)
+        assign = (top_e[..., None] == experts).to(torch.float32)  # (T,k,E)
+        fe = assign.sum(dim=1).mean(dim=0) / k
+    else:   # the lower-ranked members' choices come first in each expert
+        mesh, axes, whole_aux = group
+        counts = all_gather(onehot.sum(dim=0, dtype=torch.int32), mesh,
+                            axes)   # (n, E_pad)
+        flat_pos = flat_pos + counts[:mesh.index(axes)].sum(dim=0)[flat_e]
+        fe = counts.sum(dim=0)[:e_real].to(torch.float32) / (t * n) / k
+        if whole_aux:
+            me = tp.mean_over(me, mesh, axes)
+    aux = e_real * (me * fe).sum()
     overflow = flat_pos >= cap
     flat_pos = torch.where(overflow, cap, flat_pos)
     return Route(top_p, flat_e, flat_pos, overflow, aux, cap)

@@ -71,6 +71,20 @@ class _SumOverAxis(torch.autograd.Function):
         return g, None, None
 
 
+class _MeanOverAxis(torch.autograd.Function):
+    """Forward: the mean over the axis's members (``pmean``); backward: the
+    cotangent as it is. For a mean over members that split the batch: the
+    step's mean of the members' gradients supplies the 1 / n."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return psum(x, mesh, axis) / mesh.n(axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
 class _CopyToAxis(torch.autograd.Function):
     """Forward: a replicated input as it is; backward: the members'
     partial cotangents summed over the axis."""
@@ -113,6 +127,15 @@ def sum_over(x: torch.Tensor, mesh=None, axis: str = AXIS) -> torch.Tensor:
     if mesh is None or mesh.n(axis) == 1:
         return x
     return _SumOverAxis.apply(x, mesh, axis)
+
+
+def mean_over(x: torch.Tensor, mesh, axis) -> torch.Tensor:
+    """The mean of the members' ``x`` over ``axis`` (e.g. the data axes,
+    whose members hold the batch's rows), its cotangent passed on as it
+    is (``_MeanOverAxis``)."""
+    if mesh is None or mesh.n(axis) == 1:
+        return x
+    return _MeanOverAxis.apply(x, mesh, axis)
 
 
 def copy_to(x: torch.Tensor, mesh=None, axis: str = AXIS) -> torch.Tensor:

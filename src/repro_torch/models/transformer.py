@@ -424,12 +424,26 @@ def unembed(params: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
 # ===========================================================================
 # Forward (train / prefill trunk) and loss
 # ===========================================================================
-def _remat(fn: Callable, remat: bool) -> Callable:
-    """``fn``, recomputed in the backward instead of keeping its
-    activations where ``remat`` asks for it and autograd (not a
-    ``torch.func`` transform) records the forward."""
-    if not (remat and torch.is_grad_enabled()
-            and not torch._C._are_functorch_transforms_active()):
+# the key prefixes of the leaves the trunks run a layer at a time: the
+# stacks (``blocks/...``, the audio encoder's) and hybrid's ``rest`` layers
+LAYER_KEYS = ("blocks/", "encoder/blocks/", "rest/")
+
+
+def _layer(fn: Callable, remat: bool, gather: Optional[Callable] = None,
+           path: str = "", depth: int = 1) -> Callable:
+    """``fn`` over one layer, recomputed in the backward instead of keeping
+    its activations where ``remat`` asks for it and autograd (not a
+    ``torch.func`` transform) records the forward. With ``gather`` (the
+    fsdp step's, ``launch/steps.py``) the layer's params come in as this
+    member's blocks of the stack at ``path`` (``depth`` stacked dims cut
+    off), and ``gather(fn, path, depth, recomputed)`` gathers them whole
+    inside the function that is recomputed, so that the backward gathers
+    them again and never keeps them."""
+    recomputed = (remat and torch.is_grad_enabled()
+                  and not torch._C._are_functorch_transforms_active())
+    if gather is not None:
+        fn = gather(fn, path, depth, recomputed)
+    if not recomputed:
         return fn
     # no layer draws random numbers, so the RNG state (a device-to-host copy
     # a layer) need not be saved for the recomputation
@@ -440,13 +454,14 @@ def _remat(fn: Callable, remat: bool) -> Callable:
 def forward_trunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                   extras: Optional[Dict[str, torch.Tensor]] = None, *,
                   collect_cache: bool = False, remat: bool = True,
-                  q_chunk: int = 1024):
+                  q_chunk: int = 1024, gather: Optional[Callable] = None):
     """Embedding + all blocks; returns (hidden (B,S,d), aux, cache|None).
     ``extras`` holds the vlm's ``vision_embeds`` (B, n_vis, vision_dim) or
     the audio family's ``audio_embeds`` (B, frames, d_model).
     ``collect_cache`` also returns the prefill cache (remat off, as the
     reference turns it off); ``remat`` recomputes each layer in the
-    backward."""
+    backward; ``gather`` (``_layer``) gathers each layer's params from the
+    member's blocks of the stacks (and of hybrid's ``rest`` layers)."""
     _check_family(cfg)
     extras = extras or {}
     params = nest_params(params)
@@ -455,10 +470,10 @@ def forward_trunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     blocks, fam = params["blocks"], cfg.family
     remat = remat and not collect_cache
-    attn_fwd = _remat(_attn_block_fwd, remat)
     kw = dict(window=window, q_chunk=q_chunk, return_kv=collect_cache)
     cache = None
     if fam in ("dense", "moe"):
+        attn_fwd = _layer(_attn_block_fwd, remat, gather, "blocks")
         kvs = []
         for p_l in _unstack(blocks, cfg.n_layers):
             x, a, *kv = attn_fwd(p_l, x, cfg, **kw)
@@ -467,7 +482,7 @@ def forward_trunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         if collect_cache:
             cache = dict(zip(("k", "v"), _stack(kvs)))  # (L,B,S,K,hd)
     elif fam == "ssm":
-        mamba_fwd = _remat(_mamba_block_fwd, remat)
+        mamba_fwd = _layer(_mamba_block_fwd, remat, gather, "blocks")
         sts = []
         for p_l in _unstack(blocks, cfg.n_layers):
             if collect_cache:
@@ -478,14 +493,15 @@ def forward_trunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         if collect_cache:
             cache = dict(zip(("conv", "ssm"), _stack(sts)))  # (L,B,...)
     elif fam == "hybrid":  # the pattern periods, then the remainder
-        x, cache = _hybrid_trunk(params, cfg, x, remat, collect_cache, kw)
+        x, cache = _hybrid_trunk(params, cfg, x, remat, collect_cache, kw,
+                                 gather)
     elif fam == "vlm":
         x, cache = _vlm_trunk(blocks, cfg, x, extras, remat, collect_cache,
-                              kw)
+                              kw, gather)
     else:  # audio
         enc_h = encode_audio(params, cfg, extras["audio_embeds"],
-                             q_chunk=q_chunk)
-        layer_fwd = _remat(_audio_layer_fwd, remat)
+                             q_chunk=q_chunk, gather=gather)
+        layer_fwd = _layer(_audio_layer_fwd, remat, gather, "blocks")
         outs = []
         for p_l in _unstack(blocks, cfg.n_layers):
             out = layer_fwd(p_l, x, enc_h, cfg, q_chunk=q_chunk,
@@ -501,34 +517,35 @@ def forward_trunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def _hybrid_trunk(params: Params, cfg: ModelConfig, x, remat: bool,
-                  collect_cache: bool, kw: dict):
+                  collect_cache: bool, kw: dict, gather=None):
     pat = cfg.block_pattern
     n_super = cfg.n_layers // len(pat)
     stacks = [_unstack(params["blocks"][f"p{i}_{kind}"], n_super)
               for i, kind in enumerate(pat)]
-    attn_fwd = _remat(_attn_block_fwd, remat)
-    rglru_fwd = _remat(_rglru_block_fwd, remat)
 
-    def layer(kind, p_l, x):
+    def layer(kind, p_l, x, path, depth=1):
         """-> (x, the layer's cache entry as a tuple, or None)."""
         if kind == "rglru":
+            rglru_fwd = _layer(_rglru_block_fwd, remat, gather, path, depth)
             if collect_cache:
                 return rglru_fwd(p_l, x, cfg, return_state=True)
             return rglru_fwd(p_l, x, cfg), None
+        attn_fwd = _layer(_attn_block_fwd, remat, gather, path, depth)
         x, _, *kv = attn_fwd(p_l, x, cfg, **kw)
         return x, (tuple(kv[0]) if kv else None)
 
     sup = {}
     for n in range(n_super):
         for i, kind in enumerate(pat):
-            x, st = layer(kind, stacks[i][n], x)
+            x, st = layer(kind, stacks[i][n], x, f"blocks/p{i}_{kind}")
             if collect_cache:
                 names = ("conv", "h") if kind == "rglru" else ("k", "v")
                 for name, t in zip(names, st):
                     sup.setdefault(f"p{i}_{name}", []).append(t)
     rest = []
-    for p_l in params.get("rest", []):
-        x, st = layer("rglru" if "rec" in p_l else "attn", p_l, x)
+    for j, p_l in enumerate(params.get("rest", [])):
+        x, st = layer("rglru" if "rec" in p_l else "attn", p_l, x,
+                      f"rest/{j}", 0)
         rest.append(st)
     if not collect_cache:
         return x, None
@@ -537,13 +554,13 @@ def _hybrid_trunk(params: Params, cfg: ModelConfig, x, remat: bool,
 
 
 def _vlm_trunk(blocks: Params, cfg: ModelConfig, x, extras: dict,
-               remat: bool, collect_cache: bool, kw: dict):
+               remat: bool, collect_cache: bool, kw: dict, gather=None):
     """Each superblock: its self layers, then the cross layer over its own
     k/v of the vision embeddings."""
     vis = extras["vision_embeds"].to(x.dtype)  # (B, n_vis, vision_dim)
     n_super = cfg.n_layers // cfg.cross_attn_every
-    attn_fwd = _remat(_attn_block_fwd, remat)
-    cross_fwd = _remat(_cross_layer_fwd, remat)
+    attn_fwd = _layer(_attn_block_fwd, remat, gather, "blocks/self", 2)
+    cross_fwd = _layer(_cross_layer_fwd, remat, gather, "blocks/cross")
     self_kv, cross_kv = [], []
     for p_self, p_cross in zip(_unstack(blocks["self"], n_super),
                                _unstack(blocks["cross"], n_super)):
@@ -562,16 +579,18 @@ def _vlm_trunk(blocks: Params, cfg: ModelConfig, x, extras: dict,
 
 
 def encode_audio(params: Params, cfg: ModelConfig, audio_embeds,
-                 q_chunk: int = 1024):
-    """Whisper encoder over stub frame embeddings (B, frames, d)."""
+                 q_chunk: int = 1024, gather: Optional[Callable] = None):
+    """Whisper encoder over stub frame embeddings (B, frames, d); its
+    layers are not recomputed (``gather``: ``forward_trunk``'s)."""
     params = nest_params(params)
     x = audio_embeds.to(torch_dtype(cfg.dtype))
     pos = sinusoidal_positions(x.shape[1], cfg.d_model,
                                device=x.device).to(x.dtype)
     x = x + pos[None]
+    layer_fwd = _layer(_attn_block_fwd, False, gather, "encoder/blocks")
     for p_l in _unstack(params["encoder"]["blocks"], cfg.n_encoder_layers):
-        x, _ = _attn_block_fwd(p_l, x, cfg, window=None, q_chunk=q_chunk,
-                               causal=False)
+        x, _ = layer_fwd(p_l, x, cfg, window=None, q_chunk=q_chunk,
+                         causal=False)
     return apply_norm(params["encoder"]["final_norm"], x, cfg.norm_type)
 
 
@@ -613,12 +632,13 @@ def _split_lse_gold(logits: torch.Tensor, labels: torch.Tensor):
 
 
 def lm_loss(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
-            *, remat: bool = True
+            *, remat: bool = True, gather: Optional[Callable] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Full forward + loss. batch: tokens, labels (+ vision/audio extras)."""
+    """Full forward + loss. batch: tokens, labels (+ vision/audio extras);
+    ``gather``: ``forward_trunk``'s."""
     extras = {k: v for k, v in batch.items() if k not in ("tokens", "labels")}
     h, aux, _ = forward_trunk(params, cfg, batch["tokens"], extras,
-                              remat=remat)
+                              remat=remat, gather=gather)
     xent = chunked_xent(params, cfg, h, batch["labels"])
     loss = xent + cfg.router_aux_weight * aux
     return loss, {"xent": xent, "aux": aux}

@@ -16,20 +16,21 @@ is destroyed at its end. Every byte and flop of difference is named:
   the reference splits over ``model`` (``steps.held_specs``): nothing more;
 * wire bytes: pssgd and localsgd equal kind for kind, but for the loss's
   all-reduce, which the port's ``psum`` pads to one element a member (4
-  bytes more on 2 members); fsdp's port wire is its own all-gather of
-  each split leaf, reduce-scatter of its gradient and all-reduce of the
-  rest (XLA's partitioner picks other collectives there: its figure is in
-  PERF.md). Over ``model`` (``_model_wire``): the all-reduce of the
-  embedding's rows, of each attention's and MoE layer's (T, d) partial
-  output, in a train step the backward's all-reduce at each split
-  region's input (each layer's attention input, the MoE input and its
+  bytes more on 2 members); fsdp's port wire is its own all-gather of each
+  split leaf (a layer's twice: the layer is gathered where it runs and again
+  where the backward recomputes it), reduce-scatter of its gradient and
+  all-reduce of the rest (XLA's partitioner picks other collectives there:
+  its figure is in PERF.md). Over ``model`` (``_model_wire``): the
+  all-reduce of the embedding's rows, of each attention's and MoE layer's
+  (T, d) partial output, in a train step the backward's all-reduce at each
+  split region's input (each layer's attention input, the MoE input and its
   routing weights, the unembedding's input), the cross-entropy's max (an
   all-gather of the (B, S) maxima), sum of exps and gold logit, and the
   recomputation of each layer's attention sum (``torch.utils.checkpoint``
   stops recomputing at the last tensor the backward needs, before the
   layer's closing MoE sum). XLA's prefill and decode send one (T, d)
-  all-reduce a layer more: it sums the shared experts' output apart from
-  the experts', where the port adds them before one sum;
+  all-reduce a layer more: it sums the shared experts' output apart from the
+  experts', where the port adds them before one sum;
 * flops: equal but for the reference's checkpointed cross-entropy chunk,
   which recomputes the logits in the backward, ``2 T d V`` more for T
   tokens a member (the port keeps the chunk's logits). On (data 1, model 2)
@@ -39,7 +40,15 @@ is destroyed at its end. Every byte and flop of difference is named:
   (``_router_dots``). The reference's fsdp step is partitioned by XLA and
   its MoE train step on (data 1, model 2) does not compile on JAX 0.9 (its
   own failure, asserted).
+
+Beside the reference, the port alone: the fsdp step's peak live bytes,
+gathering a layer at a time, below those of the step that gathers every
+leaf for the step (``torch_cluster_workers.whole_gather_step``), remat on
+and off; and on (data 2) the MoE serving steps' wire, which adds to
+``_model_wire`` an all-gather of each member's (E_pad,) int32 counts a
+layer (routing the global batch as one capacity group).
 """
+import dataclasses
 import math
 
 import pytest
@@ -53,8 +62,12 @@ from torch_dryrun_jax import (  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import ShapeSpec  # noqa: E402
 from repro_torch.launch import dryrun, specs  # noqa: E402
+from repro_torch.launch import steps as tsteps  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.launch.sharding import shard_shape  # noqa: E402
+from repro_torch.models.moe import padded_n_experts  # noqa: E402
+from repro_torch.models.transformer import LAYER_KEYS  # noqa: E402
+import torch_cluster_workers as workers  # noqa: E402
 
 # the loss's all-reduce on 2 members: the port sends its 1-element psum
 # padded to 2 (4 B out in the reduce-scatter, 4 B in the all-gather), the
@@ -206,9 +219,11 @@ def test_account_matches_reference(runs, case):
 
 
 def _fsdp_wire(cfg, mesh, params):
-    """The port's fsdp collectives: each leaf split over the data axis is
-    all-gathered and its gradient reduce-scattered; every other gradient
-    and the loss are all-reduced, padded to one element a member."""
+    """The port's fsdp collectives (remat on): each leaf split over the
+    data axis is all-gathered, a layer's again where the backward
+    recomputes the layer (``transformer.LAYER_KEYS``), and its gradient
+    reduce-scattered; every other gradient and the loss are all-reduced,
+    padded to one element a member."""
     n = mesh.n("data")
     held = specs.case_specs(cfg, ShapeSpec("t", "train", SEQ, BATCH), mesh,
                             dryrun.policy_from_name("fsdp"))[2][0]["params"]
@@ -220,9 +235,53 @@ def _fsdp_wire(cfg, mesh, params):
     for k, p in params.items():
         block = _bytes(shard_shape(p.shape, held[k], mesh), p.dtype)
         if "data" in held[k]:
-            out["all-gather"] += (n - 1) * block
+            gathers = 2 if k.startswith(LAYER_KEYS) else 1
+            out["all-gather"] += gathers * (n - 1) * block
             out["reduce-scatter"] += (n - 1) * block
         else:
             out["all-reduce"] += psum(math.prod(p.shape), p.dtype.itemsize)
     out["all-reduce"] += psum(1, 4)
     return out
+
+
+def _alone(cfg, shape, mshape, policy):
+    """``dryrun.analyze`` of one case on its own fake process group."""
+    try:
+        dryrun.bind(math.prod(mshape))
+        return dryrun.analyze(cfg, shape, make_mesh(mshape, ("data",
+                                                             "model")),
+                              policy, "cpu")
+    finally:
+        dryrun.reset_globals()
+        dryrun.release()
+
+
+@pytest.mark.parametrize("remat", [True, False])
+def test_fsdp_layers_peak_below_whole_gather(remat, monkeypatch):
+    cfg, shape = _case("gemma-2b", "train")
+    policy = dataclasses.replace(dryrun.policy_from_name("fsdp"),
+                                 remat=remat)
+    layers = _alone(cfg, shape, (2, 1), policy)
+    monkeypatch.setattr(tsteps, "_make_fsdp_step", workers.whole_gather_step)
+    whole = _alone(cfg, shape, (2, 1), policy)
+    assert layers[0]["argument_bytes"] == whole[0]["argument_bytes"]
+    assert layers[0]["peak_bytes"] < whole[0]["peak_bytes"]
+    assert (layers[2]["reduce-scatter"]["bytes"]
+            == whole[2]["reduce-scatter"]["bytes"])
+
+
+MOE_DATA_CASES = [(m, k) for m in ((2, 1), (2, 2))
+                  for k in ("prefill", "decode")]
+
+
+@pytest.mark.parametrize("mshape,kind", MOE_DATA_CASES,
+                         ids=[f"{m[0]}x{m[1]}-{k}" for m, k in MOE_DATA_CASES])
+def test_moe_serving_on_data_members_gathers_expert_counts(mshape, kind):
+    cfg, shape = _case("qwen2-moe-a2.7b", kind)
+    n_data, n_model = mshape
+    colls = _alone(cfg, shape, mshape, dryrun.policy_from_name("baseline"))[2]
+    tokens = BATCH * SEQ // n_data if kind != "decode" else BATCH // n_data
+    want = _model_wire(cfg, kind, tokens, n_model) if n_model > 1 else {}
+    want["all-gather"] = (want.get("all-gather", 0.0) + cfg.n_layers
+                          * (n_data - 1) * padded_n_experts(cfg) * 4)
+    assert {k: v["bytes"] for k, v in colls.items()} == want

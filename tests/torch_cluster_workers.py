@@ -346,8 +346,9 @@ TP_CONFIGS = {
     "whisper": ("whisper-base", {}),
     "whisper_odd": ("whisper-base", {"vocab_size": 511}),
     "qwen": ("qwen2-moe-a2.7b", {}),
-    # a capacity no choice overflows: the reference's serving step routes
-    # the whole batch as one capacity group, a member its rows
+    # a capacity no choice overflows, beside "qwen" at its own capacity
+    # factor (``MOE_SERVE_CASES``, ``MOE_STEP_CASES``): the split heads,
+    # MLP and caches on (2, 2) without the routing's drops
     "qwen_nodrop": ("qwen2-moe-a2.7b", {"capacity_factor": 2.0}),
     # the mamba and RG-LRU blocks (``tests/test_torch_cluster_tp_recurrent.
     # py``); mamba_part: d_inner 130, so 2 d_inner divides over model 4 and
@@ -402,13 +403,23 @@ TPR_STEP_CASES = tuple(
 # one process's
 TPR_SERVE_CASES = (("mamba", (1, 2)), ("rgemma", (1, 2)))
 TPR_GREEDY = 6
+# MoE over the whole batch (``tests/test_torch_cluster_fsdp.py``): a member
+# routes its rows as its part of the global capacity group where the
+# reference's step is jitted over the mesh with the data split left to XLA:
+# serving on (data 2, model 1 / 2) against the reference's steps on the same
+# mesh, teacher-forced then TPR_GREEDY greedy steps; and the fsdp train step
+# on (data 2) against the reference's (1, 1) step on the whole batch (its
+# pssgd and localsgd steps route a member's rows, as the port's do)
+MOE_SERVE_CASES = (("qwen", (2, 1)), ("qwen", (2, 2)))
+MOE_STEP_CASES = (("qwen_fsdp_d2", "qwen", "fsdp", "none", (2, 1), (1, 1)),)
 
 
 def tp_cases(kind: str) -> tuple:
     """The cases of a ``kind``: "train" and "serve" (the transformer
     block), "rtrain" and "rserve" (the recurrent blocks)."""
     return {"train": TP_STEP_CASES, "serve": TP_SERVE_CASES,
-            "rtrain": TPR_STEP_CASES, "rserve": TPR_SERVE_CASES}[kind]
+            "rtrain": TPR_STEP_CASES, "rserve": TPR_SERVE_CASES,
+            "mtrain": MOE_STEP_CASES, "mserve": MOE_SERVE_CASES}[kind]
 
 
 def tp_cfg(name: str):
@@ -482,10 +493,12 @@ def _gates(params: dict) -> dict:
     return params
 
 
-def _tp_serve(name, mesh, recurrent: bool = False) -> dict:
+def _tp_serve(name, mesh, recurrent: bool = False,
+              greedy: bool = False) -> dict:
     """Prefill, then TP_DECODE teacher-forced decode steps, on this
-    member's blocks: the logits and caches gathered whole; ``recurrent``
-    adds ``_tpr_checks``."""
+    member's blocks and rows: the logits and caches gathered whole;
+    ``greedy`` adds TPR_GREEDY greedy steps from the prefill
+    (``greedy/mesh``, ``greedy/logits``), ``recurrent`` ``_tpr_checks``."""
     from repro_torch import random as trandom
     from repro_torch.launch import serve, sharding, specs, steps
     from repro_torch.models import tp
@@ -504,8 +517,10 @@ def _tp_serve(name, mesh, recurrent: bool = False) -> dict:
            else None)
     res = {}
     with torch.no_grad():
-        logits, pf = steps.make_prefill_step(cfg, mesh=mesh)(params, mine)
-        res["prefill/logits"] = sharding.gather(logits, lsp, mesh).numpy()
+        logits_pf, pf = steps.make_prefill_step(
+            cfg, mesh=mesh, global_batch=TP_B)(params, mine)
+        res["prefill/logits"] = sharding.gather(logits_pf, lsp,
+                                                mesh).numpy()
 
         def cache_specs(length):
             """The held spec of each leaf of a (TP_B, length) cache."""
@@ -520,7 +535,8 @@ def _tp_serve(name, mesh, recurrent: bool = False) -> dict:
                                      model=mesh.n("model"))
         cache = serve._load_prefill(cfg, cache, pf, TP_S)
         first = cache
-        decode = steps.make_decode_step(cfg, circular=False, mesh=mesh)
+        decode = steps.make_decode_step(cfg, circular=False, mesh=mesh,
+                                        global_batch=TP_B)
         states = [pf]
         for i in range(TP_DECODE):
             logits, cache = decode(params, cache, rows[:, i:i + 1], TP_S + i)
@@ -531,44 +547,64 @@ def _tp_serve(name, mesh, recurrent: bool = False) -> dict:
         for k, v in _flat_tree(_tp_gather_tree(cache, d_sp, mesh), "",
                                {}).items():
             res["decode/cache/" + k] = v
+        if greedy:   # from the prefill, the tokens and logits gathered
+            toks, outs = _greedy(cfg, decode, params, logits_pf, first)
+            res["greedy/mesh"] = sharding.gather(toks, lsp[:1] + (None,),
+                                                 mesh).numpy()
+            res["greedy/logits"] = np.stack(
+                [sharding.gather(x, lsp, mesh).numpy() for x in outs])
         if recurrent:
-            res.update(_tpr_checks(cfg, params, held, mine, rows, first,
-                                   states, (pf_sp, d_sp), lsp, mesh))
+            res.update(_tpr_checks(cfg, params, held, mine, rows, states,
+                                   (pf_sp, d_sp), mesh))
     tp.set_model_mesh(None)
     return res
 
 
-def _tpr_checks(cfg, params, held, mine, rows, first, states, sps, lsp,
-                mesh) -> dict:
+def _greedy(cfg, step, params, logits, cache):
+    """TPR_GREEDY greedy decode steps through ``step`` from a prefill's
+    ``logits`` and ``cache``: the tokens and each step's logits."""
+    from repro_torch.models import tp
+    toks, outs = [], []
+    for i in range(TPR_GREEDY):
+        tok = tp.gather_last(logits[:, -1, :], cfg.vocab_size).argmax(
+            dim=-1).to(torch.int32)[:, None]
+        toks.append(tok)
+        logits, cache = step(params, cache, tok, TP_S + i)
+        outs.append(logits)
+    return torch.cat(toks, dim=1), outs
+
+
+def _with_drops(fn, *args) -> dict:
+    """``fn(*args)``'s results and ``drops``: this member's choices past
+    their expert's capacity over every MoE layer it ran."""
+    from repro_torch.models import moe
+    route, drops = moe.route, []
+
+    def counted(*a, **kw):
+        r = route(*a, **kw)
+        drops.append(int(r.overflow.sum()))
+        return r
+    moe.route = counted
+    try:
+        res = fn(*args)
+    finally:
+        moe.route = route
+    res["drops"] = np.int64(sum(drops))
+    return res
+
+
+def _tpr_checks(cfg, params, held, mine, rows, states, sps, mesh) -> dict:
     """Against one process on the member's rows (the params gathered
     whole, no mesh named): the largest difference of each state after the
     prefill and each decode step from this member's block of one
     process's (``state_err/...``); then TPR_GREEDY greedy decode steps
-    from the prefill on both (``greedy/mesh``, ``greedy/one``: the
-    tokens, the mesh's logits gathered whole in ``greedy/logits``)."""
-    from repro_torch.launch import serve, sharding, steps
+    from the prefill (``greedy/one``, the tokens)."""
+    from repro_torch.launch import serve, sharding
     from repro_torch.launch.specs import tree_map
     from repro_torch.models import tp
     from repro_torch.models import transformer as tf
     whole = {k: sharding.gather(v, held[k], mesh) for k, v in params.items()}
-    decode = steps.make_decode_step(cfg, circular=False, mesh=mesh)
-
-    def greedy(step, p, logits, cache):
-        toks, out = [], []
-        for i in range(TPR_GREEDY):
-            whole_logits = tp.gather_last(logits[:, -1, :], cfg.vocab_size)
-            tok = whole_logits.argmax(dim=-1).to(torch.int32)[:, None]
-            toks.append(tok)
-            logits, cache = step(p, cache, tok, TP_S + i)
-            out.append(logits)
-        return torch.cat(toks, dim=1), out
-
     res = {}
-    logits, _ = steps.make_prefill_step(cfg, mesh=mesh)(params, mine)
-    res["greedy/mesh"], out = greedy(decode, params, logits, first)
-    res["greedy/mesh"] = res["greedy/mesh"].numpy()
-    res["greedy/logits"] = np.stack([sharding.gather(x, lsp, mesh).numpy()
-                                     for x in out])
     tp.set_model_mesh(None)
     logits, pf = tf.prefill(whole, cfg, mine["tokens"])
     cache = serve._load_prefill(cfg, tf.init_decode_cache(
@@ -588,8 +624,8 @@ def _tpr_checks(cfg, params, held, mine, rows, first, states, sps, lsp,
             res[f"state_err/{tag}/{k}"] = np.float64(v)
     one_cache = serve._load_prefill(cfg, tf.init_decode_cache(
         cfg, rows.shape[0], TP_T), pf, TP_S)
-    toks, _ = greedy(lambda p, c, t, pos: tf.decode_step(p, cfg, c, t, pos),
-                     whole, logits, one_cache)
+    toks, _ = _greedy(cfg, lambda p, c, t, pos: tf.decode_step(
+        p, cfg, c, t, pos), whole, logits, one_cache)
     res["greedy/one"] = toks.numpy()
     return res
 
@@ -602,7 +638,8 @@ def _tp_step(case, mesh) -> dict:
     from repro_torch.launch import steps as tsteps
     from repro_torch.models import tp
     name, cname, mode, comp, _, _ = next(
-        c for c in TP_STEP_CASES + TPR_STEP_CASES if c[0] == case)
+        c for c in TP_STEP_CASES + TPR_STEP_CASES + MOE_STEP_CASES
+        if c[0] == case)
     cfg = tp_cfg(cname)
     pol = tsteps.TrainPolicy(mode=mode, compression=comp,
                              error_feedback=comp in ("int8", "sign"),
@@ -629,16 +666,21 @@ def tp_members(rank: int, mesh_shape, kinds) -> dict:
     mesh = make_mesh(mesh_shape, ("data", "model"))
     res = {}
     for kind in (kinds,) if isinstance(kinds, str) else kinds:
-        if kind in ("serve", "rserve"):
+        if kind in ("serve", "rserve", "mserve"):
             for name, m in tp_cases(kind):
                 if tuple(m) == tuple(mesh_shape):
-                    for k, v in _tp_serve(name, mesh,
-                                          kind == "rserve").items():
+                    out = (_with_drops(_tp_serve, name, mesh, False, True)
+                           if kind == "mserve" else
+                           _tp_serve(name, mesh, kind == "rserve",
+                                     kind == "rserve"))
+                    for k, v in out.items():
                         res[f"serve/{tp_key(name, m)}/{k}"] = v
             continue
         for case in tp_cases(kind):
             if tuple(case[4]) == tuple(mesh_shape):
-                for k, v in _tp_step(case[0], mesh).items():
+                out = (_with_drops(_tp_step, case[0], mesh)
+                       if kind == "mtrain" else _tp_step(case[0], mesh))
+                for k, v in out.items():
                     res[f"step/{case[0]}/{k}"] = v
     return res
 
@@ -681,3 +723,105 @@ def cli_runs(rank: int, argvs) -> list:
             ttrain.main(list(argv), device="cpu")
         out.append(buf.getvalue())
     return out
+
+
+# fsdp a layer at a time (``tests/test_torch_cluster_fsdp.py``): each
+# family's reduced() config (recurrentgemma-2b with a fourth layer, so that
+# its ``rest`` runs), remat on and off, against the whole-gather step
+FSDP_CONFIGS = {"dense": ("gemma-2b", {}),
+                "ssm": ("falcon-mamba-7b", {}),
+                "hybrid": ("recurrentgemma-2b", {"n_layers": 4}),
+                "vlm": ("llama-3.2-vision-11b", {}),
+                "audio": ("whisper-base", {})}
+FSDP_MESHES = ((2, 1), (2, 2))
+
+
+def fsdp_cfg(name: str):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    arch, kw = FSDP_CONFIGS[name]
+    return dataclasses.replace(get_config(arch).reduced(), **kw)
+
+
+def whole_gather_step(cfg, policy, mesh):
+    """The fsdp step that gathers every leaf whole over the data axes for
+    the step and reduce-scatters the whole gradient tree after it, built
+    from ``launch/steps.py``'s pieces (the step before it held one layer
+    at a time)."""
+    from repro_torch.core.collectives import pmean
+    from repro_torch.launch import sharding
+    from repro_torch.launch import steps as ts
+    from repro_torch.launch.mesh import data_axes
+    from repro_torch.optim.optimizers import apply_updates
+    from repro_torch.optim.schedules import get_schedule
+    ts.set_model_mesh(mesh)
+    dp, dpe = data_axes(mesh), sharding.data_entry(mesh)
+    schedule = get_schedule(cfg.lr_schedule, policy.lr, policy.total_steps)
+    opt_fn = apply_updates(policy.optimizer)
+    dspecs = {k: tuple(a if a == dpe else None for a in sp) for k, sp in
+              ts.held_specs(cfg, policy, mesh)["params"].items()}
+
+    def train_step(state, batch):
+        params = state["params"]
+        full = {k: sharding.gather(p, dspecs[k], mesh)
+                for k, p in params.items()}
+        loss, grads = ts._value_and_grad(
+            cfg, policy, full, ts.local_batch(batch, mesh, divisible=False))
+        del full
+        for k, g in grads.items():
+            grads[k] = (ts._reduce_scatter_mean(g, dspecs[k], mesh, dpe)
+                        if dpe in dspecs[k] and mesh.n(dp) > 1
+                        else pmean(g, mesh, dp))
+        opt = ts._apply(opt_fn, params, grads, state["opt"],
+                        schedule(state["step"]))
+        return (dict(state, opt=opt, step=state["step"] + 1),
+                {"loss": pmean(loss, mesh, dp)})
+    return train_step
+
+
+def fsdp_layers(rank: int, mesh_shape) -> dict:
+    """Every ``FSDP_CONFIGS`` config, one step of ``tp_batches``' first
+    batch on ``mesh_shape`` from the same initial state through
+    ``steps._make_fsdp_step``, remat on and off (``{name}/{remat}/``), and
+    through ``whole_gather_step`` (``{name}/whole/``; remat changes no
+    number): the loss, this member's params and moments after the step,
+    and the bytes the step sent by op."""
+    from repro_torch import random as trandom
+    from repro_torch.core import collectives as coll
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import tp
+    mesh = make_mesh(mesh_shape, ("data", "model"))
+    res = {}
+    for name in FSDP_CONFIGS:
+        cfg = fsdp_cfg(name)
+        batch = {k: torch.as_tensor(v) for k, v in tp_batches(cfg)[0].items()}
+        init = None
+        for key, make, remat in ((f"{name}/1/", tsteps.make_train_step, True),
+                                 (f"{name}/0/", tsteps.make_train_step,
+                                  False),
+                                 (f"{name}/whole/", whole_gather_step,
+                                  False)):
+            pol = tsteps.TrainPolicy(mode="fsdp", **dict(STEP_POLICY,
+                                                          remat=remat))
+            if init is None:
+                init = tsteps.make_init_fn(cfg, pol, mesh)(
+                    trandom.PRNGKey(0))
+                init["params"] = _gates(init["params"])
+            coll.WIRE.reset()
+            state, m = make(cfg, pol, mesh)(tsteps.copy_state(init), batch)
+            res[key + "loss"] = m["loss"].numpy()
+            res.update({key + k: v for k, v in flat_state(state).items()})
+            for op, nbytes in coll.WIRE.bytes.items():
+                res[f"{key}wire/{op}"] = np.int64(nbytes)
+            tp.set_model_mesh(None)
+    return res
+
+
+def fsdp_members(rank: int, mesh_shape) -> dict:
+    """``fsdp_layers`` on this member, and the MoE cases of
+    ``MOE_SERVE_CASES`` / ``MOE_STEP_CASES`` on ``mesh_shape``."""
+    res = {"layers": fsdp_layers(rank, mesh_shape)}
+    res.update(tp_members(rank, mesh_shape, ("mserve", "mtrain")))
+    return res

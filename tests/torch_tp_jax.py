@@ -21,7 +21,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(os.path.dirname(HERE), "src")
 
 
-def start_reference(kind: str, out: str) -> subprocess.Popen:
+def start_reference(kind, out: str) -> subprocess.Popen:
     """Start ``reference(kind, out)`` in a subprocess with 4 CPU devices;
     the port's members may run meanwhile (both sides draw their inputs
     from the same seeds: the reference's unjitted init is the port's bit
@@ -94,7 +94,12 @@ def _serve(name, shape, res, greedy: bool = False):
     cfg = _cfg(name)
     mesh = _mesh(shape)
     key = f"serve/{tp_key(name, shape)}/"
-    jmoe.set_expert_parallel_mesh(mesh if cfg.n_experts else None)
+    # on a model axis of one the expert-parallel ``shard_map`` does not
+    # compile in a step partitioned over data (JAX 0.9: "Cross-partition
+    # allreduce must be in (partial) manual partitioning mode"); the
+    # auto-partitioned ``moe_forward`` computes the same function
+    jmoe.set_expert_parallel_mesh(mesh if cfg.n_experts and shape[1] > 1
+                                  else None)
     # the unjitted init outside the mesh's context, as in ``_step``
     params = _gates(jtf.init_params(cfg, jax.random.PRNGKey(1)))
     with mesh:
@@ -169,16 +174,18 @@ def _step(case, res):
                     for k, v in final.items()})
 
 
-def reference(kind: str, out: str) -> None:
-    """Every ``kind`` case's reference outputs (``torch_cluster_workers.
-    tp_cases``), keyed as the port's members key theirs (``tp_members``)."""
+def reference(kinds, out: str) -> None:
+    """Every case's reference outputs of a kind of ``torch_cluster_workers.
+    tp_cases`` (or of each of a tuple of kinds), keyed as the port's
+    members key theirs (``tp_members``)."""
     from torch_cluster_workers import tp_cases
     res = {}
-    if kind in ("serve", "rserve"):
-        for name, shape in tp_cases(kind):
-            _serve(name, shape, res, greedy=kind == "rserve")
-    else:   # a case whose computation an earlier one made is copied
-        done = {}
+    for kind in (kinds,) if isinstance(kinds, str) else kinds:
+        if kind in ("serve", "rserve", "mserve"):
+            for name, shape in tp_cases(kind):
+                _serve(name, shape, res, greedy=kind != "serve")
+            continue
+        done = {}   # a case whose computation an earlier one made is copied
         for case in tp_cases(kind):
             same = done.setdefault(case[1:4] + case[5:], case[0])
             if same == case[0]:
