@@ -287,7 +287,12 @@ Phases (any failure exits non-zero):
    one process: loss a step, gathered params, greedy tokens and logits
    within TP_WIDE_*; the members' whole leaves bitwise alike; per member s
    a step, step-only peak, bytes held, wire a step by kind, ms a decode
-   step; (h) (g)'s run for the mamba and RG-LRU blocks split over model
+   step; then the prompt served into a ring of d_inner = 4096 positions,
+   which the cache rule splits over model (its one kv head does not
+   divide): 8 greedy steps, then TP_WIDE_RING past position 4096, against
+   one process holding the ring whole: tokens equal, logits within
+   TP_WIDE_LOGITS_L2, a member's cache half of one process's; (h) (g)'s
+   run for the mamba and RG-LRU blocks split over model
    (their channels and recurrent states): falcon-mamba-7b at its published
    widths, depth 64 -> 2, and recurrentgemma-2b, depth 26 -> 3 (one
    pattern period; its attention's 10 q heads split, its 1 kv head stays
@@ -327,8 +332,13 @@ Phases (any failure exits non-zero):
    (fsdp) on 256x1, its peak at most LLAMA_PEAK_LIMIT_GB, printed beside
    the whole-gather step's 1 848.7 GB and the prediction (traced from
    phase 17 on: minutes of CPU each; the other cases from phase 20 on),
-   qwen2-moe-a2.7b ok in all four shapes on (16, 16); every kernel counter
-   0 in each case's own process (each record's
+   qwen2-moe-a2.7b ok in all four shapes on (16, 16), llama3-405b
+   decode_32k and llama-3.2-vision-11b long_500k ok on (16, 16) (traced
+   from phase 17 on too), a member's decode cache (its argument bytes less
+   its params and token) equal to the reference's block, its positions
+   split over model, printed beside the figure of the port that held it
+   whole over model; every kernel counter 0 in each case's own process
+   (each record's
    ``kernel_launches``; their sum is ``dryrun_launches`` in the kernels
    line).
 
@@ -610,6 +620,11 @@ MOE_WIDE_DEPTH, MOE_WIDE_B, MOE_WIDE_SEQ, MOE_SERVE_DEPTH = 1, 4, 128, 2
 # H100 80GB HBM3 at 700 W (loss 9.83e-08 relative, params and logits
 # 1.8e-06 relative L2; PERF.md section 6)
 TP_WIDE_PROMPT, TP_WIDE_GEN = (4, 128), 8
+# then the same prompt served into a ring of d_inner = 4096 positions, which
+# the cache rule splits over model (gemma-2b's one kv head does not
+# divide): TP_WIDE_GEN greedy steps, then TP_WIDE_RING at positions past
+# 4096, against one process holding the ring whole
+TP_WIDE_RING = 3
 TP_WIDE_LOSS_RTOL, TP_WIDE_PARAMS_L2, TP_WIDE_LOGITS_L2 = 1e-6, 2e-5, 2e-5
 # (h) (g)'s run for the mamba and RG-LRU blocks at their published widths:
 # falcon-mamba-7b (arXiv:2410.05355) depth 64 -> 2, recurrentgemma-2b
@@ -657,6 +672,10 @@ DRYRUN_CASES = (
     ("c 16x16 rgemma", ["--arch", "recurrentgemma-2b", "--shape",
                         "train_4k"], 0),
     ("c 16x16 qwen", ["--arch", "qwen2-moe-a2.7b"], 0),
+    ("c 16x16 llama decode", ["--arch", "llama3-405b", "--shape",
+                              "decode_32k"], 0),
+    ("c 16x16 vlm long", ["--arch", "llama-3.2-vision-11b", "--shape",
+                          "long_500k"], 0),
     ("g", ["--arch", "gemma-2b", "--batch", str(GEMMA_WIDE_B), "--seq-len",
            str(GEMMA_WIDE_SEQ), "--policy", "baseline", "--dtype", "float32",
            "--depth", str(GEMMA_WIDE_DEPTH), "--mesh-shape", "1x2"], 0)) + tuple(
@@ -666,11 +685,19 @@ DRYRUN_CASES = (
     for name, arch, depth in TP_RECURRENT)
 # the dry-run's cases compute nothing on the card and need no measurement
 # to run (phase 21 compares their records afterwards), so they run beside
-# other phases: the two production traces that take minutes of CPU from
-# phase 17 on (beside GPU-bound work), the rest from phase 20 on
-DRYRUN_EARLY = ("c 16x16 falcon", "c 16x16 rgemma", "c 256x1 llama")
+# other phases: the production traces that take a minute or more of CPU
+# from phase 17 on (beside GPU-bound work), the rest from phase 20 on
+DRYRUN_EARLY = ("c 16x16 falcon", "c 16x16 rgemma", "c 256x1 llama",
+                "c 16x16 llama decode", "c 16x16 vlm long")
 DRYRUN_PROCS: dict = {}
 DRYRUN_PEAK_RTOL = 0.10
+# (c): the decode caches the cache rule splits over their positions on
+# (16, 16), and a member's bytes of each (every leaf; the vlm's cross
+# caches, 52 461 568 B, are whole before and after) when the port held the
+# split leaves whole over model (the dry-run's records then, PERF.md):
+# (arch, shape, bytes)
+DRYRUN_SEQ_SPLIT = (("llama3-405b", "decode_32k", 135291469824),
+                    ("llama-3.2-vision-11b", "long_500k", 1126203392))
 # what phases 17(b), 20(c), 20(d) and 20(g) measured, for phase 21
 MEASURED: dict = {}
 ROWS_SRC = "src/repro_torch/kernels/csrc/rows.cu"
@@ -3779,14 +3806,21 @@ def _cluster_gemma(rank: int, dev) -> dict:
     return out
 
 
-def _tp_serve(cfg, params, mesh, dev) -> dict:
+def _tp_serve(cfg, params, mesh, dev, ring: int = 0) -> dict:
     """A (4, 128) prompt and TP_WIDE_GEN greedy decode steps on ``mesh``
     (this member's blocks of ``params``): the tokens, each step's logits
-    gathered whole (on the host), and ms a decode step."""
+    gathered whole (on the host), ms a decode step and the bytes of the
+    member's decode cache. ``ring``: a cache of that many positions
+    decoded as a ring, and TP_WIDE_RING greedy steps more at positions
+    past its end (the ring wraps)."""
     from repro_torch.launch import serve
     from repro_torch.launch import steps as tsteps
+    from repro_torch.launch.specs import state_bytes
     from repro_torch.models import tp, transformer as tf
     b, s_ = TP_WIDE_PROMPT
+    t = ring or s_ + TP_WIDE_GEN
+    at = [s_ + i for i in range(TP_WIDE_GEN)] + [
+        ring + i for i in range(TP_WIDE_RING if ring else 0)]
     prompt = torch.as_tensor(np.random.default_rng(3).integers(
         0, cfg.vocab_size, (b, s_)), dtype=torch.int32, device=dev)
     out = dict(tokens=[], logits=[], decode_ms=[])
@@ -3794,20 +3828,22 @@ def _tp_serve(cfg, params, mesh, dev) -> dict:
         logits, pf = tsteps.make_prefill_step(cfg, mesh=mesh)(
             params, {"tokens": prompt})
         cache = serve._load_prefill(cfg, tf.init_decode_cache(
-            cfg, b, s_ + TP_WIDE_GEN, device=dev, model=mesh.n("model")),
-            pf, s_)
+            cfg, b, t, device=dev, mesh=mesh), pf, s_, mesh=mesh,
+            cache_len=t)
+        out["cache_bytes"] = state_bytes(cache)
         del pf
-        decode = tsteps.make_decode_step(cfg, circular=False, mesh=mesh)
-        for i in range(TP_WIDE_GEN + 1):
+        decode = tsteps.make_decode_step(cfg, circular=bool(ring),
+                                         mesh=mesh, cache_len=t)
+        for i in range(len(at) + 1):
             full = tp.gather_last(logits, cfg.vocab_size)
             token = full[:, -1, :].argmax(dim=-1).to(torch.int32)[:, None]
             out["tokens"].append(token.cpu())
             out["logits"].append(full.cpu())
-            if i == TP_WIDE_GEN:
+            if i == len(at):
                 break
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            logits, cache = decode(params, cache, token, s_ + i)
+            logits, cache = decode(params, cache, token, at[i])
             torch.cuda.synchronize()
             out["decode_ms"].append((time.perf_counter() - t0) * 1e3)
     tp.set_model_mesh(None)
@@ -3815,9 +3851,10 @@ def _tp_serve(cfg, params, mesh, dev) -> dict:
 
 
 def _tp_train(cfg, pol, mesh, dev, rank: int, world: int,
-              serve: bool = True) -> dict:
+              serve: bool = True, ring: int = 0) -> dict:
     """(g)'s run on ``mesh``: the init (in turns over ``world`` members),
-    the serving of ``_tp_serve`` (with ``serve``), then GEMMA_WIDE_STEPS
+    the serving of ``_tp_serve`` (with ``serve``; with ``ring`` too into a
+    ring of that many positions), then GEMMA_WIDE_STEPS
     train steps, each timed (wall clock and CUDA events), with its
     step-only peak, the state and batch held and the wire by kind; returns
     the state too."""
@@ -3834,6 +3871,9 @@ def _tp_train(cfg, pol, mesh, dev, rank: int, world: int,
                held=[], wire=[], loss=[])
     if serve:
         out["serve"] = _tp_serve(cfg, state["params"], mesh, dev)
+        torch.cuda.empty_cache()
+    if ring:
+        out["serve_ring"] = _tp_serve(cfg, state["params"], mesh, dev, ring)
         torch.cuda.empty_cache()
     step = tsteps.make_train_step(cfg, pol, mesh)
     coll.WIRE.record_calls()
@@ -3863,12 +3903,14 @@ def _tp_train(cfg, pol, mesh, dev, rank: int, world: int,
 
 
 def _cluster_tp(rank: int, dev, arch: str = "gemma-2b",
-                depth: int = GEMMA_WIDE_DEPTH) -> dict:
+                depth: int = GEMMA_WIDE_DEPTH, ring: bool = False) -> dict:
     """(g), (h): ``arch`` at its published widths, ``depth`` layers,
     float32, pssgd none, every leaf the rules split held in blocks over
     model on (data 1, model 2); member 0 first runs the same on (1, 1)
     alone (the other waits), and holds the members' losses, served tokens
-    and logits and gathered params against it."""
+    and logits and gathered params against it. ``ring``: also served into
+    a ring of ``d_inner`` positions, which the cache rule splits over
+    model where the kv heads do not divide."""
     import dataclasses
     import torch.distributed as dist
     from repro_torch.configs import get_config
@@ -3883,13 +3925,15 @@ def _cluster_tp(rank: int, dev, arch: str = "gemma-2b",
     one = None
     if rank == 0:
         one, state = _tp_train(cfg, pol, Mesh((1, 1), ("data", "model"),
-                                                bind=False), dev, 0, 1)
+                                                bind=False), dev, 0, 1,
+                               ring=cfg.d_inner if ring else 0)
         one["params"] = {k: v.cpu() for k, v in state["params"].items()}
         del state
         torch.cuda.empty_cache()
     dist.barrier()
     mesh = make_local_mesh(1, 2)
-    out, state = _tp_train(cfg, pol, mesh, dev, rank, 2)
+    out, state = _tp_train(cfg, pol, mesh, dev, rank, 2,
+                           ring=cfg.d_inner if ring else 0)
     specs = tsteps.held_specs(cfg, pol, mesh)["params"]
     split = {k for k, sp in specs.items() if "model" in sp}
     out["split"] = sorted(split)
@@ -4223,7 +4267,7 @@ def _members_two(rank: int, device: str) -> dict:
     out = {}
     parts = (("c", lambda: _cluster_trainer(rank, dev, CLUSTER_TRAIN_TWO)),
              ("d", lambda: _cluster_gemma(rank, dev)),
-             ("g", lambda: _cluster_tp(rank, dev))) + tuple(
+             ("g", lambda: _cluster_tp(rank, dev, ring=True))) + tuple(
         (name, functools.partial(_cluster_tp, rank, dev, arch, depth))
         for name, arch, depth in TP_RECURRENT) + (
         ("i", lambda: _cluster_fsdp(rank, dev)),
@@ -4402,14 +4446,7 @@ def _check_tp(b: list, smi: str, key: str, arch: str, depth: int,
             f"on {smi}")
     loss_err = max(abs(a - c) / abs(c) for m in g
                    for a, c in zip(m["loss"], one["loss"]))
-    tok_same = all(torch.equal(torch.cat(m["serve"]["tokens"], 1),
-                               torch.cat(one["serve"]["tokens"], 1))
-                   for m in g)
-    lg_err = max(float((a.double() - c.double()).norm() / c.double().norm())
-                 for m in g for a, c in zip(m["serve"]["logits"],
-                                            one["serve"]["logits"]))
-    gaps = [float(torch.topk(c[:, -1], 2).values.diff(dim=-1).abs().min())
-            for c in one["serve"]["logits"]]
+    tok_same, lg_err, gaps = _served_vs_one(g, one, "serve")
     alike = g[0]["digest"] == g[1]["digest"]
     log(f"cluster ({key}) (1, 2) against (1, 1): loss max rel diff "
         f"{loss_err:.3g} (limit {TP_WIDE_LOSS_RTOL}); gathered params "
@@ -4426,6 +4463,47 @@ def _check_tp(b: list, smi: str, key: str, arch: str, depth: int,
             and all(np.isfinite(m["loss"]).all() for m in g)):
         raise AssertionError(f"cluster ({key}): the (1, 2) run against "
                              f"(1, 1)")
+    if "serve_ring" in one:
+        _check_tp_ring(g, one, smi, key, arch)
+
+
+def _served_vs_one(g: list, one: dict, serve: str) -> tuple:
+    """The members' served tokens and logits of ``serve`` against one
+    process's: (tokens equal, the largest relative L2 of a step's logits,
+    one process's smallest top-2 logit gap a step)."""
+    tok_same = all(torch.equal(torch.cat(m[serve]["tokens"], 1),
+                               torch.cat(one[serve]["tokens"], 1))
+                   for m in g)
+    lg_err = max(float((a.double() - c.double()).norm() / c.double().norm())
+                 for m in g for a, c in zip(m[serve]["logits"],
+                                            one[serve]["logits"]))
+    gaps = [float(torch.topk(c[:, -1], 2).values.diff(dim=-1).abs().min())
+            for c in one[serve]["logits"]]
+    return tok_same, lg_err, gaps
+
+
+def _check_tp_ring(g: list, one: dict, smi: str, key: str, arch: str
+                   ) -> None:
+    """(g)'s serving into a ring of ``d_inner`` positions, split over
+    model on (1, 2), against one process holding it whole: tokens equal,
+    logits within (g)'s tolerance, a member's cache half of one
+    process's."""
+    tok_same, lg_err, gaps = _served_vs_one(g, one, "serve_ring")
+    cache = [m["serve_ring"]["cache_bytes"] for m in g]
+    whole = one["serve_ring"]["cache_bytes"]
+    dec = [np.median(m["serve_ring"]["decode_ms"]) for m in [one] + g]
+    log(f"cluster ({key}) {arch}: {TP_WIDE_PROMPT} prompt, "
+        f"{TP_WIDE_GEN} greedy steps then {TP_WIDE_RING} past the end of a "
+        f"ring of d_inner positions, the members' caches split over their "
+        f"positions: greedy tokens equal {tok_same} (smallest top-2 logit "
+        f"gap a step {min(gaps):.3g}); logits relative L2 max {lg_err:.3g} "
+        f"(limit {TP_WIDE_LOGITS_L2}); cache B a member {cache} against one "
+        f"process's {whole}; ms a decode step median (one process, "
+        f"members) {[round(float(x), 3) for x in dec]} on {smi}")
+    if not (tok_same and lg_err <= TP_WIDE_LOGITS_L2
+            and all(2 * c == whole for c in cache)):
+        raise AssertionError(f"cluster ({key}): the ring split over model "
+                             f"against (1, 1)")
 
 
 def _check_fsdp(b: list, smi: str) -> None:
@@ -4538,15 +4616,18 @@ def start_dryrun(dev, names=None) -> None:
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [os.path.join(ROOT, "src")] + [p for p in [os.environ.get(
             "PYTHONPATH")] if p]))
+    # the traces take the host's spare cores: the phases they run beside
+    # keep theirs
+    nice = ["nice", "-n", "10"] if shutil.which("nice") else []
     for name, argv, _ in DRYRUN_CASES:
         if name in DRYRUN_PROCS or (names is not None and name not in names):
             continue
         logf = open(os.path.join(DRYRUN_DIR,
                                  f"{name.replace(' ', '_')}.log"), "w")
         DRYRUN_PROCS[name] = (subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", *argv,
-             "--device", dev.type, "--out", DRYRUN_DIR], cwd=ROOT, env=env,
-            stdout=logf, stderr=subprocess.STDOUT), logf)
+            nice + [sys.executable, "-m", "repro_torch.launch.dryrun", *argv,
+                    "--device", dev.type, "--out", DRYRUN_DIR], cwd=ROOT,
+            env=env, stdout=logf, stderr=subprocess.STDOUT), logf)
 
 
 def stop_dryrun() -> None:
@@ -4717,12 +4798,52 @@ def run_dryrun(dev, smi: str) -> dict:
             f"traced in {r['trace_s']} s, {r['ops']} ops")
     if not all(r["status"] == "ok" for r in sample):
         raise AssertionError("dryrun (c): the table's sample")
+    for arch, shape, whole in DRYRUN_SEQ_SPLIT:
+        r = _dryrun_record(recs, arch, shape, "16x16")
+        held, block = _seq_split_cache(arch, shape, r)
+        log(f"dryrun (c) {arch} {shape} on 16x16: {r['status']}; a member's "
+            f"decode cache {held} B (the arguments less its params and "
+            f"token blocks), the reference's block {block} B, held whole "
+            f"over model before {whole} B; argument {r['memory']['argument_bytes']} B, peak "
+            f"{r['memory']['peak_bytes']} B, wire {wire(r)} B "
+            f"{ {k: int(v['bytes']) for k, v in r['collectives'].items()} }, "
+            f"traced in {r['trace_s']} s")
+        if not (r["status"] == "ok" and held == block < whole):
+            raise AssertionError(f"dryrun (c): {arch} {shape}'s cache")
     log(f"dryrun kernel launches summed over the {len(recs)} cases' "
         f"records: {total}")
     if any(total.values()):
         raise AssertionError("dryrun: kernels launched " + str(
             {k: r["kernel_launches"] for k, r in recs.items()}))
     return total
+
+
+def _seq_split_cache(arch: str, shape: str, rec: dict) -> tuple:
+    """(a member's decode-cache bytes in the dry-run's record ``rec``: its
+    argument bytes less the member's blocks of the params and the token;
+    the bytes of the reference's block of the cache under its cache rule),
+    on (16, 16)."""
+    import math
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import sharding as shard_rules
+    from repro_torch.launch import specs
+    from repro_torch.launch.dryrun import policy_from_name
+    from repro_torch.launch.mesh import make_production_mesh
+    mesh = make_production_mesh()
+    cfg, shp = get_config(arch), SHAPES[shape]
+    glob, sp, held = specs.case_specs(cfg, shp, mesh,
+                                      policy_from_name(rec["policy"]))
+    sizes = []
+
+    def add(x, spec):
+        if torch.is_tensor(x):
+            sizes.append(math.prod(shard_rules.shard_shape(
+                x.shape, spec, mesh)) * x.element_size())
+    specs.tree_map(add, glob[1], sp[1])
+    block = sum(sizes)
+    sizes.clear()
+    specs.tree_map(add, (glob[0], glob[2]), (held[0], held[2]))
+    return rec["memory"]["argument_bytes"] - sum(sizes), block
 
 
 def _check_trainer(res: list, key: str, cases) -> None:

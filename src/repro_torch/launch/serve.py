@@ -104,15 +104,31 @@ def _prefix(dst: torch.Tensor, src: torch.Tensor, n: int, dim: int
     return out
 
 
-def _load_prefill(cfg, cache, pf_cache, prompt_len: int):
+def _load_prefill(cfg, cache, pf_cache, prompt_len: int, *, mesh=None,
+                  cache_len=None):
     """Copy prefill kv/state into the decode cache layout. As the
     reference's: an attention cache takes the first ``prompt_len``
     positions (the dense branch assumes ``prompt_len`` fits), and hybrid's
     ring of ``w`` slots the first ``w`` (right only for prompts within the
-    window)."""
+    window). Where ``cache`` holds a member's block of the positions of
+    attention caches of ``cache_len`` (``make_decode_step``), its block on
+    ``mesh`` takes the prompt's positions that fall inside it."""
     fam = cfg.family
+
+    def pre(dst, src, n, dim):
+        t = dst.shape[dim]
+        if cache_len is None or t == cache_len:
+            return _prefix(dst, src, n, dim)
+        if n > cache_len:
+            raise ValueError(f"{n} prompt positions in a cache of "
+                             f"{cache_len}")
+        lo = mesh.index("model") * t    # this member's first position
+        m = min(n, lo + t) - lo
+        return (_prefix(dst, src.narrow(dim, lo, m), m, dim) if m > 0
+                else dst.clone())
+
     if fam in ("dense", "moe"):
-        return {k: _prefix(cache[k], pf_cache[k], prompt_len, 2)
+        return {k: pre(cache[k], pf_cache[k], prompt_len, 2)
                 for k in ("k", "v")}
     if fam == "ssm":
         return {"conv": pf_cache["conv"].to(cache["conv"].dtype),
@@ -121,8 +137,8 @@ def _load_prefill(cfg, cache, pf_cache, prompt_len: int):
         sup = dict(cache["super"])
         for key, val in pf_cache["super"].items():
             if key.endswith("_k") or key.endswith("_v"):
-                n = min(val.shape[2], sup[key].shape[2])
-                sup[key] = _prefix(sup[key], val, n, 2)
+                n = min(val.shape[2], cache_len or sup[key].shape[2])
+                sup[key] = pre(sup[key], val, n, 2)
             else:
                 sup[key] = val.to(sup[key].dtype)
         rest = []
@@ -130,13 +146,13 @@ def _load_prefill(cfg, cache, pf_cache, prompt_len: int):
             if isinstance(p_l, tuple) and p_l[0].ndim == 3:  # rglru state
                 rest.append((p_l[0].to(c_l[0].dtype), p_l[1]))
             else:
-                rest.append(tuple(_prefix(c, p, prompt_len, 1)
+                rest.append(tuple(pre(c, p, prompt_len, 1)
                                   for c, p in zip(c_l, p_l)))
         return {"super": sup, "rest": rest}
     if fam in ("vlm", "audio"):
         dim = 3 if fam == "vlm" else 2
-        return dict(cache, **{k: _prefix(cache[k], pf_cache[k], prompt_len,
-                                         dim) for k in ("k", "v")},
+        return dict(cache, **{k: pre(cache[k], pf_cache[k], prompt_len, dim)
+                              for k in ("k", "v")},
                     cross_k=pf_cache["cross_k"], cross_v=pf_cache["cross_v"])
     raise ValueError(fam)
 

@@ -13,11 +13,10 @@ moments, step and EF from ``steps.full_state``, the batch from
 member's block is ``sharding.shard_shape`` of its global leaf under the
 spec the member holds it by. ``specs`` holds the reference-layout spec of
 every leaf, in the structure of ``args``; the held spec is the same (mamba's
-``in_proj`` by halves, ``sharding.held_spec``) but, in a cache, where the
-rule puts ``model`` on another dim than the kv heads' or the recurrent
-channels' (``held_cache_specs``): the member holds that leaf whole. A
-``pos`` is a Python int, as ``transformer.decode_step`` takes it, with
-spec ``()``.
+``in_proj`` by halves, ``sharding.held_spec``), a cache's too
+(``held_cache_specs``: ``model`` on its kv heads, recurrent channels or
+positions, as the rule finds them). A ``pos`` is a Python int, as
+``transformer.decode_step`` takes it, with spec ``()``.
 
 A train step is handed the global batch and cuts its rows itself
 (``steps.local_batch``), as ``run_cluster`` hands it to every member; the
@@ -89,35 +88,13 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
-def cache_split_dims(cfg: ModelConfig, cache):
-    """The dim (from the end) of each leaf of a decode cache that a
-    member's block cuts over ``model``: an attention cache's kv heads
-    (-2), a recurrent state's channels (the conv's last dim, mamba's
-    ``ssm`` ``d_inner``, RG-LRU's ``h`` last dim)."""
-    if cfg.family == "ssm":
-        return {"conv": -1, "ssm": -2}
-    if cfg.family == "hybrid":
-        pat = cfg.block_pattern
-        return {"super": {k: -2 if k.endswith(("_k", "_v")) else -1
-                          for k in cache["super"]},
-                "rest": [(-1, -1) if pat[j] == "rglru" else (-2, -2)
-                         for j in range(len(cache["rest"]))]}
-    return tree_map(lambda x: -2, cache)
-
-
 def held_cache_specs(cfg: ModelConfig, cache, mesh: Mesh, batch: int):
-    """(the reference's spec, the held spec) of every leaf of ``cache``,
-    a decode cache of ``batch`` rows. A member holds a leaf by the
-    reference's spec where it puts ``model`` on the leaf's kv heads or
-    channels (``cache_split_dims``), and whole over ``model`` elsewhere
-    (the rule finds the dim by its size, and may pick the sequence dim
-    where the kv heads do not divide)."""
-    ref = shard_rules.cache_shardings(cfg, cache, mesh, batch)
-
-    def held(x, spec, dim):
-        return tuple(None if a == "model" and i != len(spec) + dim else a
-                     for i, a in enumerate(spec))
-    return ref, tree_map(held, cache, ref, cache_split_dims(cfg, cache))
+    """The spec a member holds each leaf of ``cache``, a decode cache of
+    ``batch`` rows, by: the reference's (``sharding.cache_shardings``),
+    ``model`` on the kv heads, the recurrent channels or the positions,
+    wherever the rule puts it (``transformer.init_decode_cache`` on a mesh
+    makes these blocks, the attention reads a block of the positions)."""
+    return shard_rules.cache_shardings(cfg, cache, mesh, batch)
 
 
 def _train_inputs(cfg, shape, mesh, policy):
@@ -149,13 +126,12 @@ def _prefill_inputs(cfg, shape, mesh):
 def _decode_inputs(cfg, shape, mesh):
     params, params_sh, params_held = _params_inputs(cfg, mesh)
     d = decode_specs(cfg, shape)
-    cache_sh, cache_held = held_cache_specs(cfg, d["cache"], mesh,
-                                            shape.global_batch)
+    cache_sh = held_cache_specs(cfg, d["cache"], mesh, shape.global_batch)
     tok_sh = shard_rules.batch_shardings({"token": d["token"]},
                                          mesh)["token"]
     return ((params, d["cache"], d["token"], d["pos"]),
             (params_sh, cache_sh, tok_sh, ()),
-            (params_held, cache_held, tok_sh, ()))
+            (params_held, cache_sh, tok_sh, ()))
 
 
 def case_specs(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh,
@@ -206,11 +182,12 @@ def prefill_case(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh,
 def decode_case(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh,
                 fake: FakeTensorMode = None, device="cuda"):
     """(decode_step, (params, cache, token, pos), their specs)."""
+    inputs = _decode_inputs(cfg, shape, mesh)
     step_fn = steps_mod.make_decode_step(
         cfg, circular=shape.sliding_window_decode, mesh=mesh,
-        global_batch=shape.global_batch)
-    return _case(mesh, step_fn, _decode_inputs(cfg, shape, mesh), fake,
-                 device)
+        global_batch=shape.global_batch,
+        cache_len=tf.attention_cache_len(inputs[0][1]))
+    return _case(mesh, step_fn, inputs, fake, device)
 
 
 def build_case(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh,

@@ -614,14 +614,24 @@ def make_prefill_step(cfg: ModelConfig, q_chunk: int = 1024, mesh=None,
 
 
 def make_decode_step(cfg: ModelConfig, *, circular: bool, mesh=None,
-                     global_batch=None):
+                     global_batch=None, cache_len=None):
     """(params, cache, token, pos) -> (logits, new cache); ``pos`` a Python
     int. On ``mesh``, a member's blocks and rows, as
-    ``make_prefill_step``."""
+    ``make_prefill_step``, and its block of the cache
+    (``transformer.init_decode_cache`` on the mesh). ``cache_len``, the
+    positions of the whole self-attention caches, tells the attention
+    whether a member holds all of them or its block (where the cache rule
+    puts ``model`` on them); a ``model`` axis of several members needs
+    it wherever the config has attention caches."""
+    if (cache_len is None and cfg.family != "ssm" and mesh is not None
+            and "model" in mesh.axis_names and mesh.n("model") > 1):
+        raise ValueError(f"a decode step on the mesh {mesh.shape} needs "
+                         "cache_len: a member's block of a cache does not "
+                         "say whether it holds all of its positions")
     _serving_mesh(mesh, global_batch)
 
     def decode_step(params, cache, token, pos):
         with _routing(mesh, global_batch or token.shape[0]):
             return tf.decode_step(params, cfg, cache, token, pos,
-                                  circular=circular)
+                                  circular=circular, cache_len=cache_len)
     return decode_step

@@ -17,7 +17,11 @@ n_kv_heads)``: where the q heads split and the kv heads do not, each
 member takes the kv heads of its own q heads (``local_kv``), whole groups
 or, where its q heads cut a group, one kv head a q head; and the whole
 ``wk`` / ``wv`` enter through ``tp.copy_to``, since their gradient on a
-member comes from its q heads only.
+member comes from its q heads only. Where the cache rule puts ``model`` on
+a decode cache's positions (``launch/sharding.py::cache_shardings``: the
+kv heads do not divide and T equals a split feature width), a member holds
+its block of the positions and attends over it for every q head, the
+softmax reduced over ``model`` (``_attend_block``).
 """
 from __future__ import annotations
 
@@ -192,7 +196,8 @@ def decode_self_attention(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
                           cache_v: torch.Tensor, pos: int, *, n_heads: int,
                           n_kv_heads: int, head_dim: int, use_rope: bool,
                           rope_theta: float, circular: bool = False,
-                          softcap: float = 0.0):
+                          softcap: float = 0.0,
+                          cache_len: Optional[int] = None):
     """One decode step. x: (B,1,d); cache_{k,v}: (B,T,K,hd); pos: the new
     token's absolute position, a Python int (so that a step makes no
     device-to-host copy).
@@ -202,27 +207,40 @@ def decode_self_attention(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
     position, so attention is order-invariant over slots. The new (k, v)
     goes to slot ``pos % T`` (circular) or ``min(pos, T - 1)`` of a copy of
     the cache. Returns (out (B,1,d), (cache_k, cache_v)).
+
+    ``cache_len``: the whole cache's T where it is longer than this
+    member's: the member holds positions ``[r T / m, (r + 1) T / m)`` of
+    it (``_attend_block``); None or the member's T: the whole cache.
     """
     pos = int(pos)
     b, t = x.shape[0], cache_k.shape[1]
+    total = t if cache_len is None else int(cache_len)
+    if total != t and t * tp.n() != total:
+        raise ValueError(f"a block of {t} positions of a cache of {total} "
+                         f"over {tp.n()} members")
+    lo = tp.index() * t if total != t else 0
     x = enter(p, x, n_heads, head_dim)
     q = project_q(p, x, n_heads, head_dim)
     k_new, v_new = project_kv(p, x, n_kv_heads, head_dim, n_heads)
-    if use_rope:
+    if use_rope:    # the frequencies the reference's decode step folds
         pos_arr = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
-        q = apply_rope(q, pos_arr, rope_theta)
-        k_new = apply_rope(k_new, pos_arr, rope_theta)
+        q = apply_rope(q, pos_arr, rope_theta, folded=True)
+        k_new = apply_rope(k_new, pos_arr, rope_theta, folded=True)
 
-    slot = pos % t if circular else min(pos, t - 1)
+    slot = pos % total if circular else min(pos, total - 1)
     cache_k, cache_v = cache_k.clone(), cache_v.clone()
-    cache_k[:, slot] = k_new[:, 0].to(cache_k.dtype)
-    cache_v[:, slot] = v_new[:, 0].to(cache_v.dtype)
+    if lo <= slot < lo + t:     # the member whose block holds the slot
+        cache_k[:, slot - lo] = k_new[:, 0].to(cache_k.dtype)
+        cache_v[:, slot - lo] = v_new[:, 0].to(cache_v.dtype)
 
-    slots = torch.arange(t, device=x.device)
+    slots = lo + torch.arange(t, device=x.device)
     # slot j holds a valid key iff the ring has wrapped or j <= pos
-    k_valid = (slots <= pos) | (circular and pos >= t)
+    k_valid = (slots <= pos) | (circular and pos >= total)
 
     hq = q.shape[2]
+    if total != t:
+        out = _attend_block(q, cache_k, cache_v, k_valid, n_heads, softcap)
+        return project_out(p, out, n_heads), (cache_k, cache_v)
     ka, va = local_kv(cache_k, cache_v, hq, n_heads, n_kv_heads)
     hk = ka.shape[2]
     qg = q.reshape(b, 1, hk, hq // hk, head_dim)
@@ -236,6 +254,42 @@ def decode_self_attention(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
     out = torch.einsum("bkgct,btkh->bckgh", probs, va)
     out = project_out(p, out.reshape(b, 1, hq, head_dim), n_heads)
     return out, (cache_k, cache_v)
+
+
+def _attend_block(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                  k_valid: torch.Tensor, n_heads: int,
+                  softcap: float) -> torch.Tensor:
+    """Decode attention over this member's block of a cache's positions
+    (ck, cv: (B, T/m, K, hd), every kv head; k_valid: (T/m,)) for its q
+    heads q: (B, 1, hq, hd). Every member scores all ``n_heads`` q heads
+    (q gathered over ``model`` where it holds a block of them) against its
+    positions; the softmax's shift is the max over ``model`` of the
+    members' maxima, its sum of exps and the partial ``probs @ V``
+    (float32) are summed over ``model``, as ``transformer._split_lse_gold``
+    reduces the cross-entropy. A member whose positions are all past
+    ``pos`` adds exact zeros: exp(NEG_INF - shift) is 0. Returns this
+    member's q heads' rows, (B, 1, hq, hd)."""
+    b, _, hq, hd = q.shape
+    if hq != n_heads:
+        q = tp.gather_from(q.reshape(b, 1, hq * hd)).reshape(b, 1, n_heads,
+                                                              hd)
+    k = ck.shape[2]
+    qg = q.reshape(b, 1, k, n_heads // k, hd)
+    scores = torch.einsum("bckgh,btkh->bkgct", qg,
+                          ck).to(torch.float32) * hd ** -0.5
+    if softcap > 0.0:
+        scores = softcap * torch.tanh(scores / softcap)
+    scores = torch.where(k_valid, scores, NEG_INF)
+    shift = tp.max_over(scores.amax(dim=-1, keepdim=True))
+    exps = torch.exp(scores - shift)
+    probs = (exps / tp.sum_over(exps.sum(dim=-1, keepdim=True))).to(cv.dtype)
+    out = tp.sum_over(torch.einsum("bkgct,btkh->bckgh",
+                                   probs.to(torch.float32),
+                                   cv.to(torch.float32))).to(cv.dtype)
+    out = out.reshape(b, 1, n_heads, hd)
+    if hq != n_heads:
+        out = out[:, :, tp.index() * hq:(tp.index() + 1) * hq]
+    return out
 
 
 def cross_attention(p: Params, x: torch.Tensor, kv_k: torch.Tensor,

@@ -62,20 +62,31 @@ def apply_norm(p: Params, x: torch.Tensor, norm_type: str,
 # RoPE
 # ---------------------------------------------------------------------------
 @functools.lru_cache(maxsize=None)
-def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+def rope_frequencies(head_dim: int, theta: float, device=None,
+                     folded: bool = False) -> torch.Tensor:
     """The (head_dim / 2,) inverse frequencies, made once per head_dim,
     theta and device (a decode step would otherwise copy theta to the card
-    and wait for it twice a layer); callers only read it."""
+    and wait for it twice a layer); callers only read it. As the
+    reference's op-by-op program and its compiled train and prefill steps
+    compute them (a float32 pow, then a division); ``folded``: as its
+    compiled decode step folds them, ``theta ** -e`` rounded once from
+    float64 (the two are up to an ulp apart, and an angle's difference
+    grows with the position)."""
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
                         device=device) / head_dim
+    if folded:      # on the host: its float64 pow is correctly rounded
+        theta64 = torch.tensor(theta, dtype=torch.float32).double()
+        return (1.0 / theta64 ** exps.cpu().double()).float().to(device)
     return 1.0 / (torch.tensor(theta, dtype=torch.float32,
                                device=device) ** exps)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """x: (..., seq, heads, head_dim); positions: (..., seq) integers."""
-    freqs = rope_frequencies(x.shape[-1], theta, x.device)  # (hd/2,)
+               theta: float, folded: bool = False) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq) integers;
+    ``folded``: the decode step's frequencies (``rope_frequencies``)."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device,
+                             folded)  # (hd/2,)
     angles = positions[..., None].to(torch.float32) * freqs  # (..., seq, hd/2)
     cos = torch.cos(angles)[..., None, :]  # broadcast over heads
     sin = torch.sin(angles)[..., None, :]

@@ -31,7 +31,9 @@ the MLP, its channels of the mamba and RG-LRU blocks (``models/ssm.py``,
 ``models/rglru.py``), its rows of the vocabulary in the embedding, the
 unembedding and the cross-entropy (whose max, sum of exps and gold logit
 are reduced over ``model``; the (B, chunk, V) logits are never gathered),
-and its kv heads and recurrent channels of the caches.
+and its block of each cache leaf on the dim the cache rule gives it (kv
+heads, recurrent channels, or positions, over which decode attention's
+softmax is reduced).
 """
 from __future__ import annotations
 
@@ -42,6 +44,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import random as trandom
 from repro_torch.configs.base import LONG_CONTEXT_WINDOW, ModelConfig
+from repro_torch.launch import sharding as shard_rules
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import tp
@@ -287,13 +290,13 @@ def _bidir_attn(p: Params, h, cfg: ModelConfig, q_chunk: int):
 
 
 def _attn_block_decode(p: Params, x, ck, cv, pos: int, cfg: ModelConfig, *,
-                       circular: bool):
+                       circular: bool, cache_len: Optional[int] = None):
     h = apply_norm(p["norm1"], x, cfg.norm_type)
     res, (ck, cv) = attn.decode_self_attention(
         p["attn"], h, ck, cv, pos, n_heads=cfg.n_heads,
         n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
         use_rope=cfg.use_rope, rope_theta=cfg.rope_theta, circular=circular,
-        softcap=cfg.logit_softcap)
+        softcap=cfg.logit_softcap, cache_len=cache_len)
     x = x + res
     h2 = apply_norm(p["norm2"], x, cfg.norm_type)
     if cfg.family == "moe" and "router" in p["mlp"]:
@@ -649,23 +652,43 @@ def lm_loss(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 # ===========================================================================
 def init_decode_cache(cfg: ModelConfig, batch: int, length: int, *,
                       sliding: bool = False, device=None,
-                      model: int = 1) -> PyTree:
+                      mesh=None) -> PyTree:
     """Zeroed cache pytree for decode, on ``device``. ``length`` = context
     size; ``sliding`` caps attention caches at LONG_CONTEXT_WINDOW (ring
-    buffers), and a sliding-attention config at its window. ``model``: a
-    member's block over a ``model`` axis of that many members (its kv
-    heads and its channels of the recurrent states, where they split)."""
+    buffers), and a sliding-attention config at its window. On ``mesh``
+    (a global batch of ``batch`` rows), this member's block of every leaf
+    under the cache rule (``launch/sharding.py::cache_shardings``): its
+    rows over the data axes, and over ``model`` its kv heads, its channels
+    of the recurrent states or its block of the positions, wherever the
+    rule puts ``model``."""
+    if mesh is None:
+        return _decode_cache(cfg, batch, length, sliding, device)
+    glob = _decode_cache(cfg, batch, length, sliding, "meta")
+    return _blocks(glob, shard_rules.cache_shardings(cfg, glob, mesh, batch),
+                   mesh, device)
+
+
+def _blocks(glob, specs, mesh, device):
+    """Zeroed blocks under ``specs`` of the leaves of ``glob``, a cache
+    pytree of meta tensors."""
+    if isinstance(glob, dict):
+        return {k: _blocks(v, specs[k], mesh, device) for k, v in glob.items()}
+    if isinstance(glob, (list, tuple)):
+        return type(glob)(_blocks(g, sp, mesh, device)
+                          for g, sp in zip(glob, specs))
+    return torch.zeros(shard_rules.shard_shape(glob.shape, specs, mesh),
+                       dtype=glob.dtype, device=device)
+
+
+def _decode_cache(cfg: ModelConfig, batch: int, length: int, sliding: bool,
+                  device) -> PyTree:
     _check_family(cfg)
     dtype = torch_dtype(cfg.dtype)
     t_attn = min(length, LONG_CONTEXT_WINDOW) if sliding else length
     if cfg.attn_type == "sliding":
         t_attn = min(t_attn, cfg.sliding_window)
     fam = cfg.family
-    n_kv = cfg.n_kv_heads
-    if n_kv and n_kv % model == 0:
-        n_kv //= model
-    di, w = (c // model if c % model == 0 else c
-             for c in (cfg.d_inner, cfg.lru_width))
+    n_kv, di, w = cfg.n_kv_heads, cfg.d_inner, cfg.lru_width
 
     def zeros(*shape, dt=dtype):
         return torch.zeros(shape, dtype=dt, device=device)
@@ -706,11 +729,26 @@ def init_decode_cache(cfg: ModelConfig, batch: int, length: int, *,
             "cross_v": zeros(*cross)}
 
 
+def attention_cache_len(cache: PyTree) -> Optional[int]:
+    """The positions T of a whole decode cache's self-attention caches
+    (every one of a config has the same), None where it has none."""
+    if "k" in cache:
+        return cache["k"].shape[-3]
+    keys = [k for k in cache.get("super", {}) if k.endswith("_k")]
+    kvs = [c for c in cache.get("rest", []) if c[0].dim() == 4]
+    if keys:
+        return cache["super"][keys[0]].shape[-3]
+    return kvs[0][0].shape[-3] if kvs else None
+
+
 def decode_step(params: Params, cfg: ModelConfig, cache: PyTree,
-                token: torch.Tensor, pos: int, *, circular: bool = False):
+                token: torch.Tensor, pos: int, *, circular: bool = False,
+                cache_len: Optional[int] = None):
     """One decode step. token: (B,1) integers; pos: the absolute position,
     a Python int. Returns (logits (B,1,V), new cache); ``cache`` is left as
-    it was."""
+    it was. ``cache_len``: the positions T of the whole self-attention
+    caches, where a member holds a block of them
+    (``attention.decode_self_attention``)."""
     _check_family(cfg)
     pos = int(pos)
     params = nest_params(params)
@@ -725,7 +763,8 @@ def decode_step(params: Params, cfg: ModelConfig, cache: PyTree,
         for p_l, ck, cv in zip(_unstack(blocks, cfg.n_layers), cache["k"],
                                cache["v"]):
             x, ck, cv = _attn_block_decode(p_l, x, ck, cv, pos, cfg,
-                                           circular=circ)
+                                           circular=circ,
+                                           cache_len=cache_len)
             kvs.append((ck, cv))
         cache = dict(zip(("k", "v"), _stack(kvs)))
     elif fam == "ssm":
@@ -740,7 +779,7 @@ def decode_step(params: Params, cfg: ModelConfig, cache: PyTree,
         cache = dict(zip(("conv", "ssm"), _stack(sts)))
     elif fam == "hybrid":
         x, cache = _hybrid_decode(blocks, params.get("rest", []), cfg, cache,
-                                  x, pos)
+                                  x, pos, cache_len)
     elif fam == "vlm":
         n_super = cfg.n_layers // cfg.cross_attn_every
         sup_kvs = []
@@ -751,7 +790,8 @@ def decode_step(params: Params, cfg: ModelConfig, cache: PyTree,
             for p_l, ck, cv in zip(_unstack(p_self, cfg.cross_attn_every - 1),
                                    cache["k"][n], cache["v"][n]):
                 x, ck, cv = _attn_block_decode(p_l, x, ck, cv, pos, cfg,
-                                               circular=circ)
+                                               circular=circ,
+                                               cache_len=cache_len)
                 kvs.append((ck, cv))
             sup_kvs.append(_stack(kvs))
             x = _cross_block_fwd(pc, x, cache["cross_k"][n],
@@ -766,7 +806,8 @@ def decode_step(params: Params, cfg: ModelConfig, cache: PyTree,
                 p_l["self_attn"], h, cache["k"][i], cache["v"][i], pos,
                 n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
                 head_dim=cfg.head_dim, use_rope=cfg.use_rope,
-                rope_theta=cfg.rope_theta, circular=circ)
+                rope_theta=cfg.rope_theta, circular=circ,
+                cache_len=cache_len)
             kvs.append(kv)
             x = x + res
             h2 = apply_norm(p_l["norm2"], x, cfg.norm_type)
@@ -782,7 +823,7 @@ def decode_step(params: Params, cfg: ModelConfig, cache: PyTree,
 
 
 def _hybrid_decode(blocks: Params, rest_params: list, cfg: ModelConfig,
-                   cache: PyTree, x, pos: int):
+                   cache: PyTree, x, pos: int, cache_len: Optional[int]):
     """Hybrid decode: its local attention caches are always ring buffers."""
     pat = cfg.block_pattern
     n_super = cfg.n_layers // len(pat)
@@ -797,7 +838,8 @@ def _hybrid_decode(blocks: Params, rest_params: list, cfg: ModelConfig,
                 x, st = _rglru_block_decode(stacks[i][n], x, st, cfg)
             else:
                 x, *st = _attn_block_decode(stacks[i][n], x, *st, pos, cfg,
-                                            circular=True)
+                                            circular=True,
+                                            cache_len=cache_len)
             for name, t in zip(names, st):
                 sup.setdefault(f"p{i}_{name}", []).append(t)
     rest = []
@@ -806,7 +848,7 @@ def _hybrid_decode(blocks: Params, rest_params: list, cfg: ModelConfig,
             x, st = _rglru_block_decode(p_l, x, c_l, cfg)
         else:
             x, *st = _attn_block_decode(p_l, x, *c_l, pos, cfg,
-                                        circular=True)
+                                        circular=True, cache_len=cache_len)
         rest.append(tuple(st))
     return x, {"super": {k: torch.stack(sup[k]) for k in c}, "rest": rest}
 

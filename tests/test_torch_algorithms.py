@@ -48,6 +48,7 @@ from repro_torch.fl import runtime as trt  # noqa: E402
 from repro_torch.fl import server as tserver  # noqa: E402
 from repro_torch.kernels import qsgd, topk_mask  # noqa: E402
 from test_torch_engine import SEED, _assert_logs_match, _loss_t  # noqa: E402
+from test_torch_steps import _one_thread  # noqa: E402,F401
 
 ALGOS = ("fedavg", "fedavg_m", "fedprox", "scaffold", "slowmo", "fedadam",
          "fedyogi", "fedbuff")

@@ -3,7 +3,9 @@ the reference's compiled analyses (``memory_analysis``,
 ``hlo_analysis.collective_stats`` and ``hlo_compute_stats`` of the jitted
 step), on the CPU: gemma-2b ``reduced()`` on (data 2) under five policies,
 and qwen2-moe-a2.7b ``reduced()`` on (data 1, model 1) and (data 1,
-model 2) in its train, prefill and decode steps; global batch (8, 64).
+model 2) in its train, prefill and decode steps; global batch (8, 64);
+and gemma-2b's decode step on (data 1, model 2) with a cache of
+``d_inner`` positions, split over ``model`` by the cache rule.
 
 The reference runs once, in a subprocess over forced CPU devices on Auto
 axes (``torch_dryrun_jax.py``); the port runs one member's step under fake
@@ -57,7 +59,8 @@ pytest.importorskip("torch")
 pytest.importorskip("jax")
 
 from torch_dryrun_jax import (  # noqa: E402
-    ACCOUNT_CASES, BATCH, SEQ, case_key, run_reference)
+    ACCOUNT_CASES, BATCH, SEQ, SEQ_SPLIT_CASES, case_key, case_seq,
+    run_reference)
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import ShapeSpec  # noqa: E402
@@ -76,8 +79,8 @@ LOSS_PAD = 4
 POS_BYTES = 4
 
 
-def _case(arch, kind):
-    return get_config(arch).reduced(), ShapeSpec(kind, kind, SEQ, BATCH)
+def _case(arch, kind, seq=SEQ):
+    return get_config(arch).reduced(), ShapeSpec(kind, kind, seq, BATCH)
 
 
 @pytest.fixture(scope="module")
@@ -85,8 +88,9 @@ def runs(tmp_path_factory):
     want = run_reference(str(tmp_path_factory.mktemp("ref") / "ref.json"))
     got = {}
     try:
-        for arch, mshape, kind, policy in ACCOUNT_CASES:
-            cfg, shape = _case(arch, kind)
+        for case in ACCOUNT_CASES + list(SEQ_SPLIT_CASES):
+            arch, mshape, kind, policy = case
+            cfg, shape = _case(arch, kind, case_seq(case))
             dryrun.bind(math.prod(mshape))
             mesh = make_mesh(mshape, ("data", "model"))
             mem, _, colls, parsed, log = dryrun.analyze(
@@ -216,6 +220,42 @@ def test_account_matches_reference(runs, case):
                             + cfg.n_layers * act}
     else:
         assert wire == ref_wire == {}
+
+
+@pytest.mark.parametrize("case", SEQ_SPLIT_CASES,
+                         ids=[case_key(*c) for c in SEQ_SPLIT_CASES])
+def test_seq_split_decode_account_matches_reference(runs, case):
+    """A decode cache whose positions the rule splits over ``model``: the
+    port's arguments are the reference's blocks (but for ``pos``), its
+    flops the reference's, its wire the reference's kind for kind but for
+    one term: the softmax's max over ``model``, an all-gather of each
+    member's (B, heads) maxima (``tp.max_over``) where XLA all-reduces
+    them. The rest, q gathered over ``model`` and the sums of the exps,
+    of the partial ``probs @ V``, of ``wo``'s and the MLP's partial
+    outputs and of the embedding's rows, is equal."""
+    arch, mshape, kind, policy = case
+    got, want = runs
+    mem, colls, parsed, mesh, _ = got[case_key(*case)]
+    ref = want[case_key(*case)]
+    cfg, shape = _case(arch, kind, case_seq(case))
+    assert ref["status"] == "ok" and shape.seq_len == cfg.d_inner
+    glob, sp, held = specs.case_specs(cfg, shape, mesh,
+                                      dryrun.policy_from_name(policy))
+    assert held[1] == sp[1] and sp[1]["k"][-3] == "model"
+    extra, _ = _held_minus_split(cfg, shape, mesh, policy)
+    assert extra == -POS_BYTES
+    assert mem["argument_bytes"] - ref["argument_bytes"] == extra
+    assert parsed["flops"] == ref["parsed"]["flops"]
+    n = mshape[1]
+    rows = BATCH // mshape[0] * cfg.n_heads * 4     # bytes of the maxima
+    wire = {k: v["bytes"] for k, v in colls.items()}
+    ref_wire = {k: v["bytes"] for k, v in ref["collectives"].items()
+                if v["bytes"]}
+    assert sorted(wire) == sorted(ref_wire) == ["all-gather", "all-reduce"]
+    assert (wire["all-gather"] - ref_wire["all-gather"]
+            == cfg.n_layers * (n - 1) * rows)
+    assert (ref_wire["all-reduce"] - wire["all-reduce"]
+            == cfg.n_layers * 2 * (n - 1) / n * rows)
 
 
 def _fsdp_wire(cfg, mesh, params):

@@ -9,9 +9,10 @@ reference's, leaf for leaf (``case_specs`` on a described mesh), for the
 dry-run's policy of each case (baseline; llama3-405b's train step as fsdp,
 the reference's rule). A member's inputs (``member_inputs``, fake tensors)
 have ``shard_shape`` of the global leaf under the spec the member holds it
-by (the reference's, but for ``model`` on a cache dim other than the kv
-heads' or the recurrent channels'); the ssm and hybrid configs build their
-cases there, their recurrent leaves and states split over ``model``. On
+by (the reference's; every decode-cache leaf's equal to it, its positions
+split where the rule puts ``model`` there); the ssm and hybrid configs
+build their cases there, their recurrent leaves and states split over
+``model``. On
 (256, 1) the
 step itself runs under fake tensors on a fake process group of 256 for a
 few cheap cases (the full-size traces of every case belong to the CLI),
@@ -35,6 +36,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.launch import dryrun, specs  # noqa: E402
 from repro_torch.launch.mesh import Mesh, make_mesh  # noqa: E402
 from repro_torch.launch.sharding import shard_shape  # noqa: E402
+from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.models.transformer import flatten_params  # noqa: E402
 from repro_torch.optim.optimizers import OptState  # noqa: E402
 
@@ -139,10 +141,24 @@ def test_inputs_and_specs_match_reference(arch, mesh):
         for m, g, h, s in zip(members, got, got_held, got_sp):
             assert _sig(m) == (shard_shape(_sig(g)[0], h, tmesh),
                                _sig(g)[1])
-            # the held spec is the reference's, but for model where the
-            # port holds a leaf whole over it (and the train step's global
-            # batch)
+            # the held spec is the reference's, but for the train step's
+            # global batch
             assert all(a == b or a is None for a, b in zip(h, s))
+        if shape.kind == "decode":
+            # every cache leaf as the reference holds it, its positions
+            # split where the rule puts model there (ROADMAP queue A item
+            # 10)
+            cache_held, cache_sp = _along(glob[1], held[1]), _along(
+                glob[1], sp[1])
+            assert cache_held and cache_held == cache_sp, shape.name
+            # and a member's zeroed cache on the mesh is those blocks
+            block = tf.init_decode_cache(
+                cfg, shape.global_batch, shape.seq_len,
+                sliding=shape.sliding_window_decode, device="meta",
+                mesh=tmesh)
+            assert [_sig(x) for x in _leaves(block)] == [
+                _sig(m) for m in _leaves(specs.member_inputs(
+                    glob[1], held[1], tmesh, FakeTensorMode(), "cpu"))]
         n_model = sum("model" in h for h in got_held)
         assert n_model > 0
         if cfg.family in ("ssm", "hybrid"):

@@ -31,6 +31,7 @@ from repro.core import scheduling as jsched  # noqa: E402
 from repro.fl import runtime as jrt  # noqa: E402
 from repro_torch.core.algorithms import registry as talg  # noqa: E402
 from repro_torch.fl import runtime as trt  # noqa: E402
+from test_torch_steps import _one_thread  # noqa: E402,F401
 
 SEED = 20
 LOSS_RTOL = 1e-4

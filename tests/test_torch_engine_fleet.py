@@ -7,6 +7,8 @@ reference its compiled kernel mirror. Tolerances as in
 ``test_torch_engine.py``: participation and uplink bits equal, latency
 within rtol 1e-5, loss within rtol 1e-4, at the same seed (see there).
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -21,6 +23,7 @@ from repro_torch.data import make_linear_datagen as tdatagen  # noqa: E402
 from repro_torch.fl import runtime as trt  # noqa: E402
 from repro_torch.kernels import qsgd, sign_ef, topk_mask  # noqa: E402
 from test_torch_engine import SEED, _assert_logs_match, _loss_t  # noqa: E402
+from test_torch_steps import _one_thread  # noqa: E402,F401
 
 FLEET = dict(n_devices=4096, n_scheduled=64, rounds=2, local_steps=2,
              policy="random", seed=SEED)
@@ -28,7 +31,9 @@ D_FLEET = 256
 BATCH = 2  # H = 2 local steps of 2 samples: a light CPU data stream
 
 
+@functools.lru_cache(maxsize=None)
 def _fleet_port(comp, chunk):
+    """The port's run of a case, made once for the tests that read it."""
     _, _, _, w_star = make_linear_problem(d=D_FLEET)
     cfg = trt.SimConfig(
         algo_params=talg.algo_params(lr=0.1), compression=comp,

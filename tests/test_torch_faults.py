@@ -38,6 +38,7 @@ from repro_torch.data import make_linear_datagen as tdatagen  # noqa: E402
 from repro_torch.fl import runtime as trt  # noqa: E402
 from repro_torch.fl import server as tserver  # noqa: E402
 from test_torch_engine import _loss_t  # noqa: E402
+from test_torch_steps import _one_thread  # noqa: E402,F401
 
 FAULTS = jfaults.fault_params(drop_prob=0.3, churn_p_off=0.2, churn_p_on=0.6,
                               straggler_prob=0.3, straggler_alpha=1.5,

@@ -51,6 +51,7 @@ from test_torch_gossip import (LAT_RTOL, LOSS_RTOL, DRIFT_RTOL,  # noqa: E402
                                _assert_params, _np, _problem, _tbatches)
 from test_torch_hfl import (_keep_engine_caches,  # noqa: E402,F401
                             _lm_loss_t)
+from test_torch_steps import _one_thread  # noqa: E402,F401
 
 N = 12
 HCFG = jh.HFLConfig(n_clusters=3, inter_cluster_period=3)

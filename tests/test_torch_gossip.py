@@ -56,6 +56,7 @@ from repro_torch.fl import runtime as trt  # noqa: E402
 from test_torch_engine import _loss_t  # noqa: E402
 from test_torch_hfl import (_keep_engine_caches,  # noqa: E402,F401
                             _lm_loss_t)
+from test_torch_steps import _one_thread  # noqa: E402,F401
 
 N = 9
 LOSS_RTOL, LAT_RTOL, DRIFT_RTOL, DRIFT_ATOL = 1e-4, 1e-5, 1e-4, 1e-6

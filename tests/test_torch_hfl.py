@@ -59,6 +59,7 @@ from repro_torch.core import wireless as twl  # noqa: E402
 from repro_torch.fl import runtime as trt  # noqa: E402
 from test_torch_engine import _loss_t  # noqa: E402
 from test_torch_sweep import _port_kw, _tcfg, _twcfg  # noqa: E402
+from test_torch_steps import _one_thread  # noqa: E402,F401
 
 D, N, ROUNDS, SEED = 16, 12, 9, 3
 HCFG = jh.HFLConfig(n_clusters=3, inter_cluster_period=3)

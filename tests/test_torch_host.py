@@ -22,6 +22,7 @@ from repro.fl import runtime as jrt  # noqa: E402
 from repro_torch.fl import runtime as trt  # noqa: E402
 from test_torch_engine import _loss_t  # noqa: E402
 from test_torch_sweep import _snr_margin, _tcfg  # noqa: E402
+from test_torch_steps import _one_thread  # noqa: E402,F401
 
 D = 16
 AP01 = jrt.algo_params(lr=0.1)

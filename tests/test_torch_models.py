@@ -156,6 +156,23 @@ def test_rope_matches_reference(theta):
            jlayers.apply_rope(jnp.asarray(x), jnp.asarray(pos), theta), FWD)
 
 
+@pytest.mark.parametrize("theta", [10_000.0, 500_000.0])
+def test_decode_rope_matches_compiled_reference(theta):
+    # the reference's compiled decode step folds the inverse frequencies
+    # (theta ** -e rounded once from float64), up to an ulp from the
+    # op-by-op ones; an angle's difference grows with the position
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(2, 1, 3, 32)).astype(np.float32)
+    freqs = np.asarray(jax.jit(lambda: jlayers.rope_frequencies(32, theta))())
+    assert torch.equal(tlayers.rope_frequencies(32, theta, folded=True),
+                       _t(freqs))
+    rope = jax.jit(lambda x, p: jlayers.apply_rope(x, p, theta))
+    for p in (3, 258, 4097, 32767):
+        pos = np.full((2, 1), p, np.int32)
+        _close(tlayers.apply_rope(_t(x), _t(pos), theta, folded=True),
+               rope(x, pos), FWD)
+
+
 @pytest.mark.parametrize("mlp_type", ["swiglu", "geglu", "gelu"])
 def test_mlp_init_and_apply_match_reference(mlp_type):
     jp = jlayers.init_mlp(jax.random.PRNGKey(3), 32, 96, mlp_type,

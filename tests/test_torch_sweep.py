@@ -30,6 +30,7 @@ from repro_torch.core.hierarchy import HFLConfig  # noqa: E402
 from repro_torch.fl import runtime as trt  # noqa: E402
 from repro_torch.launch.mesh import Mesh  # noqa: E402
 from test_torch_engine import _loss_t  # noqa: E402
+from test_torch_steps import _one_thread  # noqa: E402,F401
 
 D = 16
 AP01 = jrt.algo_params(lr=0.1)

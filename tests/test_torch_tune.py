@@ -22,6 +22,7 @@ from repro_torch.fl import runtime as trt  # noqa: E402
 from repro_torch.fl import tune as ttune  # noqa: E402
 from test_torch_engine import _loss_t  # noqa: E402
 from test_torch_sweep import _tcfg  # noqa: E402
+from test_torch_steps import _one_thread  # noqa: E402,F401
 
 N, ROUNDS = 8, 6
 TOL = 1e-4

@@ -356,6 +356,11 @@ TP_CONFIGS = {
     "mamba": ("falcon-mamba-7b", {}),
     "rgemma": ("recurrentgemma-2b", {}),
     "mamba_part": ("falcon-mamba-7b", {"expand": 1, "d_model": 130}),
+    # decode caches of d_inner positions, which the cache rule splits over
+    # model where the kv heads do not (``SEQ_SERVE_CASES``)
+    "gemma_seq": ("gemma-2b", {}),
+    "llama_seq": ("llama3-405b", {}),
+    "vlm_ring": ("llama-3.2-vision-11b", {}),
 }
 # serving: (config, mesh (data, model)), the reference jitted on the same
 # mesh; a (B, S) prompt, a decode cache of T, DECODE_STEPS teacher-forced
@@ -366,6 +371,24 @@ TP_SERVE_CASES = tuple(
               "qwen" if m[0] == 1 else "qwen_nodrop")) + (
     ("stablelm", (1, 4)), ("stablelm_6_3", (1, 2)), ("whisper_odd", (1, 2)))
 TP_B, TP_S, TP_T, TP_DECODE = 4, 16, 24, 3
+# serving into a decode cache of T = cfg.d_inner (256 at reduced()), whose
+# positions the cache rule splits over model: gemma-2b's one kv head with
+# its 4 q heads split, on (1, 2) and (2, 2); llama3-405b's 2 kv heads
+# whole, 4 q heads split, on (1, 4), members 1-3 holding no valid position
+# at first; the vlm's ring on (1, 4), its teacher-forced steps at T, T + 1,
+# T + 2 (the ring wraps into member 0's block); then TPR_GREEDY greedy
+# steps from the prefill, against the reference's
+SEQ_SERVE_CASES = (("gemma_seq", (1, 2)), ("gemma_seq", (2, 2)),
+                   ("llama_seq", (1, 4)), ("vlm_ring", (1, 4)))
+
+
+def serve_layout(name: str) -> tuple:
+    """(T, circular, the teacher-forced steps' positions) of a serving
+    case's decode cache."""
+    if name not in {c for c, _ in SEQ_SERVE_CASES}:
+        return TP_T, False, [TP_S + i for i in range(TP_DECODE)]
+    t, ring = tp_cfg(name).d_inner, name == "vlm_ring"
+    return t, ring, [(t if ring else TP_S) + i for i in range(TP_DECODE)]
 # training: (name, config, mode, compression, the port's mesh, the
 # reference's mesh); the reference's pssgd and localsgd steps do not
 # compile on (data 1, model 2), so those cases hold (1, 2) against its
@@ -416,10 +439,13 @@ MOE_STEP_CASES = (("qwen_fsdp_d2", "qwen", "fsdp", "none", (2, 1), (1, 1)),)
 
 def tp_cases(kind: str) -> tuple:
     """The cases of a ``kind``: "train" and "serve" (the transformer
-    block), "rtrain" and "rserve" (the recurrent blocks)."""
+    block), "rtrain" and "rserve" (the recurrent blocks), "mtrain" and
+    "mserve" (MoE over the whole batch), "sserve" (caches split over their
+    positions)."""
     return {"train": TP_STEP_CASES, "serve": TP_SERVE_CASES,
             "rtrain": TPR_STEP_CASES, "rserve": TPR_SERVE_CASES,
-            "mtrain": MOE_STEP_CASES, "mserve": MOE_SERVE_CASES}[kind]
+            "mtrain": MOE_STEP_CASES, "mserve": MOE_SERVE_CASES,
+            "sserve": SEQ_SERVE_CASES}[kind]
 
 
 def tp_cfg(name: str):
@@ -525,25 +551,25 @@ def _tp_serve(name, mesh, recurrent: bool = False,
         def cache_specs(length):
             """The held spec of each leaf of a (TP_B, length) cache."""
             glob = tf.init_decode_cache(cfg, TP_B, length, device="meta")
-            return specs.held_cache_specs(cfg, glob, mesh, TP_B)[1]
+            return specs.held_cache_specs(cfg, glob, mesh, TP_B)
         pf_sp = cache_specs(TP_S)
         for k, v in _flat_tree(_tp_gather_tree(pf, pf_sp, mesh), "",
                                {}).items():
             res["prefill/cache/" + k] = v
-        b_local = rows.shape[0]
-        cache = tf.init_decode_cache(cfg, b_local, TP_T,
-                                     model=mesh.n("model"))
-        cache = serve._load_prefill(cfg, cache, pf, TP_S)
+        t, ring, at = serve_layout(name)
+        cache = serve._load_prefill(
+            cfg, tf.init_decode_cache(cfg, TP_B, t, mesh=mesh), pf, TP_S,
+            mesh=mesh, cache_len=t)
         first = cache
-        decode = steps.make_decode_step(cfg, circular=False, mesh=mesh,
-                                        global_batch=TP_B)
+        decode = steps.make_decode_step(cfg, circular=ring, mesh=mesh,
+                                        global_batch=TP_B, cache_len=t)
         states = [pf]
         for i in range(TP_DECODE):
-            logits, cache = decode(params, cache, rows[:, i:i + 1], TP_S + i)
+            logits, cache = decode(params, cache, rows[:, i:i + 1], at[i])
             res[f"decode/{i}/logits"] = sharding.gather(logits, lsp,
                                                         mesh).numpy()
             states.append(cache)
-        d_sp = cache_specs(TP_T)
+        d_sp = cache_specs(t)
         for k, v in _flat_tree(_tp_gather_tree(cache, d_sp, mesh), "",
                                {}).items():
             res["decode/cache/" + k] = v
@@ -666,13 +692,13 @@ def tp_members(rank: int, mesh_shape, kinds) -> dict:
     mesh = make_mesh(mesh_shape, ("data", "model"))
     res = {}
     for kind in (kinds,) if isinstance(kinds, str) else kinds:
-        if kind in ("serve", "rserve", "mserve"):
+        if kind in ("serve", "rserve", "mserve", "sserve"):
             for name, m in tp_cases(kind):
                 if tuple(m) == tuple(mesh_shape):
                     out = (_with_drops(_tp_serve, name, mesh, False, True)
                            if kind == "mserve" else
                            _tp_serve(name, mesh, kind == "rserve",
-                                     kind == "rserve"))
+                                     kind in ("rserve", "sserve")))
                     for k, v in out.items():
                         res[f"serve/{tp_key(name, m)}/{k}"] = v
             continue

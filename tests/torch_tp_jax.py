@@ -88,8 +88,8 @@ def _serve(name, shape, res, greedy: bool = False):
     from repro.launch import steps as jsteps
     from repro.models import moe as jmoe
     from repro.models import transformer as jtf
-    from torch_cluster_workers import (TP_B, TP_DECODE, TP_S, TP_T,
-                                       TPR_GREEDY, _flat_tree, tp_key,
+    from torch_cluster_workers import (TP_B, TP_DECODE, TP_S, TPR_GREEDY,
+                                       _flat_tree, serve_layout, tp_key,
                                        tp_serve_inputs)
     cfg = _cfg(name)
     mesh = _mesh(shape)
@@ -113,18 +113,19 @@ def _serve(name, shape, res, greedy: bool = False):
         res[key + "prefill/logits"] = np.asarray(logits)
         for k, v in _flat_tree(pf, "", {}).items():
             res[key + "prefill/cache/" + k] = np.asarray(v)
+        t, ring, at = serve_layout(name)
         cache = jserve._load_prefill(cfg, jtf.init_decode_cache(
-            cfg, TP_B, TP_T), pf, TP_S)
+            cfg, TP_B, t), pf, TP_S)
         first = cache
         csh = jsh.cache_shardings(cfg, cache, mesh, TP_B)
         steps = jnp.asarray(inp["steps"])
         tsh = jsh.batch_shardings({"t": steps[:, :1]}, mesh)["t"]
-        decode = jax.jit(jsteps.make_decode_step(cfg, circular=False),
+        decode = jax.jit(jsteps.make_decode_step(cfg, circular=ring),
                          in_shardings=(psh, csh, tsh,
                                        NamedSharding(mesh, P())))
         for i in range(TP_DECODE):
             logits, cache = decode(params, jax.device_put(cache, csh),
-                                   steps[:, i:i + 1], jnp.int32(TP_S + i))
+                                   steps[:, i:i + 1], jnp.int32(at[i]))
             res[key + f"decode/{i}/logits"] = np.asarray(logits)
         for k, v in _flat_tree(cache, "", {}).items():
             res[key + "decode/cache/" + k] = np.asarray(v)
@@ -181,7 +182,7 @@ def reference(kinds, out: str) -> None:
     from torch_cluster_workers import tp_cases
     res = {}
     for kind in (kinds,) if isinstance(kinds, str) else kinds:
-        if kind in ("serve", "rserve", "mserve"):
+        if kind in ("serve", "rserve", "mserve", "sserve"):
             for name, shape in tp_cases(kind):
                 _serve(name, shape, res, greedy=kind != "serve")
             continue
