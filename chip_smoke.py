@@ -101,11 +101,12 @@ Phases (any failure exits non-zero):
    scan's, its loss equal to the scan's ``eval_batch`` loss, 25 ``topk_rows``
    launches a round; rounds/s beside phase 7's;
 13. hfl: ``benchmarks/bench_hfl.py``'s cell, the hierarchical engine at its
-   full width (N = 21 devices in 7 hex clusters, the LM problem of
-   ``benchmarks/common.py``, D = 5120, top-k at 1%, 1e8 model bits, random
-   scheduling of 21 a cluster, lr 1.0, 2 local steps of batch 16), with
+   full width (N = 21 devices in 7 hex clusters, the examples' LM problem,
+   D = 5120, top-k at 1%, 1e8 model bits, random scheduling of 21 a
+   cluster, lr 1.0, 2 local steps of batch 16: the problem, config and
+   cells of ``repro_torch.examples.hierarchical_fl``), with
    every kernel counter set to 0 at its start: (a) H = 2 with
-   ``examples/hierarchical_fl.py``'s per-cluster cells for HFL_CHECK_ROUNDS
+   the example's per-cluster cells for HFL_CHECK_ROUNDS
    rounds, the card against the CPU (participation, schedule sizes,
    uplink and downlink bits equal, latency within rtol 1e-5, loss within
    rtol 1e-4) and the host loop on the card bitwise the scan; (b) the
@@ -131,24 +132,27 @@ Phases (any failure exits non-zero):
    ``_timed``), the 4-topology frontier through one ``run_gossip_sweep``
    (1 trace on a cold cache), fog rounds/s at k = 2 and the frontier at
    k = 1, 2, 4 (final loss, simulated wall clock, backhaul bits, drift);
-   (c) the LM cells of ``examples/decentralized_gossip.py`` (N = 16, ring,
-   4x4 torus, ER(0.4), 40 rounds) and ``examples/fog_hybrid.py`` (N = 28,
-   k = 1, 2, 4, 24 rounds), QSGD, 1e6 model bits, lr 0.5, after
-   EX_CHECK_ROUNDS rounds of each on the card against the CPU; (d) one
-   40-round gossip run under ``torch.profiler`` (host ms, ``cudaLaunchKernel``
-   a round, the device's busy share); (e) the six kernels' counters read
-   0 (``gossip_launches`` in the kernels line).
+   (c) the LM cells of ``repro_torch.examples.decentralized_gossip`` (N =
+   16, ring, 4x4 torus, ER(0.4), 40 rounds: its ``main`` whole) and
+   ``fog_hybrid`` (N = 28, k = 1, 2, 4, 24 rounds, a fresh problem each),
+   QSGD, 1e6 model bits, lr 0.5, after EX_CHECK_ROUNDS rounds of each on
+   the card against the CPU; (d) PROFILE_ROUNDS rounds of the bench's
+   gossip run under ``torch.profiler`` (host ms, ``cudaLaunchKernel`` a
+   round, the device's busy share); (e) the six kernels' counters read 0
+   (``gossip_launches`` in the kernels line).
 15. lm: the dense transformer LM through the flat engine, every kernel
    counter set to 0 at its start: (a) ``examples/quickstart.py``'s cell at
    its width (gemma-2b ``reduced()``, D = 541 312, N = 12, 4 scheduled by
    age, H = 2, batch 4, seq 32, 2048 sequences, Dirichlet 0.3, top-k at
    D // 50 with EF, lr 2e-3, 32 x param_count model bits): QS_CHECK_ROUNDS
    rounds on the card against the CPU (participation bitwise, uplink bits
-   equal, latency within rtol 1e-5, loss within rtol 1e-4), then the
-   example's 30 rounds through ``run_simulation`` with its assert that the
-   last loss is below the first; ``examples/private_fl.py``'s runs (none,
+   equal, latency within rtol 1e-5, loss within rtol 1e-4), then
+   ``repro_torch.examples.quickstart.main`` whole (its 30 rounds through
+   ``run_simulation``, its assert that the last loss is below the first,
+   ``topk_rows`` launched once a round); ``private_fl``'s runs (none,
    secagg, secagg_dp at clip 1.0, sigma 0.5) and its dp sweep at sigma 0.3,
-   1.0, 3.0, PF_CHECK_ROUNDS rounds each, card against CPU; (b) the
+   1.0, 3.0, PF_CHECK_ROUNDS rounds each on the batches after the
+   quickstart's 30 rounds, card against CPU; (b) the
    quickstart at gemma-2b's published widths (d_model 2048, 8 heads, MQA,
    head_dim 256, GeGLU d_ff 16 384, vocab 256 000, tied embeddings), cut to
    QS_FULL_DEPTH layers in float32, D = 744 499 200: the init's peak memory,
@@ -274,7 +278,7 @@ Phases (any failure exits non-zero):
    on (data 2, model 2) and whisper-base pssgd none on (data 1, model 2);
    each member's wire bytes; (d) gemma-2b at its
    published widths, depth 18 -> 4, float32, pssgd int8 + EF on (data 2),
-   global batch (8, 128), 3 steps: per member s a step (CUDA events and
+   global batch (8, 128), 2 steps: per member s a step (CUDA events and
    wall clock), peak GB, wire bytes, params bitwise alike after every step,
    the EF identity within the float32 bound; (e) qwen2-moe-a2.7b at its
    published widths, 1 layer, one (4, 128) batch's loss and gradient
@@ -283,7 +287,7 @@ Phases (any failure exits non-zero):
    members, bitwise the one-process sweep, ``topk_rows`` launches a member
    summing to its launches; (g) gemma-2b as in (d) but pssgd none with
    every leaf split over model on (data 1, model 2): a (4, 128) prompt and
-   8 greedy decode steps, then 3 train steps, against the same on (1, 1) in
+   8 greedy decode steps, then 2 train steps, against the same on (1, 1) in
    one process: loss a step, gathered params, greedy tokens and logits
    within TP_WIDE_*; the members' whole leaves bitwise alike; per member s
    a step, step-only peak, bytes held, wire a step by kind, ms a decode
@@ -341,6 +345,25 @@ Phases (any failure exits non-zero):
    (each record's
    ``kernel_launches``; their sum is ``dryrun_launches`` in the kernels
    line).
+
+22. examples (run before phase 21, while the dry-run's last traces run):
+   the walk-through examples as a user starts them (``python
+   -m repro_torch.examples.<name>``, their ``main`` at their own
+   constants) that no earlier phase runs whole, every kernel counter set
+   to 0 before each and required to read 0 after it: (a) the chapter's
+   scheduling study, ``wireless_scheduling_sim`` (the examples' LM problem
+   at N = 20, Dirichlet 0.1, 4 scheduled, 4 local steps, lr 1.0, the ten
+   policies through ``run_sweep`` for 60 rounds): s for the study and ms a
+   variant-round, its first STUDY_CHECK_ROUNDS rounds against the same
+   module on the CPU at that many rounds (participation and schedule
+   sizes bitwise, wall clock within rtol 1e-5, loss within rtol 1e-4); (b)
+   ``hierarchical_fl`` (flat FL in a 1500 m cell, then HFL at H = 2, 4, 6
+   over the per-cluster cells, 60 rounds each, a fresh problem each); (c)
+   ``private_fl`` (none, secagg, secagg_dp, 20 rounds each, then the dp
+   sweep over sigma 0.3, 1, 3); (d) ``fog_hybrid`` (k = 1, 2, 4, 24 rounds
+   each, on one problem); each part's line names the dry-run traces still
+   running (niced) when it started and ended, so its times say whether
+   they shared the host; ``examples_launches`` in the kernels line.
 
 Phase 3 also holds ``qsgd_rows`` given its norms at (6, 744 497 152), rows
 x d past 2^32 (the flat pass), against its plain version row by row.
@@ -426,28 +449,28 @@ TUNE = dict(policies=("random", "best_channel", "latency", "pf"),
 FLEET_POLICIES, FLEET_SEEDS, FLEET_SWEEP_ROUNDS = (
     ("random", "best_channel", "pf"), (0, 1), 2)
 HOST_ROUNDS = 3
-# benchmarks/bench_hfl.py: N = 21 devices in 7 hex clusters,
-# benchmarks/common.make_lm_problem(n_clients=21, alpha=0.3) (vocabulary 64,
-# sequence 16, hidden 32: D = 5120), top-k at 1%, 1e8 model bits, 80 rounds
-HFL_N, HFL_ROUNDS, HFL_PERIODS = 21, 80, (2, 4, 6)
-HFL_CHECK_ROUNDS, HFL_CASE_ROUNDS = 10, 4
-LM_VOCAB, LM_SEQ, LM_HID = 64, 16, 32
+# benchmarks/bench_hfl.py: the cell of examples/hierarchical_fl.py (N = 21
+# devices in 7 hex clusters, the examples' LM problem at alpha 0.3: D =
+# 5120, top-k at 1%, 1e8 model bits; repro_torch.examples), 80 rounds
+HFL_ROUNDS, HFL_CHECK_ROUNDS, HFL_CASE_ROUNDS = 80, 10, 4
 # benchmarks/bench_decentralized.py: N = 64 nodes, the 8x8 torus's Laplacian
 # mixing, the linear problem (d = 32, H = 2, B = 8), lr 0.1, 40 rounds; the
 # fog hybrid in 7 hex clusters synced every 4 rounds at k = 1, 2, 4 gossip
-# steps. examples/decentralized_gossip.py (N = 16, 40 rounds) and
-# examples/fog_hybrid.py (N = 28, 24 rounds): the LM problem at alpha 0.5,
-# QSGD, 1e6 model bits, lr 0.5
+# steps. The LM cells of examples/decentralized_gossip.py and
+# examples/fog_hybrid.py come from repro_torch.examples, checked on the card
+# against the CPU for EX_CHECK_ROUNDS rounds
 GOSSIP_N, GOSSIP_ROUNDS, GOSSIP_CHECK_ROUNDS = 64, 40, 5
+# (d) profiles this many of the bench's rounds: its figures are a round's,
+# and the profiler's processing of 40 rounds' ~64k launches took ~30 s
+PROFILE_ROUNDS = 10
 FOG_STEPS = (1, 2, 4)
-EX_GOSSIP_N, EX_GOSSIP_ROUNDS = 16, 40
-EX_FOG_N, EX_FOG_ROUNDS, EX_CHECK_ROUNDS = 28, 24, 4
-# examples/quickstart.py and examples/private_fl.py: gemma-2b reduced(),
-# N = 12, 4 scheduled by age, H = 2, batch 4, seq 32, 2048 sequences,
-# Dirichlet 0.3, lr 2e-3; the quickstart's 30 rounds of top-k at 2% with
-# EF; private_fl's clip 1.0, sigma 0.5 and dp sweep at sigma 0.3, 1, 3
-QS_N, QS_SCHED, QS_H, QS_B, QS_SEQ, QS_ROUNDS = 12, 4, 2, 4, 32, 30
-QS_CHECK_ROUNDS, PF_CHECK_ROUNDS, PF_SIGMAS = 3, 3, (0.3, 1.0, 3.0)
+EX_CHECK_ROUNDS = 4
+# examples/quickstart.py and examples/private_fl.py (repro_torch.examples):
+# the card against the CPU for QS_CHECK_ROUNDS and PF_CHECK_ROUNDS rounds
+QS_CHECK_ROUNDS, PF_CHECK_ROUNDS = 3, 3
+# the scheduling study (examples/wireless_scheduling_sim.py) on the CPU, to
+# hold the card's first rounds against
+STUDY_CHECK_ROUNDS = 3
 # the quickstart at gemma-2b's published widths: the depth cut from 18 to
 # 2, as reduced() cuts it; clients in blocks of one, so that the round
 # holds one client's local SGD beside the (12, D) EF; one round (the
@@ -605,9 +628,11 @@ CLUSTER_TRAIN_TWO = (
 # (d) gemma-2b at its published widths, depth 18 -> 4 so that two members'
 # float32 states fit on the card (~23 GB each; one member's init draw peaks
 # near 60 GB, so the members draw in turns), pssgd int8 + EF, adamw at the
-# CLI's lr 1e-3, remat, global batch (8, 128), 3 steps
+# CLI's lr 1e-3, remat, global batch (8, 128), 2 steps (3 until the
+# examples' phase 22 took the time: the members' third step of (d), (g),
+# (h) and (i) cost ~12 s, ~7 of them (i)'s)
 GEMMA_WIDE_DEPTH, GEMMA_WIDE_B, GEMMA_WIDE_SEQ, GEMMA_WIDE_STEPS = (4, 8,
-                                                                    128, 3)
+                                                                    128, 2)
 # (e) qwen2-moe-a2.7b at its published widths, 1 layer (as phase 16(c)),
 # one (4, 128) batch; (i)(2) serves it at 2 layers
 MOE_WIDE_DEPTH, MOE_WIDE_B, MOE_WIDE_SEQ, MOE_SERVE_DEPTH = 1, 4, 128, 2
@@ -1611,70 +1636,16 @@ def run_host(dev, smi: str, base_rates: dict) -> None:
         f"equal to the scan's; launches {counts}; eval loss {losses}")
 
 
-def _lm_problem(dev, n_clients: int = HFL_N, alpha: float = 0.3):
-    """``benchmarks/common.make_lm_problem(n_clients, alpha)`` in PyTorch:
-    the same numpy data from the port's copies of the synthetic source and
-    the Dirichlet partition, the weights from the port's
-    threefry ``normal`` on ``PRNGKey(0)`` split three ways at the same
-    scales. Returns ``(params, loss_fn, sample_batches, eval_fn)``; the
-    eval_fn carries ``eval_batch``, so the scan serves it."""
-    from repro_torch import random as trandom
-    from repro_torch.data import SyntheticLMDataset, dirichlet_partition
-    ds = SyntheticLMDataset(LM_VOCAB, LM_SEQ, 2048, n_classes=4, seed=0,
-                            branching=2)
-    parts = dirichlet_partition(ds.class_of(np.arange(len(ds))), n_clients,
-                                alpha=alpha, seed=0, min_per_client=16)
-    k1, k2, k3 = trandom.split(trandom.PRNGKey(0), 3)
-    params = {"emb": trandom.normal(k1, (LM_VOCAB, LM_HID)) * 0.1,
-              "w1": trandom.normal(k2, (LM_HID, LM_HID)) * LM_HID ** -0.5,
-              "w2": trandom.normal(k3, (LM_HID, LM_VOCAB)) * LM_HID ** -0.5}
-    rng = np.random.default_rng(0)
-
-    def sample_batches(t, n, h=2, b=16):
-        outs = {"tokens": [], "labels": []}
-        for ci in parts[:n]:
-            got = ds.get(rng.choice(ci, size=(h, b)).reshape(-1))
-            for k in outs:
-                outs[k].append(got[k].reshape(h, b, -1))
-        return {k: np.stack(v) for k, v in outs.items()}
-
-    eval_batch = {k: torch.tensor(v, device=dev)
-                  for k, v in ds.get(np.arange(256)).items()}
-
-    def eval_fn(p):
-        return float(_lm_loss(p, eval_batch)[0])
-    eval_fn.eval_batch = eval_batch
-    return params, _lm_loss, sample_batches, eval_fn
-
-
-def _lm_loss(p, b):
-    h = torch.relu(p["emb"][b["tokens"].long()] @ p["w1"])
-    logits = h @ p["w2"]
-    gold = torch.gather(logits, -1, b["labels"][..., None].long())[..., 0]
-    return (torch.logsumexp(logits, -1) - gold).mean(), {}
+def _hfl_lm(device):
+    """examples/hierarchical_fl.py's problem: the examples' LM at N = 21,
+    alpha 0.3."""
+    from repro_torch.examples import hierarchical_fl as hfl, problems
+    return problems.make_lm_problem(hfl.N, 0.3, device=device)
 
 
 def _hfl_cfg(rounds, **kw):
-    from repro_torch.core.algorithms import registry as algos
-    from repro_torch.core.compression import registry as comp
-    from repro_torch.fl import runtime as rt
-    d = LM_VOCAB * LM_HID + LM_HID * LM_HID + LM_HID * LM_VOCAB
-    kw.setdefault("compression", "topk")
-    return rt.SimConfig(
-        n_devices=HFL_N, n_scheduled=HFL_N, rounds=rounds,
-        algo_params=algos.algo_params(lr=1.0), local_steps=2,
-        policy="random", model_bits=1e8,
-        compression_params=comp.compression_params(k=max(1, int(d * 0.01))),
-        **kw)
-
-
-def _cells():
-    """examples/hierarchical_fl.py's cells: 10 dBm in the centre, 15 dBm
-    outside."""
-    from repro_torch.core import wireless
-    return [wireless.WirelessConfig(n_devices=HFL_N,
-                                    tx_power_dbm=10.0 if c == 0 else 15.0)
-            for c in range(7)]
+    from repro_torch.examples import hierarchical_fl as hfl, problems
+    return hfl.base_config(problems.D, rounds, **kw)
 
 
 def _logs_of(round_logs) -> SimpleNamespace:
@@ -1714,19 +1685,20 @@ def run_hfl(dev, smi: str) -> dict:
     each kernel's launches across the phase (all must be 0)."""
     import bisect
     import dataclasses
-    from repro_torch.core import faults, privacy, wireless
+    from repro_torch.core import faults, privacy
     from repro_torch.core.hierarchy import HFLConfig
+    from repro_torch.examples import hierarchical_fl as hfl
     from repro_torch.fl import runtime as rt
     counters = dict(_row_counters(), **_tile_counters())
     for fn in counters.values():
         fn.launches = 0
-    cells = _cells()
+    cells = hfl.cluster_cells()
     h2 = HFLConfig(n_clusters=7, inter_cluster_period=2)
 
     # (a) the card against the CPU, and the host loop against the scan
     runs = {}
     for device, engine in ((dev, None), ("cpu", None), (dev, "host")):
-        params, loss_fn, sample, eval_fn = _lm_problem(device)
+        params, loss_fn, sample, eval_fn = _hfl_lm(device)
         runs[device, engine], secs = wall_s(lambda: rt.run_hfl(
             _hfl_cfg(HFL_CHECK_ROUNDS), h2, loss_fn, params, sample,
             eval_fn=eval_fn, cluster_wcfgs=cells, engine=engine,
@@ -1745,19 +1717,18 @@ def run_hfl(dev, smi: str) -> dict:
         f"host loop == scan on the card bitwise; loss {g.loss.tolist()}")
 
     # (b) bench_hfl.py at its 80 rounds on the card
-    params, loss_fn, sample, eval_fn = _lm_problem(dev)
+    params, loss_fn, sample, eval_fn = _hfl_lm(dev)
     init_loss = eval_fn({k: v.to(dev) for k, v in params.items()})
     fl_logs, secs = wall_s(lambda: rt.run_simulation(
         _hfl_cfg(HFL_ROUNDS), loss_fn, params, sample, eval_fn=eval_fn,
-        wcfg=wireless.WirelessConfig(n_devices=HFL_N, cell_radius_m=1500.0),
-        device=dev))
+        wcfg=hfl.macro_cell(), device=dev))
     fl_clock = [r.latency_s for r in fl_logs]
     log(f"hfl (b) flat FL: {HFL_ROUNDS / secs:.4f} rounds/s on {smi}; "
         f"final loss {fl_logs[-1].loss:.6f}; simulated wall clock "
         f"{fl_clock[-1]:.3f} s")
     bench = {"fl": fl_logs}
-    for h in HFL_PERIODS:
-        params, loss_fn, sample, eval_fn = _lm_problem(dev)
+    for h in hfl.PERIODS:
+        params, loss_fn, sample, eval_fn = _hfl_lm(dev)
         logs, secs = wall_s(lambda: rt.run_hfl(
             _hfl_cfg(HFL_ROUNDS), HFLConfig(n_clusters=7,
                                             inter_cluster_period=h),
@@ -1794,13 +1765,13 @@ def run_hfl(dev, smi: str) -> dict:
     for what, kw in cases.items():
         out = {}
         for device in (dev, "cpu"):
-            params, loss_fn, sample, eval_fn = _lm_problem(device)
+            params, loss_fn, sample, eval_fn = _hfl_lm(device)
             cfg = _hfl_cfg(HFL_CASE_ROUNDS, **kw)
             d = torch.device(device)
             wstat, chan = rt._resolve_hfl_channel(cfg, h2, None, cells, d)
             out[device] = rt._run_hfl_scan(
                 cfg, h2, loss_fn, params,
-                rt.stack_batches(sample, HFL_CASE_ROUNDS, HFL_N),
+                rt.stack_batches(sample, HFL_CASE_ROUNDS, hfl.N),
                 eval_fn.eval_batch, chan, wstat, d)
         rel = _card_equals_cpu(f"hfl (c) {what}", out[dev][1],
                                    out["cpu"][1])
@@ -1810,13 +1781,13 @@ def run_hfl(dev, smi: str) -> dict:
             f"survivors {c.n_survived.tolist()}, retransmissions "
             f"{c.retransmissions.tolist()}, mask bits {c.mask_bits.tolist()}"
             f", epsilon {c.epsilon.tolist()}")
-    params, loss_fn, sample, eval_fn = _lm_problem(dev)
+    params, loss_fn, sample, eval_fn = _hfl_lm(dev)
     cfg = _hfl_cfg(HFL_CASE_ROUNDS, **dict(cases["secagg x qsgd"],
                                            privacy="_secagg_unmasked"))
     wstat, chan = rt._resolve_hfl_channel(cfg, h2, None, cells, dev)
     oracle = rt._run_hfl_scan(cfg, h2, loss_fn, params,
                               rt.stack_batches(sample, HFL_CASE_ROUNDS,
-                                               HFL_N),
+                                               hfl.N),
                               eval_fn.eval_batch, chan, wstat, dev)
     masked = finals["secagg x qsgd"]
     if not (all(torch.equal(masked[0][k], oracle[0][k]) for k in oracle[0])
@@ -1827,12 +1798,12 @@ def run_hfl(dev, smi: str) -> dict:
         "of the unmasked oracle on the card")
     sweeps, traces = {}, {}
     for device in (dev, "cpu"):
-        params, loss_fn, sample, eval_fn = _lm_problem(device)
+        params, loss_fn, sample, eval_fn = _hfl_lm(device)
         t0 = rt.ENGINE_STATS["traces"]
         rt._ENGINE_CACHE.clear()
         sweeps[device], secs = wall_s(lambda: rt.run_sweep(
             _hfl_cfg(HFL_CASE_ROUNDS), loss_fn, params,
-            rt.stack_batches(sample, HFL_CASE_ROUNDS, HFL_N),
+            rt.stack_batches(sample, HFL_CASE_ROUNDS, hfl.N),
             seeds=[0, 1], policies=["random", "best_channel", "pf"],
             eval_batch=eval_fn.eval_batch,
             hcfgs=[dataclasses.replace(h2, backhaul_rate_bps=r)
@@ -1938,6 +1909,9 @@ def run_gossip(dev, smi: str) -> dict:
     from repro_torch.core import topology as topo
     from repro_torch.core.algorithms import registry as algos
     from repro_torch.core.hierarchy import HFLConfig
+    from repro_torch.examples import decentralized_gossip as dg
+    from repro_torch.examples import fog_hybrid as fh
+    from repro_torch.examples import problems
     from repro_torch.fl import decentralized as dz
     from repro_torch.fl import runtime as rt
     counters = dict(_row_counters(), **_tile_counters())
@@ -1991,8 +1965,9 @@ def run_gossip(dev, smi: str) -> dict:
     gkw = dict(n_nodes=GOSSIP_N, rounds=GOSSIP_ROUNDS,
                algo_params=algos.algo_params(lr=0.1))
     go(gkw, False, dev)  # warm
-    secs = min(wall_s(lambda: go(gkw, False, dev))[1] for _ in range(2))
-    _, logs = go(gkw, False, dev)
+    timed = [wall_s(lambda: go(gkw, False, dev)) for _ in range(2)]
+    secs = min(t for _, t in timed)
+    _, logs = timed[-1][0]
     log(f"gossip (b) rounds/s at N={GOSSIP_N}: {GOSSIP_ROUNDS / secs:.4f} "
         f"({secs / GOSSIP_ROUNDS * 1e6:.1f} us a round) on {smi}; torus, "
         f"edges {int(logs.n_edges[-1])}, simulated wall clock "
@@ -2019,14 +1994,15 @@ def run_gossip(dev, smi: str) -> dict:
         raise AssertionError(f"gossip (b) frontier: {n_traces} traces")
     fkw = dict(gkw, gossip_steps=2)
     go(fkw, True, dev)  # warm
-    secs = min(wall_s(lambda: go(fkw, True, dev))[1] for _ in range(2))
-    _, flogs = go(fkw, True, dev)
+    timed = [wall_s(lambda: go(fkw, True, dev)) for _ in range(2)]
+    secs = min(t for _, t in timed)
+    _, flogs = timed[-1][0]
     log(f"gossip (b) fog rounds/s at N={GOSSIP_N}: "
         f"{GOSSIP_ROUNDS / secs:.4f} ({secs / GOSSIP_ROUNDS * 1e6:.1f} us a "
         f"round) on {smi}; L=7, H=4, k=2, backhaul "
         f"{float(flogs.backhaul_bits.sum()):.4e} bits")
-    for k in FOG_STEPS:
-        _, kl = go(dict(gkw, gossip_steps=k), True, dev)
+    for k in FOG_STEPS:  # k = 2 is the timed run's
+        kl = flogs if k == 2 else go(dict(gkw, gossip_steps=k), True, dev)[1]
         log(f"gossip (b) fog frontier k={k}: final loss "
             f"{float(kl.loss[-1]):.6f}, simulated wall clock "
             f"{float(kl.latency_s[-1]):.3f} s, backhaul "
@@ -2038,28 +2014,23 @@ def run_gossip(dev, smi: str) -> dict:
     took("(b)")
 
     # (c) the examples' LM cells: card against CPU, then the card alone
-    graphs = {"ring": topo.ring(EX_GOSSIP_N),
-              "torus 4x4": topo.torus_2d(4, 4),
-              "erdos-renyi(0.4)": topo.erdos_renyi(0, EX_GOSSIP_N, 0.4)}
+    graphs = dg.graphs()
     wgrid = [topo.laplacian_mixing(a) for a in graphs.values()]
 
-    def lm_cfg(n, rounds, **kw):
-        return dz.GossipConfig(n_nodes=n, rounds=rounds, compression="qsgd",
-                               model_bits=1e6,
-                               algo_params=algos.algo_params(lr=0.5), **kw)
-
     def lm_gossip(device, rounds):
-        params, loss_fn, sample, eval_fn = _lm_problem(device, EX_GOSSIP_N,
-                                                       0.5)
-        return dz.run_gossip_sweep(lm_cfg(EX_GOSSIP_N, rounds), loss_fn,
+        params, loss_fn, sample, eval_fn = problems.make_lm_problem(
+            dg.N, 0.5, device=device)
+        return dz.run_gossip_sweep(dg.gossip_config(dg.N, rounds), loss_fn,
                                    params, sample, wgrid=wgrid,
                                    eval_batch=eval_fn.eval_batch,
                                    device=device)
 
     def lm_fog(device, rounds, k):
-        params, loss_fn, sample, eval_fn = _lm_problem(device, EX_FOG_N, 0.5)
-        return dz.run_fog(lm_cfg(EX_FOG_N, rounds, gossip_steps=k), h4,
-                          loss_fn, params, sample,
+        # a fresh problem for each k (the example runs its three k on one)
+        params, loss_fn, sample, eval_fn = problems.make_lm_problem(
+            fh.N, 0.5, device=device)
+        return dz.run_fog(dg.gossip_config(fh.N, rounds, gossip_steps=k),
+                          fh.hfl_config(), loss_fn, params, sample,
                           eval_batch=eval_fn.eval_batch, device=device)
 
     g, c = (lm_gossip(dv, EX_CHECK_ROUNDS) for dv in (dev, "cpu"))
@@ -2080,7 +2051,7 @@ def run_gossip(dev, smi: str) -> dict:
     took("(c) card against cpu")
     rt._ENGINE_CACHE.clear()
     t0 = rt.ENGINE_STATS["traces"]
-    ex, secs = wall_s(lambda: lm_gossip(dev, EX_GOSSIP_ROUNDS))
+    ex, secs = wall_s(lambda: dg.main([], device=dev))
     n_traces = rt.ENGINE_STATS["traces"] - t0
     for i, name in enumerate(graphs):
         log(f"gossip (c) decentralized_gossip.py {name}: spectral gap "
@@ -2090,15 +2061,15 @@ def run_gossip(dev, smi: str) -> dict:
             f"{float(ex.latency_s[i, -1]):.3f} s, edges "
             f"{int(ex.n_edges[i, -1])}")
     log(f"gossip (c) decentralized_gossip.py: {len(graphs)} topologies x "
-        f"{EX_GOSSIP_ROUNDS} rounds in {secs:.3f} s on {smi}, {n_traces} "
+        f"{dg.ROUNDS} rounds in {secs:.3f} s on {smi}, {n_traces} "
         f"trace(s)")
-    for k in FOG_STEPS:
-        (_, kl), secs = wall_s(lambda: lm_fog(dev, EX_FOG_ROUNDS, k))
+    for k in fh.STEPS:
+        (_, kl), secs = wall_s(lambda: lm_fog(dev, fh.ROUNDS, k))
         log(f"gossip (c) fog_hybrid.py k={k}: final loss "
             f"{float(kl.loss[-1]):.6f}, simulated wall clock "
             f"{float(kl.latency_s[-1]):.3f} s, backhaul "
             f"{float(kl.backhaul_bits.sum()):.4e} bits, drift "
-            f"{float(kl.consensus_err[-1]):.3e}; {EX_FOG_ROUNDS} rounds in "
+            f"{float(kl.consensus_err[-1]):.3e}; {fh.ROUNDS} rounds in "
             f"{secs:.3f} s")
         if not np.isfinite(kl.loss).all():
             raise AssertionError(f"gossip (c) fog k={k}: loss {kl.loss}")
@@ -2109,9 +2080,9 @@ def run_gossip(dev, smi: str) -> dict:
 
     # (d) one bench gossip run under torch.profiler
     wall, per_round, busy, top = _profile_rounds(
-        lambda: go(gkw, False, dev), GOSSIP_ROUNDS)
-    log(f"gossip (d) profiled {GOSSIP_ROUNDS} rounds at N={GOSSIP_N}: host "
-        f"{wall / GOSSIP_ROUNDS * 1e3:.3f} ms a round, cudaLaunchKernel "
+        lambda: go(gkw, False, dev, rounds=PROFILE_ROUNDS), PROFILE_ROUNDS)
+    log(f"gossip (d) profiled {PROFILE_ROUNDS} rounds at N={GOSSIP_N}: host "
+        f"{wall / PROFILE_ROUNDS * 1e3:.3f} ms a round, cudaLaunchKernel "
         f"{per_round:.1f} a round, device busy {busy:.4f} of the wall clock "
         f"on {smi}; top device kernels {top}")
 
@@ -2122,33 +2093,6 @@ def run_gossip(dev, smi: str) -> dict:
         raise AssertionError(f"gossip: a kernel launched on the gossip "
                              f"path: {launches}")
     return launches
-
-
-def _qs_data(vocab: int, seed: int = 0):
-    """The examples' data: the port's copies of the synthetic source, the
-    Dirichlet partition and the loader, as the examples make them."""
-    from repro_torch.data import (FederatedLoader, SyntheticLMDataset,
-                                  dirichlet_partition)
-    ds = SyntheticLMDataset(vocab, seq_len=QS_SEQ, n_sequences=2048)
-    parts = dirichlet_partition(ds.class_of(np.arange(len(ds))), QS_N,
-                                alpha=0.3, min_per_client=8)
-    return FederatedLoader(ds, parts, batch=QS_B, local_steps=QS_H,
-                           seed=seed)
-
-
-def _qs_sim(cfg, d: int, rounds: int, **kw):
-    """The quickstart's SimConfig (or private_fl's, with privacy= and no
-    compression)."""
-    from repro_torch.core.algorithms import registry as algos
-    from repro_torch.core.compression import registry as comp
-    from repro_torch.fl import runtime as rt
-    if "privacy" not in kw:
-        kw.update(compression="topk", compression_params=(
-            comp.compression_params(k=max(1, d // 50))))
-    return rt.SimConfig(n_devices=QS_N, n_scheduled=QS_SCHED, rounds=rounds,
-                        local_steps=QS_H, algo_params=algos.algo_params(
-                            lr=2e-3), policy="age",
-                        model_bits=32.0 * cfg.param_count(), **kw)
 
 
 def _on(batches: dict, device) -> dict:
@@ -2241,6 +2185,8 @@ def run_lm(dev, smi: str) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.core.algorithms import registry as algos
     from repro_torch.core.privacy import registry as priv
+    from repro_torch.examples import private_fl as pf
+    from repro_torch.examples import quickstart as qs
     from repro_torch.fl import runtime as rt
     from repro_torch.kernels import topk_mask
     from repro_torch.models import transformer as tf
@@ -2253,9 +2199,8 @@ def run_lm(dev, smi: str) -> dict:
         part = time.perf_counter()
 
     # (a) the examples at their own width
-    cfg = get_config("gemma-2b").reduced()
-    params = tf.init_params(cfg, trandom.PRNGKey(0, dev))
-    cparams = tf.init_params(cfg, trandom.PRNGKey(0))
+    cfg, params, loss_fn = qs.model(dev)
+    _, cparams, _ = qs.model("cpu")
     # each leaf's largest difference over its largest value (threefry is
     # bitwise; normal's erfinv rounds a few ulps apart on the two devices)
     init_err = max(float((params[k].cpu() - cparams[k]).abs().max()
@@ -2265,14 +2210,10 @@ def run_lm(dev, smi: str) -> dict:
         raise AssertionError(f"lm (a) init: card {init_err:.3g} off the cpu")
     cparams = {k: v.cpu() for k, v in params.items()}
     d = algos.flat_dim(params)
-
-    def loss_fn(p, b):
-        return tf.lm_loss(p, cfg, b, remat=False)
-
-    loader = _qs_data(cfg.vocab_size)
+    loader = qs.make_loader(cfg.vocab_size)
     batches = rt.stack_batches(lambda t, n: loader.next_round(),
-                               QS_CHECK_ROUNDS, QS_N)
-    sim = _qs_sim(cfg, d, QS_CHECK_ROUNDS)
+                               QS_CHECK_ROUNDS, qs.N)
+    sim = qs.topk_config(cfg, d, QS_CHECK_ROUNDS)
     zero()
     (_, g), secs = wall_s(lambda: rt.run_simulation_scan(
         sim, loss_fn, params, _on(batches, dev), device=dev))
@@ -2283,36 +2224,34 @@ def run_lm(dev, smi: str) -> dict:
     if got["topk_rows"] != QS_CHECK_ROUNDS or sum(got.values()) != \
             QS_CHECK_ROUNDS:
         raise AssertionError(f"lm (a) quickstart: launches {got}")
-    log(f"lm (a) quickstart D={d} N={QS_N}: card == cpu for "
+    log(f"lm (a) quickstart D={d} N={qs.N}: card == cpu for "
         f"{QS_CHECK_ROUNDS} rounds (participation, bits; latency; loss max "
         f"rel diff {rel:.3g}), init max rel diff {init_err:.3g}; "
         f"{secs:.3f} s on the card; launches {got}; loss {c.loss.tolist()}")
-    loader = _qs_data(cfg.vocab_size)
+    # the example whole, as ``python -m repro_torch.examples.quickstart``
+    # runs it (its own lines, its assert that the loss falls)
     zero()
-    logs, secs = wall_s(lambda: rt.run_simulation(
-        _qs_sim(cfg, d, QS_ROUNDS), loss_fn, params,
-        lambda t, n: loader.next_round(), device=dev))
+    logs, secs = wall_s(lambda: qs.main([], device=dev))
     got = read()
-    for lg in logs[::5] + [logs[-1]]:
-        log(f"lm (a) quickstart round {lg.round:3d}  wall-clock "
-            f"{lg.latency_s:8.1f}s  (comm {lg.comm_s:6.1f}s)  loss "
-            f"{lg.loss:.4f}  scheduled {lg.n_scheduled}  uplink "
-            f"{lg.uplink_bits:.2e}b")
-    if not logs[-1].loss < logs[0].loss or got["topk_rows"] != QS_ROUNDS:
+    if not logs[-1].loss < logs[0].loss or got["topk_rows"] != qs.ROUNDS:
         raise AssertionError(f"lm (a) quickstart: loss {logs[0].loss} -> "
                              f"{logs[-1].loss}, launches {got}")
-    log(f"lm (a) quickstart: {QS_ROUNDS} rounds in {secs:.3f} s "
-        f"({QS_ROUNDS / secs:.4f} rounds/s) on {smi}; the loss falls "
+    log(f"lm (a) quickstart: {qs.ROUNDS} rounds in {secs:.3f} s "
+        f"({qs.ROUNDS / secs:.4f} rounds/s) on {smi}; the loss falls "
         f"{logs[0].loss:.4f} -> {logs[-1].loss:.4f}; launches {got}")
     took("(a) quickstart")
 
-    pp = priv.privacy_params(clip=1.0, sigma=0.5)
+    # private_fl's cells on the batches that follow the example's rounds
+    loader = qs.make_loader(cfg.vocab_size)
+    for _ in range(qs.ROUNDS):
+        loader.next_round()
+    pp = priv.privacy_params(clip=pf.CLIP, sigma=pf.SIGMA)
     batches = rt.stack_batches(lambda t, n: loader.next_round(),
-                               PF_CHECK_ROUNDS, QS_N)
+                               PF_CHECK_ROUNDS, qs.N)
     zero()
     for privacy in ("none", "secagg", "secagg_dp"):
-        psim = _qs_sim(cfg, d, PF_CHECK_ROUNDS, privacy=privacy,
-                       privacy_params=pp)
+        psim = qs.sim_config(cfg, PF_CHECK_ROUNDS, privacy=privacy,
+                             privacy_params=pp)
         g, c = (rt.run_simulation_scan(psim, loss_fn, p, _on(batches, dv),
                                        device=dv)[1]
                 for p, dv in ((params, dev), (cparams, "cpu")))
@@ -2321,9 +2260,9 @@ def run_lm(dev, smi: str) -> dict:
             f"{PF_CHECK_ROUNDS} rounds; loss {c.loss.tolist()} (max rel "
             f"diff {rel:.3g}), epsilon {c.epsilon.tolist()}, mask bits "
             f"{c.mask_bits.tolist()}")
-    grid = [priv.privacy_params(clip=1.0, sigma=s) for s in PF_SIGMAS]
-    g, c = (rt.run_sweep(_qs_sim(cfg, d, PF_CHECK_ROUNDS, privacy="dp",
-                                 privacy_params=pp), loss_fn, p,
+    grid = [priv.privacy_params(clip=pf.CLIP, sigma=s) for s in pf.SIGMAS]
+    g, c = (rt.run_sweep(qs.sim_config(cfg, PF_CHECK_ROUNDS, privacy="dp",
+                                       privacy_params=pp), loss_fn, p,
                          _on(batches, dv), seeds=[0], privacies=["dp"],
                          pparams_grid=grid, device=dv)[("age", "dp")]
             for p, dv in ((params, dev), (cparams, "cpu")))
@@ -2331,7 +2270,7 @@ def run_lm(dev, smi: str) -> dict:
     got = read()
     if any(got.values()):
         raise AssertionError(f"lm (a) private_fl: launches {got}")
-    log(f"lm (a) private_fl dp sweep sigma {PF_SIGMAS}: card == cpu; final "
+    log(f"lm (a) private_fl dp sweep sigma {pf.SIGMAS}: card == cpu; final "
         f"loss {c.loss[:, -1].tolist()}, epsilon {c.epsilon[:, -1].tolist()}"
         f"; launches {got}")
     del params, cparams
@@ -2355,9 +2294,9 @@ def run_lm(dev, smi: str) -> dict:
         f"reckoned: the (12, D) EF {12 * gb:.1f} GB, server params "
         f"{gb:.2f} GB (and the caller's copy), about 8 D-sized buffers a "
         f"client in a block of {QS_FULL_CHUNK}: {8 * gb:.1f} GB")
-    loader = _qs_data(cfg.vocab_size)
+    loader = qs.make_loader(cfg.vocab_size)
     batches = rt.stack_batches(lambda t, n: loader.next_round(),
-                               QS_FULL_ROUNDS, QS_N)
+                               QS_FULL_ROUNDS, qs.N)
     b0 = {k_: torch.as_tensor(v[0, 0, 0]) for k_, v in batches.items()}
 
     def value_grad(p, b):
@@ -2374,7 +2313,8 @@ def run_lm(dev, smi: str) -> dict:
     grad_err = (num / den) ** 0.5
     loss_err = abs(float(gl) - float(cl)) / abs(float(cl))
     del gg, cg, cp
-    log(f"lm (b) lm_loss of a ({QS_B}, {QS_SEQ}) batch: card {float(gl):.6f} "
+    log(f"lm (b) lm_loss of a ({qs.BATCH}, {qs.SEQ}) batch: card "
+        f"{float(gl):.6f} "
         f"cpu {float(cl):.6f} (rel diff {loss_err:.3g}); gradient relative "
         f"L2 error {grad_err:.3g}; {secs:.3f} s on the card, {cpu_s:.3f} s on "
         f"the cpu")
@@ -2408,13 +2348,13 @@ def run_lm(dev, smi: str) -> dict:
 
     zero()
     torch.cuda.reset_peak_memory_stats()
-    sim = _qs_sim(cfg, d, QS_FULL_ROUNDS, chunk_size=QS_FULL_CHUNK)
+    sim = qs.topk_config(cfg, d, QS_FULL_ROUNDS, chunk_size=QS_FULL_CHUNK)
     (_, logs), secs = wall_s(lambda: rt.run_simulation_scan(
         sim, lambda p, b: tf.lm_loss(p, cfg, b, remat=False), params,
         _on(batches, dev), device=dev))
     got = read()
     peak = torch.cuda.max_memory_allocated()
-    blocks = -(-QS_N // QS_FULL_CHUNK)
+    blocks = -(-qs.N // QS_FULL_CHUNK)
     for t in range(QS_FULL_ROUNDS):
         log(f"lm (b) round {t}: loss {float(logs.loss[t]):.6f}, uplink "
             f"{float(logs.uplink_bits[t]):.6e} bits, simulated wall clock "
@@ -4630,6 +4570,11 @@ def start_dryrun(dev, names=None) -> None:
             env=env, stdout=logf, stderr=subprocess.STDOUT), logf)
 
 
+def _traces_running() -> list:
+    """The dry-run cases whose subprocess is still running."""
+    return [n for n, (p, _) in DRYRUN_PROCS.items() if p.poll() is None]
+
+
 def stop_dryrun() -> None:
     """Kill any dry-run subprocess still running."""
     for p, logf in DRYRUN_PROCS.values():
@@ -4868,6 +4813,114 @@ def _check_trainer(res: list, key: str, cases) -> None:
             raise AssertionError(f"cluster (c) {what}: {rows}")
 
 
+def run_examples(dev, smi: str) -> dict:
+    """Phase 22: the walk-through examples as a user starts them (``python
+    -m repro_torch.examples.<name>``: their ``main``) at their own
+    constants, those that no earlier phase runs whole. Every kernel counter
+    is set to 0 before each example and read after it; none of these paths
+    reaches a kernel. Returns each kernel's launches across the phase."""
+    from repro_torch.examples import fog_hybrid as fh
+    from repro_torch.examples import hierarchical_fl as hfl
+    from repro_torch.examples import private_fl as pf
+    from repro_torch.examples import wireless_scheduling_sim as wss
+    zero, read, total = _counting(dict(_row_counters(), **_tile_counters()))
+
+    def launched(what):
+        got = read()
+        if any(got.values()):
+            raise AssertionError(f"examples {what}: launches {got}")
+        return got
+
+    def beside(fn):
+        """``fn()``, its seconds, and the dry-run traces running at its
+        start and end (a time taken beside them shares the host)."""
+        before = _traces_running()
+        res, secs = wall_s(fn)
+        return res, secs, (f"beside dry-run traces {before} at the start, "
+                           f"{_traces_running()} at the end")
+
+    # (a) the scheduling study whole on the card; its first rounds against
+    # the same module on the CPU
+    log(f"examples (a) wireless_scheduling_sim on the card, {wss.ROUNDS} "
+        "rounds:")
+    zero()
+    sweep, secs, load = beside(lambda: wss.main([], device=dev))
+    got = launched("(a)")
+    rounds, r = wss.ROUNDS, STUDY_CHECK_ROUNDS
+    log(f"examples (a) wireless_scheduling_sim on the cpu, {r} rounds:")
+    wss.ROUNDS = r
+    try:
+        t0 = time.perf_counter()
+        cpu = wss.main([], device="cpu")
+        cpu_s = time.perf_counter() - t0
+    finally:
+        wss.ROUNDS = rounds
+    rel = 0.0
+    for pol, c in cpu.items():
+        g = sweep[pol]
+        if not (g.loss.shape == (1, rounds) and np.isfinite(g.loss).all()):
+            raise AssertionError(f"examples (a) {pol}: loss {g.loss}")
+        for f in ("participation", "n_scheduled"):
+            np.testing.assert_array_equal(getattr(g, f)[:, :r],
+                                          getattr(c, f),
+                                          err_msg=f"examples (a) {pol} {f}")
+        np.testing.assert_allclose(g.latency_s[:, :r], c.latency_s,
+                                   rtol=1e-5, err_msg=f"examples (a) {pol}")
+        np.testing.assert_allclose(g.loss[:, :r], c.loss, rtol=1e-4,
+                                   err_msg=f"examples (a) {pol}")
+        rel = max(rel, float(np.max(np.abs(g.loss[:, :r] / c.loss - 1))))
+    vr = len(sweep) * rounds
+    log(f"examples (a) wireless_scheduling_sim: {len(sweep)} policies x "
+        f"{rounds} rounds in {secs:.3f} s on {smi}, "
+        f"{secs / vr * 1e3:.3f} ms a variant-round; its first {r} rounds == "
+        f"the cpu's (participation, schedule sizes bitwise; wall clock "
+        f"within rtol 1e-5; loss max rel diff {rel:.3g}); the cpu's {r} "
+        f"rounds in {cpu_s:.3f} s; launches {got}; {load}")
+
+    # (b) hierarchical_fl: flat FL, then HFL at each H, a fresh problem each
+    zero()
+    out, secs, load = beside(lambda: hfl.main([], device=dev))
+    got = launched("(b)")
+    for key, logs in out.items():
+        losses = [lg.loss for lg in logs]
+        if len(logs) != hfl.ROUNDS or not np.all(np.isfinite(losses)):
+            raise AssertionError(f"examples (b) {key}: {losses}")
+        log(f"examples (b) hierarchical_fl {key}: final loss "
+            f"{losses[-1]:.6f}, simulated wall clock "
+            f"{logs[-1].latency_s:.3f} s")
+    log(f"examples (b) hierarchical_fl: {len(out)} runs x {hfl.ROUNDS} "
+        f"rounds in {secs:.3f} s on {smi}; launches {got}; {load}")
+
+    # (c) private_fl: the three mechanisms, then the dp sweep
+    zero()
+    out, secs, load = beside(lambda: pf.main([], device=dev))
+    got = launched("(c)")
+    for key, logs in out.items():
+        loss = (logs.loss[:, -1] if key == "dp"
+                else np.array([logs[-1].loss]))
+        if not np.isfinite(loss).all():
+            raise AssertionError(f"examples (c) {key}: loss {loss}")
+    log(f"examples (c) private_fl: 3 runs and a {len(pf.SIGMAS)}-variant "
+        f"sweep x {pf.ROUNDS} rounds in {secs:.3f} s on {smi}; final loss "
+        f"{[out[k][-1].loss for k in ('none', 'secagg', 'secagg_dp')]}, dp "
+        f"{out['dp'].loss[:, -1].tolist()}, epsilon "
+        f"{out['dp'].epsilon[:, -1].tolist()}; launches {got}; {load}")
+
+    # (d) fog_hybrid: k = 1, 2, 4 on one problem (phase 14(c) runs each k
+    # on a fresh one)
+    zero()
+    out, secs, load = beside(lambda: fh.main([], device=dev))
+    got = launched("(d)")
+    for k, logs in out.items():
+        if not np.isfinite(logs.loss).all():
+            raise AssertionError(f"examples (d) k={k}: loss {logs.loss}")
+    log(f"examples (d) fog_hybrid: k = {list(out)} x {fh.ROUNDS} rounds in "
+        f"{secs:.3f} s on {smi}; final loss "
+        f"{[float(v.loss[-1]) for v in out.values()]}; launches {got}; "
+        f"{load}")
+    return total
+
+
 def main() -> int:
     t0 = time.perf_counter()
     smi = card()
@@ -4897,6 +4950,8 @@ def main() -> int:
               ("leaf", lambda: run_leaf(dev, smi)),
               ("dryrun start rest", lambda: start_dryrun(dev)),
               ("cluster", lambda: run_cluster_phase(dev, smi)),
+              # host-bound, beside the dry-run's last traces
+              ("examples", lambda: run_examples(dev, smi)),
               ("dryrun", lambda: run_dryrun(dev, smi))]
     out = {}
     log(f"phase card: {time.perf_counter() - t0:.2f} s")
@@ -4925,6 +4980,7 @@ def main() -> int:
                      "leaf_launches": out["leaf"][name],
                      "cluster_launches": out["cluster"][name],
                      "dryrun_launches": out["dryrun"][name],
+                     "examples_launches": out["examples"][name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "device_ms": r["device_ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

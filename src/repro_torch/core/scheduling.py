@@ -220,6 +220,10 @@ class RoundState(NamedTuple):
     comp_lat: torch.Tensor       # (N,) compute latency, s
     ages: torch.Tensor           # (N,) rounds since last scheduled
     update_norms: torch.Tensor   # (N,) observed update-norm proxies
+    # (received power, noise power) whose quotient is snr_lin, where the
+    # engine hands them over: the reference's compiled PF score folds
+    # (rx / n0) / avg into rx / (n0 * avg), which breaks round 0's ties
+    snr_parts: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -249,7 +253,8 @@ def masked_round_state(st: RoundState, m: torch.Tensor,
         rates=torch.where(m, st.rates, 1e-9),
         comm_lat=torch.where(m, st.comm_lat, torch.inf),
         comp_lat=torch.where(m, st.comp_lat, torch.inf),
-        update_norms=torch.where(m, st.update_norms, 0.0))
+        # the reference scores this masked SNR (a select) unfolded
+        update_norms=torch.where(m, st.update_norms, 0.0), snr_parts=None)
     return st2 if key is None else st2._replace(key=key)
 
 
@@ -286,7 +291,12 @@ def _latency(pcfg: PolicyConfig, st: RoundState) -> torch.Tensor:
 
 def _pf(pcfg: PolicyConfig, st: RoundState) -> torch.Tensor:
     """Proportional fair (§III.2): instantaneous over time-averaged SNR."""
-    ratio = st.snr_lin / torch.clamp_min(st.avg_snr, 1e-12)
+    avg = torch.clamp_min(st.avg_snr, 1e-12)
+    if st.snr_parts is None:
+        ratio = st.snr_lin / avg
+    else:
+        rx, n0 = st.snr_parts
+        ratio = rx / (n0 * avg)
     return topk_mask_jax(ratio, pcfg.n_scheduled)
 
 

@@ -299,10 +299,16 @@ def sample_fading_jax(key: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def snr_jax(dist_m, fading, cp: ChannelParams, bandwidth_hz=None):
+    rx, n0 = snr_parts_jax(dist_m, fading, cp, bandwidth_hz)
+    return rx / n0
+
+
+def snr_parts_jax(dist_m, fading, cp: ChannelParams, bandwidth_hz=None):
+    """``(received power, noise power)``, whose quotient is the SNR."""
     bw = bandwidth_hz if bandwidth_hz is not None else cp.bandwidth_hz
     p = _pow10((cp.tx_power_dbm - 30.0) * 0.1)
     n0 = _pow10(cp.noise_dbw_per_hz * 0.1) * bw
-    return p * path_gain_jax(dist_m, cp) * fading / n0
+    return p * path_gain_jax(dist_m, cp) * fading, n0
 
 
 def downlink_snr_jax(dist_m, fading, cp: ChannelParams, bandwidth_hz=None):

@@ -589,7 +589,8 @@ class _Engine:
             fad, fading = faults_lib.gauss_markov_fading(fparams, kt, fad, t)
         else:
             fading = wireless.sample_fading_jax(kf, n)
-        snr_lin = wireless.snr_jax(v.dist, fading, chan)
+        rx, n0 = wireless.snr_parts_jax(v.dist, fading, chan)
+        snr_lin = rx / n0
         rates = wireless.shannon_rate_jax(
             snr_lin, chan.bandwidth_hz / cfg.n_scheduled)
         comp_lat = cfg.comp_latency_s * trandom.exponential(kc, (n,))
@@ -605,7 +606,7 @@ class _Engine:
         rstate = scheduling.RoundState(
             t=t, key=kp, snr_lin=snr_lin, avg_snr=avg_snr, rates=rates,
             comm_lat=comm_lat, comp_lat=comp_lat, ages=ages,
-            update_norms=norms)
+            update_norms=norms, snr_parts=(rx, n0))
         if faults_on:
             # churn after pricing: offline devices are invisible to the
             # policy, and index-based policies are intersected with avail

@@ -245,6 +245,21 @@ def test_policy_mixture_matches_reference_and_port_loop():
     _assert_bitwise(tmix, tloop)
 
 
+@pytest.mark.parametrize("n", [8, 16])
+def test_pf_round_zero_ties_match_reference(n):
+    """PF at seeds 0-7: in round 0 every score is an SNR over itself. The
+    reference's compiled program folds ``(rx / n0) / avg`` into ``rx / (n0
+    * avg)``, which lands an ulp off 1 for some devices and so breaks the
+    ties; the flat engine hands the policy ``snr_parts`` to score the same
+    way."""
+    rounds = 3
+    prob = _problem(rounds, n)
+    cfg = jrt.SimConfig(n_devices=n, n_scheduled=3, rounds=rounds,
+                        algo_params=AP01)
+    _assert_sweep_match(*_sweeps(cfg, prob, seeds=list(range(8)),
+                                 policies=["pf"]))
+
+
 def test_sweep_devices_one_degrades_to_single_card():
     rounds, n = 3, 8
     prob = _problem(rounds, n)
